@@ -1,0 +1,33 @@
+"""Explicit device selection.
+
+Counterpart of the JAX package's platform pin (`cmd/main.py`
+CMS_PLATFORM and `pallas_sweep.TwoPhaseSweep(devices=None)` picking
+`jax.local_devices()`): here the device always comes from the caller —
+a `--device` CLI argument or a `device=` parameter. Nothing is guessed
+and nothing falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(spec) -> torch.device:
+    """torch.device for `spec` ("cuda", "cuda:1", "cpu" or a device).
+
+    Raises when a CUDA device is asked for and no card (or not that
+    card) is visible."""
+    dev = torch.device(spec)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {spec!r} requested but torch sees no CUDA card")
+        index = 0 if dev.index is None else dev.index
+        if index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"device {spec!r} requested but only "
+                f"{torch.cuda.device_count()} CUDA card(s) are visible")
+        return torch.device("cuda", index)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {spec!r}: use cuda[:N] or cpu")
+    return dev

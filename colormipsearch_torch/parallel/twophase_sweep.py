@@ -1,0 +1,170 @@
+"""Two-phase sweep (prescreen bound, then exact scoring) over CUDA devices.
+
+Counterpart of `colormipsearch_tpu/parallel/pallas_sweep.py` (:33-176).
+Targets are block-partitioned over the given devices and each device
+runs the whole pipeline on its shard: pack words, pad, prescreen bound,
+live tiles, exact kernel launch. Every (mask, target) score is
+independent, so shards need no collectives. Launches are queued on each
+device's current stream; collect() drains a partition with one batched
+copy per device.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..cds.multimask import (MultiMaskScorer, launch_params,
+                             signal_ranges_from_words, tile_live_from_words)
+from ..cds.pixel_active import drain_deferred
+
+
+def device_blocks(n: int, n_devices: int) -> List[Tuple[int, int]]:
+    """Balanced contiguous (offset, length) blocks of n items over
+    n_devices devices (first n % n_devices blocks get one extra)."""
+    base, extra = divmod(n, n_devices)
+    blocks, off = [], 0
+    for d in range(n_devices):
+        ln = base + (1 if d < extra else 0)
+        blocks.append((off, ln))
+        off += ln
+    return blocks
+
+
+class TwoPhaseSweep:
+    """Two-phase exact sweep over the given devices.
+
+    engines: one ActiveTilePixelEngine per mask.
+    devices: the torch.devices to shard targets over (explicit).
+    screen/u_matrix/thresholds: optional prescreen — u_matrix is the
+      stacked [B, F] query feature matrix (uploaded once per device),
+      thresholds the per-mask keep thresholds in pixels. Without a screen
+      every pair is scored exactly.
+
+    Each group of engines that share CDS params (zTolerance, xyShift) gets
+    one multi-mask launch per device and partition."""
+
+    def __init__(self, engines: Sequence, devices: Sequence, screen=None,
+                 u_matrix: Optional[np.ndarray] = None,
+                 thresholds: Optional[np.ndarray] = None):
+        self.engines = list(engines)
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("no devices")
+        self.screen = screen
+        self.u_matrix = u_matrix
+        self.thresholds = thresholds
+        self._u_dev = {}
+        by_params = {}
+        for i, e in enumerate(self.engines):
+            by_params.setdefault(launch_params(e), []).append(i)
+        self.groups = [(np.array(idx), MultiMaskScorer(
+                            [self.engines[i] for i in idx]))
+                       for idx in by_params.values()]
+
+    def _u_for(self, device):
+        got = self._u_dev.get(device)
+        if got is None:
+            got = torch.from_numpy(np.asarray(self.u_matrix)).to(device)
+            self._u_dev[device] = got
+        return got
+
+    def launch(self, targets_u8: np.ndarray, stage: Optional[dict] = None,
+               sync: bool = False):
+        """Queue the full two-phase sweep of one target batch on every
+        device; returns a handle for collect(). Only the bounds copy to
+        the host waits for a device.
+
+        stage: optional dict that accumulates host seconds per stage
+        (pack, pad, bound, live, launch) and the count of screened-out
+        pairs. sync: end each stage with a device synchronize, so that
+        its seconds include its device work (a profiling aid: it stops
+        the device work of one stage from overlapping the next)."""
+        tsz = targets_u8.shape[0]
+        launched = []  # (offset, length, [DeferredScore per mask])
+        clock = [time.perf_counter()]
+
+        def mark(key, dev):
+            if stage is None:
+                return
+            if sync and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            stage[key] = stage.get(key, 0.0) + now - clock[0]
+            clock[0] = now
+
+        for dev, (off, ln) in zip(self.devices,
+                                  device_blocks(tsz, len(self.devices))):
+            if ln == 0:
+                continue
+            eng0 = self.engines[0]
+            clock[0] = time.perf_counter()
+            words = eng0.pack_raw_words(targets_u8[off:off + ln], dev)
+            mark("pack", dev)
+            packed = eng0.pad_from_words(words)
+            mark("pad", dev)
+            if self.screen is None:
+                survivors = np.ones((len(self.engines), ln), np.int32)
+            else:
+                bounds = self.screen.bounds_from_words(self._u_for(dev),
+                                                       words)  # [B, ln]
+                survivors = (bounds > self.thresholds[:, None]).astype(
+                    np.int32)
+                if stage is not None:
+                    stage["screened"] = stage.get("screened", 0) + int(
+                        (survivors == 0).sum())
+                mark("bound", dev)
+            ranges = signal_ranges_from_words(words)
+            live = tile_live_from_words(words)
+            del words
+            mark("live", dev)
+            defs = [None] * len(self.engines)
+            for idx, scorer in self.groups:
+                for i, d in zip(idx, scorer.launch_deferred(
+                        packed, survivors[idx], signal_ranges=ranges,
+                        tile_live=live)):
+                    defs[i] = d
+            mark("launch", dev)
+            launched.append((off, ln, defs))
+        return tsz, launched
+
+    def collect(self, handle):
+        """Drain one launch()'s results (all devices, all masks); returns
+        (scores int64 [B, T], mirrored bool [B, T]) in target order."""
+        tsz, launched = handle
+        bsz = len(self.engines)
+        scores = np.zeros((bsz, tsz), dtype=np.int64)
+        mirrored = np.zeros((bsz, tsz), dtype=bool)
+        results = drain_deferred([d for _, _, defs in launched
+                                  for d in defs])
+        k = 0
+        for off, ln, _ in launched:
+            for i in range(bsz):
+                s, _, m = results[k]
+                scores[i, off:off + ln] = s
+                mirrored[i, off:off + ln] = m
+                k += 1
+        return scores, mirrored
+
+    def sweep(self, targets_u8: np.ndarray, stage: Optional[dict] = None):
+        """launch + collect in one call."""
+        return self.collect(self.launch(targets_u8, stage))
+
+    def sweep_parts(self, parts: Iterable, stage: Optional[dict] = None,
+                    sync: bool = False):
+        """Pipelined sweep of many partitions: yields (key, scores,
+        mirrored) for each (key, targets_u8) of `parts`, in order.
+        Partition p+1 is launched before partition p is collected, so the
+        host work of p's drain and of the caller's use of p overlaps the
+        device work of p+1."""
+        inflight = None
+        for key, targets_u8 in parts:
+            nxt = (key, self.launch(targets_u8, stage, sync))
+            if inflight is not None:
+                yield (inflight[0],) + self.collect(inflight[1])
+            inflight = nxt
+        if inflight is not None:
+            yield (inflight[0],) + self.collect(inflight[1])

@@ -11,10 +11,11 @@ mask of a target partition.
   3x3-dilated tile-presence bitmaps of tile_live_from_words, intersected
   with the target's signal row and column intervals). Skipped tiles
   provably score 0, so any exact skip gives the same scores.
-- Device side, `multimask_counts` launches the hand-written Hopper kernel
-  (`csrc/multimask_ratio.cu`) on CUDA tensors and runs its plain PyTorch
-  version, `multimask_counts_plain`, on CPU tensors. `multimask_counts.
-  launches` counts kernel launches.
+- Device side, one kernel per predicate, each with a plain PyTorch
+  version that CPU tensors run: `multimask_counts` launches the ratio
+  kernel (`csrc/multimask_ratio.cu`, K1), `multimask_words_counts` the
+  packed-word kernel (`csrc/multimask_words.cu`, K3a). Each wrapper's
+  `.launches` counts its kernel launches.
 
 Left out: the tier-2 bin-compat gate (off by default in the reference),
 and the adaptive live-table gate, ROWS, G_BUCKET and pow2 k-grid buckets,
@@ -23,6 +24,7 @@ which exist for Mosaic's SMEM limits and compile costs.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
@@ -32,12 +34,13 @@ import torch
 from colormipsearch_tpu.cds.oracle import shift_ring_offsets
 
 from . import kernels
-from .pixel_active import TILE_H, TILE_W, DeferredScore
+from .pixel_active import (TILE_H, TILE_W, DeferredScore, _match_unpacked,
+                           _unpack)
 
-KERNEL_XY_SHIFTS = (0, 2)  # xy_shift values the kernel is built for
+KERNEL_XY_SHIFTS = (0, 2)  # xy_shift values the kernels are built for
 
 
-# ---- the exact kernel: plain version and wrapper --------------------------
+# ---- the exact kernels: plain versions and wrappers ------------------------
 
 def _ratio_match(rf, fw, qc, qf):
     """Ratio-interval predicate (reference pixel_pallas._ratio_consts and
@@ -72,21 +75,12 @@ def _pairs(row_off, tile_list, surv):
     return rows[keep], tiles[keep]
 
 
-def multimask_counts_plain(frames, flipped, q_cmp, q_f32, coords, row_off,
-                           tile_list, tgt, surv, xy_shift: int, mirror: bool):
-    """Plain PyTorch version of the exact kernel (same arguments).
-
-    frames, flipped: int32 [T, Hp, Wp] ring-padded frames and x-flips;
-    q_cmp int32 [NT, 8, 128], q_f32 f32 [NT, 4, 8, 128] and coords int32
-    [NT, 2] are the stacked query tiles of every mask; row_off int32
-    [R+1] and tile_list int32 [L] give each row's live tiles; tgt and
-    surv int32 [R] give each row's target and survivor flag. Returns
-    int32 [R, 2|S|] per-variant match counts (direct variants then
-    mirrored; mirrored columns are 0 when mirror is off).
-
-    Gathers each (row, tile) window by indexing, builds the ratio and
-    flag planes, takes one slice per variant, applies the predicate and
-    sums."""
+def _counts_plain(frames, flipped, coords, row_off, tile_list, tgt, surv,
+                  xy_shift: int, mirror: bool, prep, query, match):
+    """The exact counts for either predicate, as plain torch ops: gathers
+    each (row, tile) window by indexing, prepares it once
+    (prep(window) -> tuple of planes), takes one slice per variant and
+    sums match(sliced planes, query(tile indices)) over the tile."""
     offsets = shift_ring_offsets(xy_shift)
     ns, s = len(offsets), xy_shift
     out = torch.zeros((tgt.numel(), 2 * ns), dtype=torch.int32,
@@ -105,19 +99,48 @@ def multimask_counts_plain(frames, flipped, q_cmp, q_f32, coords, row_off,
         rx = (coords[tb, 1].to(torch.int64) + TILE_W - s)[:, None, None]
         yy = ry + ys[None, :, None]
         xx = rx + xs[None, None, :]
-        qc, qf = q_cmp[tb], q_f32[tb]
+        qv = query(tb)
         cnt = torch.zeros((rb.numel(), 2 * ns), dtype=torch.int32,
                           device=dev)
         for pi, plane in enumerate(planes):
-            rf, fw = _ratio_prep(plane[ti, yy, xx])
+            win = prep(plane[ti, yy, xx])
             for vi, (dx, dy) in enumerate(offsets):
                 r0, c0 = s + dy, s + dx
-                m = _ratio_match(rf[:, r0:r0 + TILE_H, c0:c0 + TILE_W],
-                                 fw[:, r0:r0 + TILE_H, c0:c0 + TILE_W],
-                                 qc, qf)
+                m = match(tuple(w[:, r0:r0 + TILE_H, c0:c0 + TILE_W]
+                                for w in win), qv)
                 cnt[:, pi * ns + vi] = m.sum(dim=(1, 2), dtype=torch.int32)
         out.index_add_(0, rb, cnt)
     return out
+
+
+def multimask_counts_plain(frames, flipped, q_cmp, q_f32, coords, row_off,
+                           tile_list, tgt, surv, xy_shift: int, mirror: bool):
+    """Plain PyTorch version of the ratio kernel (same arguments).
+
+    frames, flipped: int32 [T, Hp, Wp] ring-padded frames and x-flips;
+    q_cmp int32 [NT, 8, 128], q_f32 f32 [NT, 4, 8, 128] and coords int32
+    [NT, 2] are the stacked query tiles of every mask; row_off int32
+    [R+1] and tile_list int32 [L] give each row's live tiles; tgt and
+    surv int32 [R] give each row's target and survivor flag. Returns
+    int32 [R, 2|S|] per-variant match counts (direct variants then
+    mirrored; mirrored columns are 0 when mirror is off)."""
+    return _counts_plain(
+        frames, flipped, coords, row_off, tile_list, tgt, surv, xy_shift,
+        mirror, _ratio_prep, lambda tb: (q_cmp[tb], q_f32[tb]),
+        lambda t, q: _ratio_match(t[0], t[1], q[0], q[1]))
+
+
+def multimask_words_counts_plain(frames, flipped, q_words, coords, row_off,
+                                 tile_list, tgt, surv, xy_shift: int,
+                                 mirror: bool, triples):
+    """Plain PyTorch version of the packed-word kernel: the arguments of
+    multimask_counts_plain with q_words int32 [NT, 8, 128], the raw query
+    words, in place of q_cmp and q_f32, and the predicate's six
+    constants `triples` (pixel_active.word_triples). Same output."""
+    return _counts_plain(
+        frames, flipped, coords, row_off, tile_list, tgt, surv, xy_shift,
+        mirror, _unpack, lambda tb: _unpack(q_words[tb]),
+        lambda t, q: _match_unpacked(q, t, triples))
 
 
 def _check(name, t, dtype, ndim, device):
@@ -130,47 +153,67 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def multimask_counts(frames, flipped, q_cmp, q_f32, coords, row_off,
-                     tile_list, tgt, surv, xy_shift: int, mirror: bool):
-    """Exact per-variant counts (see multimask_counts_plain).
-
-    CPU tensors run the plain version. CUDA tensors launch the Hopper
-    kernel (built at first use) or raise; there is no fallback."""
-    args = (frames, flipped, q_cmp, q_f32, coords, row_off, tile_list,
-            tgt, surv)
+def _on_cuda(args) -> bool:
+    """False for all-CPU tensors, True for all-CUDA ones; raises on a mix."""
     kinds = {t.device.type for t in args}
     if kinds == {"cpu"}:
-        return multimask_counts_plain(*args, xy_shift, mirror)
+        return False
     if kinds != {"cuda"}:
         raise ValueError(f"tensors on {sorted(kinds)}: expected all on one "
                          "CUDA device or all on the CPU")
-    lib = kernels.load_library().lib
+    return True
+
+
+def _check_table(frames, flipped, query, coords, row_off, tile_list, tgt,
+                 surv, xy_shift):
+    """Validate a launch's tensors for the kernels; returns (n_rows, nv).
+    query: [(name, tensor, dtype, shape after the tile count)]."""
     dev = frames.device
     for name, t, dt, nd in (("frames", frames, torch.int32, 3),
                             ("flipped", flipped, torch.int32, 3),
-                            ("q_cmp", q_cmp, torch.int32, 3),
-                            ("q_f32", q_f32, torch.float32, 4),
                             ("coords", coords, torch.int32, 2),
                             ("row_off", row_off, torch.int32, 1),
                             ("tile_list", tile_list, torch.int32, 1),
                             ("tgt", tgt, torch.int32, 1),
                             ("surv", surv, torch.int32, 1)):
         _check(name, t, dt, nd, dev)
+    n_tiles = coords.shape[0]
+    for name, t, dt, shape in query:
+        _check(name, t, dt, 1 + len(shape), dev)
+        if tuple(t.shape) != (n_tiles,) + shape:
+            raise ValueError(f"{name}: expected [NT]+{list(shape)} with NT "
+                             f"= {n_tiles} tiles, got {tuple(t.shape)}")
+    if tuple(coords.shape) != (n_tiles, 2):
+        raise ValueError("coords must be [NT, 2]")
     if xy_shift not in KERNEL_XY_SHIFTS:
         raise ValueError(f"xy_shift {xy_shift} not in {KERNEL_XY_SHIFTS}")
-    n_tiles = q_cmp.shape[0]
     if flipped.shape != frames.shape:
         raise ValueError("frames and flipped differ in shape")
-    if (tuple(q_cmp.shape[1:]) != (TILE_H, TILE_W)
-            or tuple(q_f32.shape) != (n_tiles, 4, TILE_H, TILE_W)
-            or tuple(coords.shape) != (n_tiles, 2)):
-        raise ValueError("query tiles must be q_cmp [NT, 8, 128], q_f32 "
-                         "[NT, 4, 8, 128] and coords [NT, 2]")
     n_rows = tgt.numel()
     if surv.numel() != n_rows or row_off.numel() != n_rows + 1:
         raise ValueError("tgt and surv need one entry per row and row_off "
                          "one more")
-    nv = 2 * len(shift_ring_offsets(xy_shift))
+    return n_rows, 2 * len(shift_ring_offsets(xy_shift))
+
+
+def multimask_counts(frames, flipped, q_cmp, q_f32, coords, row_off,
+                     tile_list, tgt, surv, xy_shift: int, mirror: bool):
+    """Exact per-variant counts, ratio predicate (see
+    multimask_counts_plain).
+
+    CPU tensors run the plain version. CUDA tensors launch the Hopper
+    kernel (built at first use) or raise; there is no fallback."""
+    args = (frames, flipped, q_cmp, q_f32, coords, row_off, tile_list,
+            tgt, surv)
+    if not _on_cuda(args):
+        return multimask_counts_plain(*args, xy_shift, mirror)
+    lib = kernels.load_library("multimask_ratio").lib
+    n_rows, nv = _check_table(
+        frames, flipped, [("q_cmp", q_cmp, torch.int32, (TILE_H, TILE_W)),
+                          ("q_f32", q_f32, torch.float32,
+                           (4, TILE_H, TILE_W))],
+        coords, row_off, tile_list, tgt, surv, xy_shift)
+    dev = frames.device
     out = torch.empty((n_rows, nv), dtype=torch.int32, device=dev)
     if n_rows == 0:
         return out
@@ -189,6 +232,53 @@ def multimask_counts(frames, flipped, q_cmp, q_f32, coords, row_off,
 
 
 multimask_counts.launches = 0
+
+
+def multimask_words_counts(frames, flipped, q_words, coords, row_off,
+                           tile_list, tgt, surv, xy_shift: int, mirror: bool,
+                           triples):
+    """Exact per-variant counts, packed-word predicate (see
+    multimask_words_counts_plain).
+
+    CPU tensors run the plain version. CUDA tensors launch the Hopper
+    kernel (built at first use) or raise; there is no fallback."""
+    args = (frames, flipped, q_words, coords, row_off, tile_list, tgt, surv)
+    if not _on_cuda(args):
+        return multimask_words_counts_plain(*args, xy_shift, mirror, triples)
+    lib = kernels.load_library("multimask_words").lib
+    n_rows, nv = _check_table(
+        frames, flipped, [("q_words", q_words, torch.int32,
+                           (TILE_H, TILE_W))],
+        coords, row_off, tile_list, tgt, surv, xy_shift)
+    flat = [int(v) for tr in triples for v in tr]
+    if len(flat) != 18:
+        raise ValueError("triples: expected six (Q, Rhi, Rlo) triples")
+    dev = frames.device
+    out = torch.empty((n_rows, nv), dtype=torch.int32, device=dev)
+    if n_rows == 0:
+        return out
+    _, hp, wp = frames.shape
+    rc = lib.cms_multimask_words(
+        frames.data_ptr(), flipped.data_ptr(), hp, wp, q_words.data_ptr(),
+        coords.data_ptr(), row_off.data_ptr(), tile_list.data_ptr(), n_rows,
+        tgt.data_ptr(), surv.data_ptr(), xy_shift, int(bool(mirror)),
+        (ctypes.c_int * 18)(*flat), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    if rc != 0:
+        raise RuntimeError(f"multimask_words kernel launch failed: "
+                           f"cudaError {rc}")
+    multimask_words_counts.launches += 1
+    return out
+
+
+multimask_words_counts.launches = 0
+
+# predicate -> (kernel wrapper, plain version); both take a launch's
+# tensors followed by MultiMaskScorer.kernel_tail()
+PREDICATE_KERNELS = {
+    "ratio": (multimask_counts, multimask_counts_plain),
+    "words": (multimask_words_counts, multimask_words_counts_plain),
+}
 
 
 # ---- live tiles and signal ranges ----------------------------------------
@@ -265,8 +355,9 @@ class LaunchTable:
 
 def launch_params(engine) -> tuple:
     """The CDS params that engines of one launch must share (zTolerance,
-    xyShift)."""
-    return engine.zt9, engine.xy_shift
+    xyShift) and the exact predicate: engines of different predicates
+    never share a launch (the reference asserts it, multimask.py:472)."""
+    return engine.zt9, engine.xy_shift, engine.predicate
 
 
 def shared_params(engines) -> bool:
@@ -277,9 +368,10 @@ def shared_params(engines) -> bool:
 class MultiMaskScorer:
     """One-launch-many-masks exact sweep over a shared target block.
 
-    engines: ActiveTilePixelEngine per mask; they must share zTolerance
-    and xyShift. Their query tiles are stacked once on the host and
-    uploaded once per device."""
+    engines: ActiveTilePixelEngine per mask; they must share zTolerance,
+    xyShift and predicate. Their query tiles (the predicate's tables:
+    q_cmp and q_f32 for "ratio", q_words for "words") are stacked once on
+    the host and uploaded once per device."""
 
     def __init__(self, engines: Sequence):
         self.engines = list(engines)
@@ -287,10 +379,11 @@ class MultiMaskScorer:
             raise ValueError("no engines")
         if not shared_params(self.engines):
             raise ValueError("a multi-mask launch needs shared CDS params "
-                             "(zTolerance, xyShift)")
-        self.zt9 = self.engines[0].zt9
-        self.xy_shift = self.engines[0].xy_shift
-        self.shifts = self.engines[0].shifts
+                             "(zTolerance, xyShift) and one predicate")
+        e0 = self.engines[0]
+        self.zt9, self.xy_shift, self.predicate = launch_params(e0)
+        self.shifts = e0.shifts
+        self.triples = e0.triples
         self.mirror = any(e.mirror_query for e in self.engines)
         sizes = {(e.tiles.height, e.tiles.width) for e in self.engines}
         if len(sizes) != 1:
@@ -303,18 +396,35 @@ class MultiMaskScorer:
         self._tile_off = np.concatenate([[0], np.cumsum(counts)]).astype(
             np.int64)
         tiles = [e.tiles for e in self.engines]
-        self._q_host = (
-            np.concatenate([t.q_cmp for t in tiles]).astype(np.int32),
-            np.concatenate([t.q_f32 for t in tiles]).astype(np.float32),
-            np.concatenate([t.coords for t in tiles]).astype(np.int32))
-        self._q_dev = {}  # torch.device -> (q_cmp, q_f32, coords)
+        names = (("q_words",) if self.predicate == "words"
+                 else ("q_cmp", "q_f32"))
+        # the kernel's query arguments in order: the tables, then coords
+        self._q_host = tuple(
+            np.concatenate([getattr(t, n) for t in tiles])
+            for n in names + ("coords",))
+        self._q_dev = {}  # torch.device -> the query tensors
 
     def _q_for(self, device: torch.device):
+        """The stacked query tensors on `device`, in the kernel's argument
+        order: (q_cmp, q_f32, coords) or (q_words, coords)."""
         got = self._q_dev.get(device)
         if got is None:
             got = tuple(torch.from_numpy(a).to(device) for a in self._q_host)
             self._q_dev[device] = got
         return got
+
+    def kernel_tail(self) -> tuple:
+        """The arguments of the predicate's kernel after the launch's
+        tensors: xy_shift, mirror and, for "words", the six triples."""
+        tail = (self.xy_shift, self.mirror)
+        return tail + ((self.triples,) if self.predicate == "words" else ())
+
+    def counts(self, packed, query, table):
+        """Per-variant counts of one launch through the predicate's
+        wrapper: packed (frames, flipped), query = _q_for(device), table =
+        (row_off, tile_list, tgt, surv) tensors."""
+        kernel, _ = PREDICATE_KERNELS[self.predicate]
+        return kernel(*packed, *query, *table, *self.kernel_tail())
 
     def build_table(self, survivors: np.ndarray,
                     signal_ranges: Optional[np.ndarray] = None,
@@ -381,7 +491,7 @@ class MultiMaskScorer:
         (on the frames' device); returns one DeferredScore per engine
         (drain with pixel_active.drain_deferred: the shared output is
         copied once)."""
-        frames, flipped = packed
+        frames, _ = packed
         if tuple(frames.shape[1:]) != self.frame_shape:
             raise ValueError(f"padded frames {tuple(frames.shape[1:])} do "
                              f"not fit masks padded to {self.frame_shape}")
@@ -389,11 +499,9 @@ class MultiMaskScorer:
         tsz = frames.shape[0]
         surv_np = np.asarray(survivors).astype(np.int32)
         tab = self.build_table(surv_np, signal_ranges, tile_live)
-        q_cmp, q_f32, coords = self._q_for(dev)
-        up = [torch.from_numpy(a).to(dev) for a in
-              (tab.row_off, tab.tile_list, tab.tgt, tab.surv)]
-        out = multimask_counts(frames, flipped, q_cmp, q_f32, coords, *up,
-                               self.xy_shift, self.mirror)
+        table = [torch.from_numpy(a).to(dev) for a in
+                 (tab.row_off, tab.tile_list, tab.tgt, tab.surv)]
+        out = self.counts(packed, self._q_for(dev), table)
         pendings = [[] for _ in self.engines]
         for pos, (rows, dest) in tab.spans.items():
             pendings[pos].append((dest, out, rows))

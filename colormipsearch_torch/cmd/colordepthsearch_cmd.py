@@ -6,6 +6,11 @@ session entity, match building and flushing) is copied from it; the
 device work is the port's two-phase path
 (`parallel/twophase_sweep.TwoPhaseSweep`) on the `--device` given.
 
+The exact predicate follows the JAX package's own switch,
+`CMS_RATIO_PRED` (read once per run, default "1"): "1" runs the ratio
+kernel, any other value (the reference's "0") the packed-word kernel.
+Both give the same scores. No other `CMS_*` variable is read.
+
 Refused here, each with a pointer to ROADMAP.md: `--engine dense` (the
 dense engine is a later port) and `--jax-distributed` (multi-host is a
 later port). The multi-process grid options of the reference
@@ -286,7 +291,11 @@ def run(args: argparse.Namespace) -> int:
     all_matches: List[CDMatchEntity] = []
     target_parts = partition_collection(targets, args.processingPartitionSize)
     ratio_threshold = (args.pctPositivePixels or 0.0) / 100.0
-    LOG.info("scoring on %s (two-phase active-tile path)", device)
+    # the reference's switch (pixel_pallas.py:278): ratio only for "1"
+    ratio_pred = os.environ.get("CMS_RATIO_PRED", "1")
+    predicate = "ratio" if ratio_pred == "1" else "words"
+    LOG.info("scoring on %s (two-phase active-tile path, %s predicate; "
+             "CMS_RATIO_PRED=%s)", device, predicate, ratio_pred)
 
     # query tables once per mask, over a host thread pool (decode, tile
     # packing and ratio-plane tables are GIL-releasing numpy/PIL work)
@@ -300,7 +309,7 @@ def run(args: argparse.Namespace) -> int:
         return (mask, ActiveTilePixelEngine(
             mip.image, args.maskThreshold, args.mirrorMask,
             args.dataThreshold, args.pixColorFluctuation, args.xyShift,
-            excluded))
+            excluded, predicate))
 
     t_prep = time.perf_counter()
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 2) as pool:

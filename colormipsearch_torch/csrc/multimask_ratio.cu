@@ -1,4 +1,5 @@
-// Exact multi-mask colour-depth scorer for NVIDIA Hopper (sm_90a).
+// Exact multi-mask colour-depth scorer for NVIDIA Hopper (sm_90a), ratio
+// predicate.
 //
 // Replaces the two TPU (Pallas) kernels of the exact phase:
 //   K1 colormipsearch_tpu/cds/multimask.py:_make_kernel (ratio=True,
@@ -16,21 +17,13 @@
 // holds against the target pixel at that shift. Counts are int32 integers,
 // so they are exact in any order.
 //
-// Work split: one thread block per launch row (a mask and a target, given
-// by the host table). The block walks the row's live-tile list
-// tile_list[row_off[r] .. row_off[r+1]). No state carries across blocks.
-// Each block writes its row's [2|S|] counts, zeros when surv == 0.
-//
-// Per (row, tile): stage in shared memory the (8+2s) x (128+2s) region of
-// the padded frame that the shifts reach (origin (cy+8-s, cx+128-s)),
-// direct and flipped, as the f32 ratio plane a2/b2 (-1 where a2 == 0) and
-// the flag plane w >> 16 (_ratio_prep, pixel_pallas.py:291-297). The
-// divide is IEEE (no fast-math), so the plane equals the reference's bit
-// for bit. Each of the 256 threads owns 4 query pixels (one column, rows
-// r, r+2, r+4, r+6), loads their compare constants (_ratio_consts,
+// Work split, staging and reduction: multimask_common.cuh. The staged
+// planes are the f32 ratio plane a2/b2 (-1 where a2 == 0) and the flag
+// plane w >> 16 (_ratio_prep, pixel_pallas.py:291-297). The divide is
+// IEEE (no fast-math), so the plane equals the reference's bit for bit.
+// Each thread loads its query pixels' compare constants (_ratio_consts,
 // pixel_pallas.py:281-288) into registers and evaluates all 2|S| variants
-// against shared memory, with one register counter per variant. A block
-// reduction writes the counters once per row.
+// against shared memory.
 //
 // What bounds it on the card: per live (row, tile) the block reads
 // 2 x 12 x 132 x 4 B = 12.7 KB of target window and 20 KB of query
@@ -43,40 +36,16 @@
 // compare constant includes the target's sel bit), and skips query pixels
 // whose three compare constants are all sentinels (they never match).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "multimask_common.cuh"
 
 namespace {
 
-constexpr int TILE_H = 8;
-constexpr int TILE_W = 128;
-constexpr int THREADS = 256;
-constexpr int TILE_PX = TILE_H * TILE_W;
-constexpr int ROWS_PER_PASS = THREADS / TILE_W;     // 2
-constexpr int PX_PER_THREAD = TILE_PX / THREADS;    // 4
+using namespace cms;
 
 // compare-constant sentinels (ratio_bounds.py _SAME_SENT/_UP_SENT/_DN_SENT)
 constexpr int SAME_SENT = 31;
 constexpr int UP_SENT = 31;
 constexpr int DN_SENT = 63;
-
-// Shift v of oracle.shift_ring_offsets(xy): v = 0 is (0, 0); then for each
-// ring i = 2, 4, .. the 8 offsets (xx, yy) in {-i, 0, i}^2 without (0, 0),
-// xx major. Returns (dx, dy) = (xx, yy).
-__host__ __device__ constexpr int ring_dx(int v) {
-  if (v == 0) return 0;
-  const int i = 2 * ((v - 1) / 8 + 1);
-  const int k = (v - 1) % 8;
-  return k < 3 ? -i : (k < 5 ? 0 : i);
-}
-
-__host__ __device__ constexpr int ring_dy(int v) {
-  if (v == 0) return 0;
-  const int i = 2 * ((v - 1) / 8 + 1);
-  const int k = (v - 1) % 8;
-  const int pos = k < 3 ? k : (k == 3 ? 0 : (k == 4 ? 2 : k - 5));
-  return pos == 0 ? -i : (pos == 1 ? 0 : i);
-}
 
 struct QConst {
   int sc, uc, dc;
@@ -129,13 +98,11 @@ multimask_ratio_kernel(const int32_t* __restrict__ frames,
   constexpr int S = XY;  // largest |dx|, |dy| of the ring
   constexpr int NS = 1 + 4 * XY;
   constexpr int NV = 2 * NS;
-  constexpr int RH = TILE_H + 2 * S;
   constexpr int RW = TILE_W + 2 * S;
-  constexpr int RN = RH * RW;
+  constexpr int RN = (TILE_H + 2 * S) * RW;
 
   __shared__ float rf_s[2][RN];
   __shared__ uint8_t fw_s[2][RN];
-  __shared__ int red_s[THREADS / 32][NV];
 
   const int tid = threadIdx.x;
   const int col = tid % TILE_W;
@@ -156,28 +123,11 @@ multimask_ratio_kernel(const int32_t* __restrict__ frames,
 
   for (int k = row_off[r]; k < row_off[r + 1]; ++k) {
     const int tile = tile_list[k];
-    const int ry = coords[2 * tile] + TILE_H - S;
-    const int rx = coords[2 * tile + 1] + TILE_W - S;
-    __syncthreads();  // the previous tile's readers are done
-    int any_d = 0;
-    int any_m = 0;
-    for (int e = tid; e < RN; e += THREADS) {
-      const int y = e / RW;
-      const int x = e - y * RW;
-      const long long off = fbase + static_cast<long long>(ry + y) * wp
-                            + (rx + x);
-      const int wd = frames[off];
-      stage_word(wd, rf_s[0], fw_s[0], e);
-      any_d |= (wd >> 19) & 1;
-      if (mirror) {
-        const int wm = flipped[off];
-        stage_word(wm, rf_s[1], fw_s[1], e);
-        any_m |= (wm >> 19) & 1;
-      }
-    }
-    any_d = __syncthreads_or(any_d);
-    any_m = __syncthreads_or(any_m);
-    if (!(any_d | any_m)) continue;  // uniform: no target signal here
+    const int any = stage_region<S>(
+        frames, flipped, fbase, wp, coords[2 * tile] + TILE_H - S,
+        coords[2 * tile + 1] + TILE_W - S, mirror,
+        [&](int p, int e, int w) { stage_word(w, rf_s[p], fw_s[p], e); });
+    if (!any) continue;  // uniform: no target signal here
 
     const size_t tbase = static_cast<size_t>(tile) * TILE_PX;
 #pragma unroll
@@ -199,28 +149,11 @@ multimask_ratio_kernel(const int32_t* __restrict__ frames,
       q.cup = qf[2 * TILE_PX];
       q.cdn = qf[3 * TILE_PX];
       const int base = (qy + S) * RW + (col + S);
-      if (any_d) score_pixel<XY>(rf_s[0], fw_s[0], base, q, cnt_d);
-      if (any_m) score_pixel<XY>(rf_s[1], fw_s[1], base, q, cnt_m);
+      if (any & 1) score_pixel<XY>(rf_s[0], fw_s[0], base, q, cnt_d);
+      if (any & 2) score_pixel<XY>(rf_s[1], fw_s[1], base, q, cnt_m);
     }
   }
-
-  // block reduction: warp shuffles, then one partial per warp in smem
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    int x = v < NS ? cnt_d[v] : cnt_m[v - NS];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-    if (lane == 0) red_s[warp][v] = x;
-  }
-  __syncthreads();
-  if (tid < NV) {
-    int s = 0;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) s += red_s[w][tid];
-    out[r * NV + tid] = s;
-  }
+  reduce_write<NS>(cnt_d, cnt_m, out + r * NV);
 }
 
 template <int XY>
@@ -257,18 +190,14 @@ extern "C" int cms_multimask_ratio(
   if (n_rows <= 0) return 0;
   if (xy_shift != 0 && xy_shift != 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = xy_shift == 0
-            ? launch<0>(frames, flipped, hp, wp, q_cmp, q_f32, coords,
-                        row_off, tile_list, n_rows, tgt, surv, mirror, out, s)
-            : launch<2>(frames, flipped, hp, wp, q_cmp, q_f32, coords,
-                        row_off, tile_list, n_rows, tgt, surv, mirror, out,
-                        s);
-  const cudaError_t restore = cudaSetDevice(prev);
-  return static_cast<int>(err != cudaSuccess ? err : restore);
+  return on_device(device, [&] {
+    return xy_shift == 0
+               ? launch<0>(frames, flipped, hp, wp, q_cmp, q_f32, coords,
+                           row_off, tile_list, n_rows, tgt, surv, mirror,
+                           out, s)
+               : launch<2>(frames, flipped, hp, wp, q_cmp, q_f32, coords,
+                           row_off, tile_list, n_rows, tgt, surv, mirror,
+                           out, s);
+  });
 }

@@ -1,0 +1,1 @@
+"""Diagnostic entry points of the port (run with python -m)."""

@@ -1,5 +1,6 @@
-"""On a CUDA card: the exact multi-mask kernel equals its plain PyTorch
-version, and the two-phase sweep on the card equals the sweep on the CPU.
+"""On a CUDA card: the exact multi-mask kernels (ratio and packed-word
+predicates) and the op-chain kernel equal their plain PyTorch versions,
+and the two-phase sweep on the card equals the sweep on the CPU.
 
 These tests import no JAX, so they run on a machine that has only the
 port's dependencies:
@@ -18,6 +19,7 @@ from colormipsearch_torch.cds.pixel_active import (  # noqa: E402
 from colormipsearch_torch.cds.prescreen import PairPrescreen  # noqa: E402
 from colormipsearch_torch.parallel.twophase_sweep import \
     TwoPhaseSweep  # noqa: E402
+from colormipsearch_torch.scripts import op_microbench as ob  # noqa: E402
 
 
 @pytest.fixture
@@ -93,3 +95,63 @@ def test_sweep_on_card_equals_cpu(card):
     for (gs, _, gm), (cs, _, cm) in zip(one, one_cpu):
         np.testing.assert_array_equal(gs, cs)
         np.testing.assert_array_equal(gm, cm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pcf,xy_shift,mirror", [
+    (1.0, 2, True), (1.0, 2, False), (1.0, 0, True), (10.0, 2, True)])
+@pytest.mark.parametrize("flags_off", [False, True])
+def test_words_kernel_equals_plain(card, pcf, xy_shift, mirror, flags_off):
+    masks, targets, surv = _library()
+    engines = [ActiveTilePixelEngine(q, 20, mirror, 20, pcf, xy_shift,
+                                     predicate="words") for q in masks]
+    words = engines[0].pack_raw_words(targets, card)
+    packed = engines[0].pad_from_words(words)
+    scorer = mm.MultiMaskScorer(engines)
+    tab = scorer.build_table(surv, mm.signal_ranges_from_words(words),
+                             mm.tile_live_from_words(words))
+    if flags_off:
+        tab.surv[::3] = 0  # rows the kernel must report as 0
+    args = list(packed) + list(scorer._q_for(card)) + [
+        torch.from_numpy(a).to(card)
+        for a in (tab.row_off, tab.tile_list, tab.tgt, tab.surv)]
+    before = mm.multimask_words_counts.launches
+    got = mm.multimask_words_counts(*args, xy_shift, mirror, scorer.triples)
+    assert mm.multimask_words_counts.launches == before + 1
+    want = mm.multimask_words_counts_plain(*args, xy_shift, mirror,
+                                           scorer.triples)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.any()
+    # the ratio kernel gives the same counts
+    ratio = mm.MultiMaskScorer([e.with_predicate("ratio") for e in engines])
+    rargs = list(packed) + list(ratio._q_for(card)) + args[4:]
+    assert torch.equal(mm.multimask_counts(*rargs, xy_shift, mirror), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ob.CASE_NAMES)
+def test_op_chain_equals_plain(card, name):
+    x, y = ob.case_inputs(name, (256, 1024), device=card)
+    before = ob.op_chain.launches
+    got = ob.op_chain(name, x, y)
+    assert ob.op_chain.launches == before + 1
+    want = ob.op_chain_plain(name, x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(ob.op_chain(name, x, y, 0), x)
+    # 100 steps: one main-loop iteration and a remainder of single steps
+    assert torch.equal(ob.op_chain(name, x, y, 100),
+                       ob.op_chain_plain(name, x, y, 100))
+
+
+@pytest.mark.cuda
+def test_op_chain_sass_main_loop(card):
+    """Every case's main loop is found in the built kernel's SASS, with at
+    least one instruction per two steps (no fold beyond ptxas's
+    three-input merges)."""
+    loops = ob.instructions_per_step()
+    assert set(loops) == set(ob.CASE_NAMES)
+    for name, (per_step, mnemonics) in loops.items():
+        assert 0.5 <= per_step <= 4, (name, per_step, mnemonics)
+        assert mnemonics["BRA"] == 1, (name, mnemonics)

@@ -1,6 +1,7 @@
 """Guards of the port: it never imports JAX, never guesses a device and
 never falls back from the CUDA kernel to its plain version."""
 
+import os
 import subprocess
 import sys
 import types
@@ -13,10 +14,12 @@ torch.set_num_threads(2)
 
 from colormipsearch_torch.cds import kernels  # noqa: E402
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
+from colormipsearch_torch.cds import pixel_active as pa  # noqa: E402
 from colormipsearch_torch.cds.pixel_active import (  # noqa: E402
     ActiveTilePixelEngine, ActiveTiles)
 from colormipsearch_torch.cmd.main import build_parser, main  # noqa: E402
 from colormipsearch_torch.device import resolve_device  # noqa: E402
+from colormipsearch_torch.scripts import op_microbench as ob  # noqa: E402
 
 
 def test_port_imports_no_jax():
@@ -31,6 +34,7 @@ def test_port_imports_no_jax():
         "import colormipsearch_torch.cds.pixel_active\n"
         "import colormipsearch_torch.cds.prescreen\n"
         "import colormipsearch_torch.cds.ratio_bounds\n"
+        "import colormipsearch_torch.scripts.op_microbench\n"
         "m.build_parser()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax'\n"
         "             or k.startswith(('jax.', 'jaxlib')))\n"
@@ -59,23 +63,64 @@ def _fake(device):
 
 
 def test_kernel_wrapper_never_falls_back(monkeypatch, tmp_path):
-    """A CUDA-typed call with no buildable kernel raises; the plain
-    version is never run in its place."""
+    """A CUDA-typed call with no buildable kernel raises, for each
+    wrapper; the plain version is never run in its place."""
     monkeypatch.setattr(kernels, "find_nvcc", lambda: None)
-    monkeypatch.setattr(kernels, "_loaded", None)
+    monkeypatch.setattr(kernels, "_loaded", {})
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
 
     def plain(*a, **k):
         raise AssertionError("plain version ran for CUDA tensors")
 
     monkeypatch.setattr(mm, "multimask_counts_plain", plain)
-    args = [_fake("cuda:0") for _ in range(9)]
-    before = mm.multimask_counts.launches
+    monkeypatch.setattr(mm, "multimask_words_counts_plain", plain)
+    monkeypatch.setattr(ob, "op_chain_plain", plain)
+    triples = pa.word_triples(10_000_000)
+    calls = [
+        (mm.multimask_counts, 9, (2, True)),
+        (mm.multimask_words_counts, 8, (2, True, triples)),
+    ]
+    for fn, n_tensors, rest in calls:
+        args = [_fake("cuda:0") for _ in range(n_tensors)]
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            fn(*args, *rest)
+        with pytest.raises(ValueError, match="all on one CUDA device"):
+            fn(*([_fake("cpu")] + args[1:]), *rest)
+        assert fn.launches == before
+    before = ob.op_chain.launches
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        mm.multimask_counts(*args, 2, True)
-    with pytest.raises(ValueError, match="all on one CUDA device"):
-        mm.multimask_counts(*([_fake("cpu")] + args[1:]), 2, True)
-    assert mm.multimask_counts.launches == before
+        ob.op_chain("add i32", _fake("cuda:0"), _fake("cuda:0"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ob.op_chain("add i32", _fake("cpu"), _fake("cuda:0"))
+    assert ob.op_chain.launches == before
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.load_libraries()
+    assert kernels._loaded == {}
+
+
+def test_one_library_per_source(monkeypatch, tmp_path):
+    """Each csrc/<name>.cu builds into its own library, named by the hash
+    of its source, of the local headers it includes and of the flags."""
+    assert set(kernels.LIBRARIES) == {"multimask_ratio", "multimask_words",
+                                      "op_chain"}
+    for name in kernels.LIBRARIES:
+        assert os.path.exists(kernels.source_path(name))
+    paths = {kernels.library_path(n) for n in kernels.LIBRARIES}
+    assert len(paths) == 3
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(kernels, "CSRC", str(csrc))
+    (csrc / "k.cu").write_text('#include "h.cuh"\nint f() { return 1; }\n')
+    (csrc / "h.cuh").write_text("#pragma once\n")
+    first = kernels.library_path("k")
+    assert os.path.basename(first).startswith("libcms_k_")
+    (csrc / "h.cuh").write_text("#pragma once\n// changed\n")
+    assert kernels.library_path("k") != first
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-G",))
+    assert kernels.library_path("k") != first
+    with pytest.raises(ValueError, match="unknown kernel library"):
+        kernels.load_library("k")
 
 
 def test_cli_dispatch_table():
@@ -93,6 +138,7 @@ def test_cli_dispatch_table():
 def _empty_engine(h, w):
     tiles = ActiveTiles(coords=np.zeros((0, 2), np.int32), n_active=0,
                         query_size=0, height=h, width=w,
+                        q_words=np.zeros((0, 8, 128), np.int32),
                         q_cmp=np.zeros((0, 8, 128), np.int32),
                         q_f32=np.zeros((0, 4, 8, 128), np.float32))
     return ActiveTilePixelEngine.from_tiles(tiles, True, 20, 10_000_000, 2)

@@ -95,12 +95,13 @@ def test_build_active_tiles(em_planes, source):
     assert (got.n_active, got.query_size, got.height, got.width) == \
         (n, want.query_size, want.height, want.width)
     np.testing.assert_array_equal(got.coords, want.coords[:n, :2])
+    np.testing.assert_array_equal(got.q_words, want.q_tiles[:n])
     np.testing.assert_array_equal(got.q_cmp, want.q_cmp[:n])
     np.testing.assert_array_equal(got.q_f32, want.q_f32[:n])
-    carried = pa.ActiveTiles.from_numpy(want.coords, n, want.q_cmp,
-                                        want.q_f32, want.query_size,
-                                        want.height, want.width)
-    for name in ("coords", "q_cmp", "q_f32"):
+    carried = pa.ActiveTiles.from_numpy(want.coords, n, want.q_tiles,
+                                        want.query_size, want.height,
+                                        want.width, want.q_cmp, want.q_f32)
+    for name in ("coords", "q_words", "q_cmp", "q_f32"):
         np.testing.assert_array_equal(getattr(carried, name),
                                       getattr(got, name))
 

@@ -51,8 +51,9 @@ def _carry(ref_engine, tiles=None):
     """The port's engine over the reference engine's exact query state."""
     t = tiles or ref_engine.tiles
     return ActiveTilePixelEngine.from_tiles(
-        ActiveTiles.from_numpy(t.coords, t.n_active, t.q_cmp, t.q_f32,
-                               t.query_size, t.height, t.width),
+        ActiveTiles.from_numpy(t.coords, t.n_active, t.q_tiles,
+                               t.query_size, t.height, t.width, t.q_cmp,
+                               t.q_f32),
         ref_engine.mirror_query, ref_engine.target_threshold,
         ref_engine.zt9, ref_engine.xy_shift)
 

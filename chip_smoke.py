@@ -15,6 +15,9 @@ exact predicates, and the op microbench:
    last target, a mask with more than 128 active tiles, mirror off,
    xyShift 0, with and without the live-tile cut, and launch rows whose
    survivor flag is 0; the word kernel also at pixColorFluctuation 10;
+   the compact lists' edges (tiles of 0, 1 and 1024 selected pixels, rows
+   of hundreds of tiles); and the ratio planes built on the card equal to
+   those built on the CPU, bit for bit;
 3. the CLI (`colormipsearch_torch colorDepthSearch --device cuda`) on the
    three golden fixtures: 439 / 414 / 426, the last one mirrored, once on
    the ratio kernel and once under CMS_RATIO_PRED=0 on the word kernel
@@ -27,19 +30,22 @@ exact predicates, and the op microbench:
    > 0, the two paths' scores equal on all 524,288 pairs, 32 masks' rows
    of each kernel equal to its plain version; pairs/s of both paths in
    turns, survivor rate, stage seconds, peak memory, and each kernel on
-   partition 0 over all masks. The timed round is the pipelined partition
-   loop of the CLI (`TwoPhaseSweep.sweep_parts`);
+   partition 0 over all masks with its work (evaluations that can count,
+   staged bytes), its bound and its share of it. The timed round is the
+   pipelined partition loop of the CLI (`TwoPhaseSweep.sweep_parts`);
 5. the op microbench (`python -m colormipsearch_torch.scripts.op_microbench
    --device cuda`): its ten cases, each kernel == plain at 512 and at
    32,768 steps, Top/s at 32,768 steps, and a time ratio of 65,536 to
-   32,768 steps within 1.8-2.2.
+   32,768 steps within 1.8-2.2, and its bound from the SASS instructions
+   per step and the measured issue rates.
 
 `python3 chip_smoke.py --profile DIR` adds a torch.profiler round of the
 phase-4 ratio sweep: device busy share, the bound's and the exact
 kernel's device time, the top device kernels, and a Chrome trace in DIR.
 
 Any failure exits non-zero. The last two lines are a JSON object per
-kernel and {"ok": true, "device": {...}}. Outside a checkout of the repo,
+kernel (its launches on the main path, worst error, time, plain time,
+bound and what bounds it) and {"ok": true, "device": {...}}. Outside a checkout of the repo,
 or without a CUDA card, it exits with code 2 before printing any result.
 """
 
@@ -117,17 +123,10 @@ class Check:
         return got
 
 
-def table_args(scorer, tab, packed, dev):
-    import torch
-    return (list(packed) + list(scorer._q_for(dev))
-            + [torch.from_numpy(a).to(dev) for a in
-               (tab.row_off, tab.tile_list, tab.tgt, tab.surv)])
-
-
-def compare_scorer(checks, label, scorer, tab, packed, dev):
+def compare_scorer(checks, label, scorer, tab, packed):
     from colormipsearch_torch.cds import multimask as mm
     kernel, plain = mm.PREDICATE_KERNELS[scorer.predicate]
-    args = table_args(scorer, tab, packed, dev)
+    args = scorer.kernel_args(packed, tab)
     tail = scorer.kernel_tail()
     check = checks[f"multimask_{scorer.predicate}"]
     got = check.compare(label, lambda: kernel(*args, *tail),
@@ -188,9 +187,96 @@ def random_library(rng, n, h, w):
     return out
 
 
+def check_ratio_planes(words, planes):
+    """The ratio planes built on the card equal those built on the CPU,
+    bit for bit (the IEEE divide of the ratio plane)."""
+    import torch
+    from colormipsearch_torch.cds.pixel_active import ActiveTilePixelEngine
+    want = ActiveTilePixelEngine.pad_ratio_planes(words.cpu())
+    for name, got, ref in zip(("rf", "fw", "rf_m", "fw_m"), planes, want):
+        same = torch.equal(got.cpu().view(torch.uint8),
+                           ref.view(torch.uint8))
+        if not same:
+            raise SystemExit(f"ratio plane {name} built on the card differs "
+                             f"from the CPU's")
+    log(f"  ratio planes of {words.shape[0]} targets: card == CPU, bit for "
+        f"bit")
+
+
+def every_tile_table(scorer, n_targets):
+    """A launch table that lists every active tile of every mask, in both
+    directions, for every target: tiles without a selected pixel too,
+    which build_table never lists."""
+    from colormipsearch_torch.cds import multimask as mm
+    tiles, counts, tgt = [], [], []
+    for pos, eng in enumerate(scorer.engines):
+        n = eng.tiles.n_active
+        entry = ((scorer._tile_off[pos] + np.arange(n)).astype(np.int32)
+                 | (3 << mm.DIR_SHIFT))
+        for t in range(n_targets):
+            tiles.append(entry)
+            counts.append(n)
+            tgt.append(t)
+    return mm.LaunchTable(
+        row_off=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+        tile_list=np.concatenate(tiles).astype(np.int32),
+        tgt=np.array(tgt, np.int32), surv=np.ones(len(tgt), np.int32))
+
+
+def edge_mask(h, w):
+    """A mask whose first three tiles hold 0, 1 and 1024 selected pixels:
+    tile (0, 0) gray (above threshold, but sector 0 never matches), one
+    coloured pixel in tile (0, 1), tile (0, 2) full of r > g > b > 0."""
+    rng = np.random.default_rng(7)
+    m = np.zeros((h, w, 3), np.uint8)
+    m[0:8, 0:128] = 120
+    m[3, 130] = (200, 60, 20)
+    m[0:8, 256:384] = np.stack([rng.integers(180, 256, (8, 128)),
+                                rng.integers(60, 170, (8, 128)),
+                                rng.integers(1, 50, (8, 128))], axis=-1)
+    return m
+
+
+def compaction_edges(checks, dev, speckle, targets):
+    """Each kernel against its plain version on the compact lists' edges:
+    tiles with 0, 1 and 1024 selected pixels (the last spans 8 passes of
+    the block's threads), and rows whose tile list spans hundreds of
+    pipeline stages (a full-frame speckle mask)."""
+    from colormipsearch_torch.cds import multimask as mm
+    from colormipsearch_torch.cds.pixel_active import (ActiveTilePixelEngine,
+                                                       pad_for_predicate)
+    h, w = speckle.shape[:2]
+    words = None
+    for predicate in ("ratio", "words"):
+        engines = [ActiveTilePixelEngine(m, 20, True, 20, 1.0, 2,
+                                         predicate=predicate)
+                   for m in (edge_mask(h, w), speckle)]
+        t = engines[0].tiles
+        n_sel = np.diff(t.sel_off)[:3]
+        if list(n_sel) != [0, 1, 1024] or [tuple(c) for c in t.coords[:3]] \
+                != [(0, 0), (0, 128), (0, 256)]:
+            raise SystemExit(f"edge mask: selected pixels per tile "
+                             f"{list(n_sel)} at {t.coords[:3].tolist()}")
+        if words is None:
+            words = engines[0].pack_raw_words(targets, dev)
+        packed = pad_for_predicate(words, predicate)
+        scorer = mm.MultiMaskScorer(engines)
+        tab = every_tile_table(scorer, len(targets))
+        compare_scorer(checks, f"compaction edges ({predicate}): tiles of "
+                       f"0, 1 and 1024 selected pixels and rows of "
+                       f"{engines[1].tiles.n_active} tiles, every tile in "
+                       f"both directions", scorer, tab, packed)
+        surv = np.ones((2, len(targets)), np.int32)
+        compare_scorer(checks, f"compaction edges ({predicate}), host table",
+                       scorer, scorer.build_table(
+                           surv, mm.signal_ranges_from_words(words),
+                           mm.tile_live_from_words(words)), packed)
+
+
 def phase_kernel_vs_plain(checks, dev, n_masks=16, n_targets=64):
     from colormipsearch_torch.cds import multimask as mm
-    from colormipsearch_torch.cds.pixel_active import ActiveTilePixelEngine
+    from colormipsearch_torch.cds.pixel_active import (ActiveTilePixelEngine,
+                                                       pad_for_predicate)
     rng = np.random.default_rng(20260101)
     h, w = 566, 1210
     masks = random_library(rng, n_masks, h, w)
@@ -215,7 +301,9 @@ def phase_kernel_vs_plain(checks, dev, n_masks=16, n_targets=64):
             if max(n_act) <= 128:
                 raise SystemExit("no mask above 128 active tiles")
         words = engines[0].pack_raw_words(targets, dev)
-        packed = engines[0].pad_from_words(words)
+        planes = {p: pad_for_predicate(words, p) for p in ("ratio", "words")}
+        if pcf == 1.0 and xy_shift == 2 and mirror:
+            check_ratio_planes(words, planes["ratio"])
         ranges = mm.signal_ranges_from_words(words)
         live = mm.tile_live_from_words(words)
         scorers = [mm.MultiMaskScorer(
@@ -225,14 +313,16 @@ def phase_kernel_vs_plain(checks, dev, n_masks=16, n_targets=64):
         for scorer in scorers:
             label = (f"pixColorFluctuation {pcf}, xyShift {xy_shift}, "
                      f"mirror {mirror}")
+            packed = planes[scorer.predicate]
             for restrict in (False, True):
                 tab = (scorer.build_table(surv, ranges, live) if restrict
                        else scorer.build_table(surv))
                 compare_scorer(checks, f"{label}, live-tile cut {restrict}",
-                               scorer, tab, packed, dev)
+                               scorer, tab, packed)
             tab.surv[::3] = 0  # rows the kernel must report as 0
             compare_scorer(checks, f"{label}, every third row's survivor "
-                           f"flag 0", scorer, tab, packed, dev)
+                           f"flag 0", scorer, tab, packed)
+    compaction_edges(checks, dev, masks[0], targets)
     log(f"[phase 2] kernel == plain in "
         f"{checks['multimask_ratio'].cases} ratio and "
         f"{checks['multimask_words'].cases} word cases "
@@ -387,12 +477,67 @@ def phase_profile(run, bound_only, trace_dir):
     log(f"[profile] trace: {path}")
 
 
+# the least time of a kernel: its operations over the card's lane rate
+# (67 TFLOP/s of f32 outside the tensor cores, an FMA counted as two: 33.5
+# T lane-operations/s) or its bytes, each read or written once, over HBM3's
+# 3.35 TB/s (NVIDIA H100 SXM data sheet), whichever is larger
+PEAK_LANE_OPS = 67e12 / 2
+PEAK_BYTES = 3.35e12
+# integer and f32 operations per (query pixel, variant) evaluation, from
+# the kernels' predicates: 3 masked equality tests, 4 f32 compares, 2
+# xors, their and/or and the add (ratio); the staged-rational chain of
+# match_word (words)
+OPS_PER_EVAL = {"ratio": 12, "words": 35}
+
+
+def kernel_work(scorer, tab):
+    """What one launch over `tab` must do: evaluations (selected pixels x
+    variants over the live (row, tile) pairs, and in live directions
+    only), the bytes the kernel stages, the bytes it must read or write
+    once (each distinct target window of a live direction, the query
+    lists of the tiles it reads, the table, the counts) and its bound."""
+    from colormipsearch_torch.cds import multimask as mm
+    ns = len(scorer.shifts)
+    s = max(abs(dy) for _, dy in scorer.shifts)
+    tiles = tab.tile_list & mm.TILE_MASK
+    dirs = (tab.tile_list >> mm.DIR_SHIFT) & 3
+    n_dirs = (dirs & 1) + (dirs >> 1)
+    n_sel = scorer._n_sel[tiles]
+    elem = 5 if scorer.predicate == "ratio" else 4  # bytes per staged pixel
+    win_h = 8 + 2 * s
+    coords = scorer._q_host[-1][tiles].astype(np.int64)
+    tgt = np.repeat(tab.tgt, np.diff(tab.row_off)).astype(np.int64)
+    keys = []
+    for bit in (1, 2):
+        on = (dirs & bit) != 0
+        keys.append(((tgt[on] * 4096 + coords[on, 0]) * 4096
+                     + coords[on, 1]) * 2 + bit - 1)
+    n_windows = len(np.unique(np.concatenate(keys)))
+    used = np.unique(tiles)
+    entry_bytes = 20 if scorer.predicate == "ratio" else 4
+    bytes_once = (n_windows * win_h * (128 + 2 * s) * elem
+                  + int(scorer._n_sel[used].sum()) * entry_bytes
+                  + 4 * (len(tab.row_off) + len(tab.tile_list)
+                         + 2 * len(tab.tgt))
+                  + 4 * 2 * ns * len(tab.tgt))
+    evals_dir = int((n_sel * n_dirs).sum()) * ns
+    ops_ms = 1e3 * evals_dir * OPS_PER_EVAL[scorer.predicate] / PEAK_LANE_OPS
+    bytes_ms = 1e3 * bytes_once / PEAK_BYTES
+    return {"nv": 2 * ns, "evals": int(n_sel.sum()) * 2 * ns,
+            "evals_dir": evals_dir,
+            "staged_bytes": int(n_dirs.sum()) * win_h * 136 * elem,
+            "bytes": bytes_once, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
                   n_targets=512, part=256):
     import torch
     from colormipsearch_torch.cds import multimask as mm
     from colormipsearch_torch.cds.pixel_active import (ActiveTilePixelEngine,
-                                                       drain_deferred)
+                                                       drain_deferred,
+                                                       pad_for_predicate)
     from colormipsearch_torch.cds.prescreen import PairPrescreen
     from colormipsearch_torch.parallel.twophase_sweep import TwoPhaseSweep
     from colormipsearch_torch.scripts.op_microbench import cuda_ms
@@ -484,7 +629,7 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
 
     # partition 0's tables, as the sweep builds them
     words = engines[0].pack_raw_words(parts[0], dev)
-    packed = engines[0].pad_from_words(words)
+    planes = {p: pad_for_predicate(words, p) for p in sweeps}
     ranges = mm.signal_ranges_from_words(words)
     live = mm.tile_live_from_words(words)
     survivors = (screen.bounds_from_words(u_matrix, words)
@@ -496,12 +641,22 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
         t0 = time.perf_counter()
         tab = everyone.build_table(survivors, ranges, live)
         table_s = time.perf_counter() - t0
-        args = table_args(everyone, tab, packed, dev)
+        args = everyone.kernel_args(planes[path], tab)
         full_ms = cuda_ms(lambda: kernel(*args, *everyone.kernel_tail()), 3)
+        work = kernel_work(everyone, tab)
         log(f"[phase 4] {path}: partition 0, all masks: host launch table "
             f"{table_s:.3f}s, exact kernel {full_ms:.3f} ms "
             f"({len(tab.tgt)} rows, {len(tab.tile_list)} live (row, tile) "
             f"pairs)")
+        log(f"[phase 4] {path}: partition 0 work: {work['evals']} "
+            f"evaluations that can count (selected pixels x "
+            f"{work['nv']} over live (row, tile)), {work['evals_dir']} in "
+            f"live directions; {work['staged_bytes'] / 1e9:.3f} GB staged, "
+            f"{work['bytes'] / 1e9:.3f} GB read or written once; bound "
+            f"{work['bound_ms']:.3f} ms by {work['bound_by']} (ops "
+            f"{work['ops_ms']:.3f} ms at {OPS_PER_EVAL[path]} ops per "
+            f"evaluation, bytes {work['bytes_ms']:.3f} ms); kernel at "
+            f"{100 * work['bound_ms'] / full_ms:.1f} % of its bound")
 
         # 32 masks' rows against the plain version
         sub = list(range(min(32, n_masks)))
@@ -510,9 +665,10 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
         counts, args, tail = compare_scorer(
             checks, f"at size, masks 0-{sub[-1]} of partition 0 "
             f"({int(survivors[sub].sum())} survivor rows)", scorer, tab,
-            packed, dev)
+            planes[path])
         # the sampled rows reproduce the sweep's scores of those masks
-        defs = scorer.launch_deferred(packed, survivors[sub], ranges, live)
+        defs = scorer.launch_deferred(planes[path], survivors[sub], ranges,
+                                      live)
         sampled = np.stack([s for s, _, _ in drain_deferred(defs)])
         if not np.array_equal(sampled,
                               results[path][0][sub, :len(parts[0])]):
@@ -520,12 +676,15 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
                              f"sweep's scores")
         kernel_ms = cuda_ms(lambda: kernel(*args, *tail), 5)
         plain_ms = cuda_ms(lambda: plain(*args, *tail), 1)
+        sample = kernel_work(scorer, tab)
         log(f"[phase 4] {path}: exact kernel on the {len(sub)}-mask table "
-            f"({counts.shape[0]} rows, {int(args[-3].numel())} live "
-            f"tiles): {kernel_ms:.3f} ms, plain version {plain_ms:.3f} ms")
+            f"({counts.shape[0]} rows, {len(tab.tile_list)} live "
+            f"tiles): {kernel_ms:.3f} ms, plain version {plain_ms:.3f} ms, "
+            f"bound {sample['bound_ms']:.3f} ms by {sample['bound_by']}")
         timing[f"multimask_{path}"] = {
             "launches": launches[path][path], "ms": kernel_ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": sample["bound_ms"],
+            "bound_by": sample["bound_by"], "library_ms": None}
     if profile_dir is not None:
         part_words = [engines[0].pack_raw_words(tp, dev) for tp in parts]
         u_dev = torch.from_numpy(u_matrix).to(dev)
@@ -540,6 +699,16 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
 
 # ---- phase 5 ---------------------------------------------------------------
 
+# SASS instructions per second of each op_chain case's main loop, as
+# measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, K4 table): the
+# integer pipe issues ~16.3 T/s, FMUL ~31.9 T/s, cases on two pipes more
+K4_ISSUE_RATES = {
+    "add i32": 16.244e12, "mul i32": 16.345e12,
+    "mul i32 by const 1000": 16.328e12, "add i16": 16.266e12,
+    "mul i16": 29.231e12, "mul u16": 30.071e12, "add u8": 16.259e12,
+    "mul f32": 31.902e12, "mul bf16": 24.679e12, "cmp+sel i32": 16.242e12,
+}
+
 def phase_microbench(dev):
     """The microbench's entry point as a user runs it (its launches are
     the path's count), then each case against its plain version."""
@@ -553,6 +722,8 @@ def phase_microbench(dev):
     if rc != 0 or launches == 0:
         raise SystemExit("the op microbench failed or launched no kernel")
     err, ms, plain_ms = 0.0, 0.0, 0.0
+    per_step = ob.instructions_per_step()
+    bound_ms = 0.0
     for name in ob.CASE_NAMES:
         r = ob.measure(name, dev)
         log(f"  op_chain {name}: max |kernel - plain| = {r['max_abs_err']}; "
@@ -565,11 +736,16 @@ def phase_microbench(dev):
         err = max(err, r["max_abs_err"])
         ms += r["ms"]
         plain_ms += r["plain_ms"]
+        # the case's SASS instructions over its measured issue rate
+        insts = ob.H * ob.W * ob.TIMED_STEPS * per_step[name][0]
+        bound_ms += 1e3 * insts / K4_ISSUE_RATES[name]
     log(f"[phase 5] op_chain == plain in {len(ob.CASE_NAMES)} cases; at "
         f"{ob.TIMED_STEPS} steps the ten cases take {ms:.3f} ms on the "
-        f"kernel, {plain_ms:.3f} ms plain")
+        f"kernel, {plain_ms:.3f} ms plain; bound {bound_ms:.3f} ms by "
+        f"operations ({100 * bound_ms / ms:.1f} %)")
     return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations", "library_ms": None}
 
 
 def main():
@@ -579,7 +755,7 @@ def main():
     opts = ap.parse_args()
     import torch
     missing = [p for p in [src for src, _ in KERNELS.values()]
-               + ["colormipsearch_tpu/cds/oracle.py",
+               + ["colormipsearch_torch/cds/oracle.py",
                   "tests/fixtures/cdsearch/ems"]
                if not os.path.exists(os.path.join(REPO, p))]
     if missing:
@@ -605,9 +781,9 @@ def main():
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": timing[name]["launches"],
-         "max_abs_err": timing[name]["max_abs_err"],
-         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"]}
+         **{k: timing[name][k] for k in (
+             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")}}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

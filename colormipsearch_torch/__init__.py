@@ -1,20 +1,26 @@
 """colormipsearch_torch — the colorDepthSearch path in PyTorch and CUDA.
 
-A port of `colormipsearch_tpu/` (JAX, Pallas on a TPU) to PyTorch with a
-hand-written CUDA kernel for NVIDIA Hopper (sm_90a). The JAX package is
+A port of `colormipsearch_tpu/` (JAX, Pallas on a TPU) to PyTorch with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a). The JAX package is
 the reference: every module here names its counterpart and is held to
 exact equality with it by the `tests/test_torch_*.py` suite.
 
 What is here:
 - `cds/`: host query tables, target pack and pad, the prescreen bound,
-  live-tile bitmaps and the exact multi-mask scorer with its CUDA kernel
-  (`csrc/multimask_ratio.cu`, built at first use by `cds/kernels.py`);
+  live-tile bitmaps and the exact multi-mask scorer with its CUDA kernels
+  (`csrc/multimask_ratio.cu`, `csrc/multimask_words.cu`, built at first
+  use by `cds/kernels.py`);
 - `parallel/twophase_sweep.py`: the two-phase sweep over CUDA devices;
-- `cmd/`: the CLI. colorDepthSearch runs here; the JAX-free commands of
-  the reference (normalize, exportData, ...) are dispatched to it.
+- `cmd/`: the CLI. colorDepthSearch runs here; the reference's other
+  commands refuse with a pointer to the JAX package;
+- `model/`, `dataio/`, `mips/`, `imageproc/`, `persist/`, `results/`,
+  `native/`, `utils/`: the port's own copies of the host modules the
+  command needs, each pinned to its reference by
+  `tests/test_torch_host_copies.py`.
 
-The package imports `torch` and never `jax`. Devices are explicit: a
-`--device` argument or a `device=` parameter, never guessed.
+The package imports `torch` and never `jax`, nor any module of the JAX
+package. Devices are explicit: a `--device` argument or a `device=`
+parameter, never guessed.
 """
 
 __version__ = "0.1.0"

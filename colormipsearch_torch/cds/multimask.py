@@ -6,11 +6,15 @@ phase scores each mask's prescreen survivors; one launch covers every
 mask of a target partition.
 
 - Host side, each mask's survivors become launch rows (mask, target,
-  survivor flag). Each row carries its exact list of live tiles: the
-  mask's active tiles whose sampled window can hold target signal (the
-  3x3-dilated tile-presence bitmaps of tile_live_from_words, intersected
-  with the target's signal row and column intervals). Skipped tiles
-  provably score 0, so any exact skip gives the same scores.
+  survivor flag), in target order. Each row carries its exact list of
+  live tiles, each with the directions (direct, mirrored) in which it
+  can score: the mask's active tiles that hold a selected query pixel
+  and whose sampled window can hold target signal (the 3x3-dilated
+  tile-presence bitmaps of tile_live_from_words, intersected with the
+  target's signal row and column intervals). Skipped tiles and
+  directions provably score 0, so any exact skip gives the same scores.
+  The query side is each mask's compact lists of selected pixels
+  (pixel_active.compact_selected), stacked.
 - Device side, one kernel per predicate, each with a plain PyTorch
   version that CPU tensors run: `multimask_counts` launches the ratio
   kernel (`csrc/multimask_ratio.cu`, K1), `multimask_words_counts` the
@@ -31,116 +35,137 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from colormipsearch_tpu.cds.oracle import shift_ring_offsets
-
 from . import kernels
-from .pixel_active import (TILE_H, TILE_W, DeferredScore, _match_unpacked,
-                           _unpack)
+from .oracle import shift_ring_offsets
+from .pixel_active import (POS_SHIFT, TILE_H, TILE_W, DeferredScore,
+                           _match_unpacked, _unpack, ratio_prep)
 
 KERNEL_XY_SHIFTS = (0, 2)  # xy_shift values the kernels are built for
 
 
 # ---- the exact kernels: plain versions and wrappers ------------------------
 
+# a tile_list entry: the stacked tile index, and the directions in which
+# the (row, tile) can score (host live-tile cut; bit DIR_SHIFT direct,
+# bit DIR_SHIFT + 1 mirrored)
+DIR_SHIFT = 29
+TILE_MASK = (1 << DIR_SHIFT) - 1
+
+
 def _ratio_match(rf, fw, qc, qf):
     """Ratio-interval predicate (reference pixel_pallas._ratio_consts and
     _ratio_match): 3 masked equality checks and 4 f32 compares against
-    exactly placed bounds. qc int32 [..., 8, 128]; qf f32 [..., 4, 8, 128]."""
+    exactly placed bounds. qc int32 [...]; qf f32 [..., 4]."""
     sc, uc, dc = qc & 31, (qc >> 5) & 31, (qc >> 10) & 63
     gup = ((qc >> 16) & 1) > 0
     gdn = ((qc >> 17) & 1) > 0
-    lo, hi, cup, cdn = qf.unbind(-3)
+    lo, hi, cup, cdn = qf.unbind(-1)
     same_ok = ((fw & 15) == sc) & (rf >= lo) & (rf <= hi)
     up_ok = ((fw & 31) == uc) & ((rf <= cup) ^ gup)
     dn_ok = ((fw & 47) == dc) & ((rf <= cdn) ^ gdn)
     return same_ok | up_ok | dn_ok
 
 
-def _ratio_prep(w):
-    """Ratio plane a2/b2 (-1 where a2 == 0) and flag plane w >> 16 of a
-    packed window (reference pixel_pallas._ratio_prep)."""
-    a2 = (w >> 8) & 0xFF
-    rf = a2.to(torch.float32) / (w & 0xFF).to(torch.float32)
-    return torch.where(a2 == 0, torch.full_like(rf, -1.0), rf), w >> 16
-
-
 def _pairs(row_off, tile_list, surv):
     """(row, tile) pairs the kernel scores: every surviving row with every
-    tile of its list."""
+    tile of its list (direction bits dropped: the plain versions score
+    both directions, so they also check that the host cut is exact)."""
     counts = (row_off[1:] - row_off[:-1]).to(torch.int64)
     rows = torch.repeat_interleave(
         torch.arange(counts.numel(), device=tile_list.device), counts)
-    tiles = tile_list.to(torch.int64)
+    tiles = tile_list.to(torch.int64) & TILE_MASK
     keep = surv.to(torch.int64)[rows] != 0
     return rows[keep], tiles[keep]
 
 
-def _counts_plain(frames, flipped, coords, row_off, tile_list, tgt, surv,
-                  xy_shift: int, mirror: bool, prep, query, match):
-    """The exact counts for either predicate, as plain torch ops: gathers
-    each (row, tile) window by indexing, prepares it once
-    (prep(window) -> tuple of planes), takes one slice per variant and
-    sums match(sliced planes, query(tile indices)) over the tile."""
+def _counts_plain(planes, sel_off, coords, row_off, tile_list, tgt, surv,
+                  xy_shift: int, mirror: bool, pos_shift: int, query, match):
+    """The exact counts for either predicate, as plain torch ops over the
+    compact lists: every (row, tile) pair with every selected pixel of
+    the tile (entries sel_off[tile] ..), each variant's target value
+    gathered from the padded planes by indexing.
+
+    planes: (direct planes, mirrored planes), each a tuple of [T, Hp, Wp]
+    tensors; query(entries) -> the entries' constants; match(target
+    values, constants) -> bool."""
     offsets = shift_ring_offsets(xy_shift)
-    ns, s = len(offsets), xy_shift
-    out = torch.zeros((tgt.numel(), 2 * ns), dtype=torch.int32,
-                      device=tgt.device)
+    ns = len(offsets)
+    dev = tgt.device
+    out = torch.zeros((tgt.numel(), 2 * ns), dtype=torch.int32, device=dev)
     rows, tiles = _pairs(row_off, tile_list, surv)
-    dev = frames.device
-    # (row, tile) windows gathered at once: ~40 KB of temporaries each
-    pair_batch = 8192 if dev.type == "cuda" else 1024
-    ys = torch.arange(TILE_H + 2 * s, device=dev)
-    xs = torch.arange(TILE_W + 2 * s, device=dev)
-    planes = (frames, flipped) if mirror else (frames,)
-    for p0 in range(0, rows.numel(), pair_batch):
-        rb, tb = rows[p0:p0 + pair_batch], tiles[p0:p0 + pair_batch]
-        ti = tgt.to(torch.int64)[rb][:, None, None]
-        ry = (coords[tb, 0].to(torch.int64) + TILE_H - s)[:, None, None]
-        rx = (coords[tb, 1].to(torch.int64) + TILE_W - s)[:, None, None]
-        yy = ry + ys[None, :, None]
-        xx = rx + xs[None, None, :]
-        qv = query(tb)
-        cnt = torch.zeros((rb.numel(), 2 * ns), dtype=torch.int32,
+    sel_off = sel_off.to(torch.int64)
+    n_sel = sel_off[tiles + 1] - sel_off[tiles]
+    keep = n_sel > 0
+    rows, tiles, n_sel = rows[keep], tiles[keep], n_sel[keep]
+    # (pair, entry) items in batches of ~2**20 (2**16 on the CPU)
+    limit = 1 << (20 if dev.type == "cuda" else 16)
+    ends = torch.cumsum(n_sel, 0)
+    p0 = 0
+    while p0 < rows.numel():
+        start = int(ends[p0 - 1]) if p0 else 0
+        p1 = max(int(torch.searchsorted(ends, start + limit, right=True)),
+                 p0 + 1)
+        rb, tb, nb = rows[p0:p1], tiles[p0:p1], n_sel[p0:p1]
+        item = torch.repeat_interleave(torch.arange(rb.numel(), device=dev),
+                                       nb)
+        first = torch.cumsum(nb, 0) - nb
+        entry = sel_off[tb][item] + torch.arange(item.numel(), device=dev) \
+            - first[item]
+        q = query(entry)
+        pos = (q[0] >> pos_shift) & (TILE_H * TILE_W - 1)
+        t = tgt.to(torch.int64)[rb][item]
+        y = coords[tb, 0].to(torch.int64)[item] + TILE_H + (pos >> 7)
+        x = coords[tb, 1].to(torch.int64)[item] + TILE_W + (pos & 127)
+        cnt = torch.zeros((item.numel(), 2 * ns), dtype=torch.int32,
                           device=dev)
-        for pi, plane in enumerate(planes):
-            win = prep(plane[ti, yy, xx])
+        for pi, plane in enumerate(planes[:2 if mirror else 1]):
             for vi, (dx, dy) in enumerate(offsets):
-                r0, c0 = s + dy, s + dx
-                m = match(tuple(w[:, r0:r0 + TILE_H, c0:c0 + TILE_W]
-                                for w in win), qv)
-                cnt[:, pi * ns + vi] = m.sum(dim=(1, 2), dtype=torch.int32)
-        out.index_add_(0, rb, cnt)
+                m = match(tuple(p[t, y + dy, x + dx] for p in plane), q)
+                cnt[:, pi * ns + vi] = m.to(torch.int32)
+        out.index_add_(0, rb[item], cnt)
+        p0 = p1
     return out
 
 
-def multimask_counts_plain(frames, flipped, q_cmp, q_f32, coords, row_off,
-                           tile_list, tgt, surv, xy_shift: int, mirror: bool):
+def multimask_counts_plain(rf, fw, rf_m, fw_m, sel_off, sel_q, sel_f32,
+                           coords, row_off, tile_list, tgt, surv,
+                           xy_shift: int, mirror: bool):
     """Plain PyTorch version of the ratio kernel (same arguments).
 
-    frames, flipped: int32 [T, Hp, Wp] ring-padded frames and x-flips;
-    q_cmp int32 [NT, 8, 128], q_f32 f32 [NT, 4, 8, 128] and coords int32
-    [NT, 2] are the stacked query tiles of every mask; row_off int32
-    [R+1] and tile_list int32 [L] give each row's live tiles; tgt and
-    surv int32 [R] give each row's target and survivor flag. Returns
-    int32 [R, 2|S|] per-variant match counts (direct variants then
-    mirrored; mirrored columns are 0 when mirror is off)."""
+    rf, fw, rf_m, fw_m: the padded target planes of
+    pixel_active.pad_ratio_planes, f32 / uint8 [T, Hp, Wp] (direct, then
+    x-flipped); sel_off int32 [NT+1], sel_q int32 [P] and sel_f32 f32
+    [P, 4] the stacked compact lists of every mask's NT active tiles
+    (pixel_active.compact_selected) and coords int32 [NT, 2] their
+    origins; row_off int32 [R+1] and tile_list int32 [L] give each row's
+    live tiles (entries tile | directions << DIR_SHIFT); tgt and surv int32
+    [R] give each row's target and survivor flag. Returns int32 [R, 2|S|]
+    per-variant match counts (direct variants then mirrored; mirrored
+    columns are 0 when mirror is off)."""
     return _counts_plain(
-        frames, flipped, coords, row_off, tile_list, tgt, surv, xy_shift,
-        mirror, _ratio_prep, lambda tb: (q_cmp[tb], q_f32[tb]),
-        lambda t, q: _ratio_match(t[0], t[1], q[0], q[1]))
+        ((rf, fw), (rf_m, fw_m)), sel_off, coords, row_off, tile_list, tgt,
+        surv, xy_shift, mirror, POS_SHIFT["ratio"],
+        lambda e: (sel_q[e], sel_f32[e]),
+        lambda t, q: _ratio_match(t[0], t[1].to(torch.int32),
+                                  q[0] & ((1 << POS_SHIFT["ratio"]) - 1),
+                                  q[1]))
 
 
-def multimask_words_counts_plain(frames, flipped, q_words, coords, row_off,
-                                 tile_list, tgt, surv, xy_shift: int,
-                                 mirror: bool, triples):
-    """Plain PyTorch version of the packed-word kernel: the arguments of
-    multimask_counts_plain with q_words int32 [NT, 8, 128], the raw query
-    words, in place of q_cmp and q_f32, and the predicate's six
-    constants `triples` (pixel_active.word_triples). Same output."""
+def multimask_words_counts_plain(frames, flipped, sel_off, sel_q, coords,
+                                 row_off, tile_list, tgt, surv,
+                                 xy_shift: int, mirror: bool, triples):
+    """Plain PyTorch version of the packed-word kernel: frames and flipped
+    int32 [T, Hp, Wp], the padded word frames (pixel_active.pad_from_words)
+    in place of the ratio planes; sel_q [P] the selected pixels' raw
+    words (with their places); the predicate's six constants `triples`
+    (pixel_active.word_triples). The other arguments and the output as
+    multimask_counts_plain."""
+    mask = (1 << POS_SHIFT["words"]) - 1
     return _counts_plain(
-        frames, flipped, coords, row_off, tile_list, tgt, surv, xy_shift,
-        mirror, _unpack, lambda tb: _unpack(q_words[tb]),
-        lambda t, q: _match_unpacked(q, t, triples))
+        ((frames,), (flipped,)), sel_off, coords, row_off, tile_list, tgt,
+        surv, xy_shift, mirror, POS_SHIFT["words"], lambda e: (sel_q[e],),
+        lambda t, q: _match_unpacked(_unpack(q[0] & mask), _unpack(t[0]),
+                                     triples))
 
 
 def _check(name, t, dtype, ndim, device):
@@ -164,31 +189,49 @@ def _on_cuda(args) -> bool:
     return True
 
 
-def _check_table(frames, flipped, query, coords, row_off, tile_list, tgt,
-                 surv, xy_shift):
+def _check_table(planes, sel, coords, row_off, tile_list, tgt, surv,
+                 xy_shift):
     """Validate a launch's tensors for the kernels; returns (n_rows, nv).
-    query: [(name, tensor, dtype, shape after the tile count)]."""
-    dev = frames.device
-    for name, t, dt, nd in (("frames", frames, torch.int32, 3),
-                            ("flipped", flipped, torch.int32, 3),
-                            ("coords", coords, torch.int32, 2),
+    planes: [(name, tensor, dtype)] target planes of one shape [T, Hp, Wp];
+    sel: [(name, tensor, dtype, shape after the entry count)], the compact
+    lists after sel_off."""
+    dev = coords.device
+    shape = tuple(planes[0][1].shape)
+    for name, t, dt in planes:
+        _check(name, t, dt, 3, dev)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        # the kernels copy 16-byte (4-byte for uint8) chunks of each row
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if shape[2] % 16:
+        raise ValueError(f"padded frame width {shape[2]} is not a "
+                         f"multiple of 16")
+    for name, t, dt, nd in (("coords", coords, torch.int32, 2),
                             ("row_off", row_off, torch.int32, 1),
                             ("tile_list", tile_list, torch.int32, 1),
                             ("tgt", tgt, torch.int32, 1),
                             ("surv", surv, torch.int32, 1)):
         _check(name, t, dt, nd, dev)
     n_tiles = coords.shape[0]
-    for name, t, dt, shape in query:
-        _check(name, t, dt, 1 + len(shape), dev)
-        if tuple(t.shape) != (n_tiles,) + shape:
-            raise ValueError(f"{name}: expected [NT]+{list(shape)} with NT "
-                             f"= {n_tiles} tiles, got {tuple(t.shape)}")
     if tuple(coords.shape) != (n_tiles, 2):
         raise ValueError("coords must be [NT, 2]")
+    (_, sel_off, _, _), *entries = sel
+    _check("sel_off", sel_off, torch.int32, 1, dev)
+    if sel_off.numel() != n_tiles + 1:
+        raise ValueError(f"sel_off: expected NT + 1 = {n_tiles + 1} "
+                         f"offsets, got {sel_off.numel()}")
+    n_entries = entries[0][1].shape[0] if entries else 0
+    for name, t, dt, tail in entries:
+        _check(name, t, dt, 1 + len(tail), dev)
+        if tuple(t.shape) != (n_entries,) + tail:
+            raise ValueError(f"{name}: expected [P]+{list(tail)}, got "
+                             f"{tuple(t.shape)}")
+        if tail and t.data_ptr() % 16:  # read as one 16-byte vector
+            raise ValueError(f"{name} must be 16-byte aligned")
     if xy_shift not in KERNEL_XY_SHIFTS:
         raise ValueError(f"xy_shift {xy_shift} not in {KERNEL_XY_SHIFTS}")
-    if flipped.shape != frames.shape:
-        raise ValueError("frames and flipped differ in shape")
     n_rows = tgt.numel()
     if surv.numel() != n_rows or row_off.numel() != n_rows + 1:
         raise ValueError("tgt and surv need one entry per row and row_off "
@@ -196,34 +239,38 @@ def _check_table(frames, flipped, query, coords, row_off, tile_list, tgt,
     return n_rows, 2 * len(shift_ring_offsets(xy_shift))
 
 
-def multimask_counts(frames, flipped, q_cmp, q_f32, coords, row_off,
-                     tile_list, tgt, surv, xy_shift: int, mirror: bool):
+def multimask_counts(rf, fw, rf_m, fw_m, sel_off, sel_q, sel_f32, coords,
+                     row_off, tile_list, tgt, surv, xy_shift: int,
+                     mirror: bool):
     """Exact per-variant counts, ratio predicate (see
     multimask_counts_plain).
 
     CPU tensors run the plain version. CUDA tensors launch the Hopper
     kernel (built at first use) or raise; there is no fallback."""
-    args = (frames, flipped, q_cmp, q_f32, coords, row_off, tile_list,
-            tgt, surv)
+    args = (rf, fw, rf_m, fw_m, sel_off, sel_q, sel_f32, coords, row_off,
+            tile_list, tgt, surv)
     if not _on_cuda(args):
         return multimask_counts_plain(*args, xy_shift, mirror)
     lib = kernels.load_library("multimask_ratio").lib
     n_rows, nv = _check_table(
-        frames, flipped, [("q_cmp", q_cmp, torch.int32, (TILE_H, TILE_W)),
-                          ("q_f32", q_f32, torch.float32,
-                           (4, TILE_H, TILE_W))],
+        [("rf", rf, torch.float32), ("fw", fw, torch.uint8),
+         ("rf_m", rf_m, torch.float32), ("fw_m", fw_m, torch.uint8)],
+        [("sel_off", sel_off, torch.int32, ()),
+         ("sel_q", sel_q, torch.int32, ()),
+         ("sel_f32", sel_f32, torch.float32, (4,))],
         coords, row_off, tile_list, tgt, surv, xy_shift)
-    dev = frames.device
+    dev = rf.device
     out = torch.empty((n_rows, nv), dtype=torch.int32, device=dev)
     if n_rows == 0:
         return out
-    _, hp, wp = frames.shape
+    _, hp, wp = rf.shape
     rc = lib.cms_multimask_ratio(
-        frames.data_ptr(), flipped.data_ptr(), hp, wp,
-        q_cmp.data_ptr(), q_f32.data_ptr(), coords.data_ptr(),
-        row_off.data_ptr(), tile_list.data_ptr(), n_rows, tgt.data_ptr(),
-        surv.data_ptr(), xy_shift, int(bool(mirror)), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        rf.data_ptr(), fw.data_ptr(), rf_m.data_ptr(), fw_m.data_ptr(), hp,
+        wp, sel_off.data_ptr(), sel_q.data_ptr(), sel_f32.data_ptr(),
+        coords.data_ptr(), row_off.data_ptr(), tile_list.data_ptr(), n_rows,
+        tgt.data_ptr(), surv.data_ptr(), xy_shift, int(bool(mirror)),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        dev.index)
     if rc != 0:
         raise RuntimeError(f"multimask_ratio kernel launch failed: "
                            f"cudaError {rc}")
@@ -234,7 +281,7 @@ def multimask_counts(frames, flipped, q_cmp, q_f32, coords, row_off,
 multimask_counts.launches = 0
 
 
-def multimask_words_counts(frames, flipped, q_words, coords, row_off,
+def multimask_words_counts(frames, flipped, sel_off, sel_q, coords, row_off,
                            tile_list, tgt, surv, xy_shift: int, mirror: bool,
                            triples):
     """Exact per-variant counts, packed-word predicate (see
@@ -242,13 +289,15 @@ def multimask_words_counts(frames, flipped, q_words, coords, row_off,
 
     CPU tensors run the plain version. CUDA tensors launch the Hopper
     kernel (built at first use) or raise; there is no fallback."""
-    args = (frames, flipped, q_words, coords, row_off, tile_list, tgt, surv)
+    args = (frames, flipped, sel_off, sel_q, coords, row_off, tile_list, tgt,
+            surv)
     if not _on_cuda(args):
         return multimask_words_counts_plain(*args, xy_shift, mirror, triples)
     lib = kernels.load_library("multimask_words").lib
     n_rows, nv = _check_table(
-        frames, flipped, [("q_words", q_words, torch.int32,
-                           (TILE_H, TILE_W))],
+        [("frames", frames, torch.int32), ("flipped", flipped, torch.int32)],
+        [("sel_off", sel_off, torch.int32, ()),
+         ("sel_q", sel_q, torch.int32, ())],
         coords, row_off, tile_list, tgt, surv, xy_shift)
     flat = [int(v) for tr in triples for v in tr]
     if len(flat) != 18:
@@ -259,11 +308,12 @@ def multimask_words_counts(frames, flipped, q_words, coords, row_off,
         return out
     _, hp, wp = frames.shape
     rc = lib.cms_multimask_words(
-        frames.data_ptr(), flipped.data_ptr(), hp, wp, q_words.data_ptr(),
-        coords.data_ptr(), row_off.data_ptr(), tile_list.data_ptr(), n_rows,
-        tgt.data_ptr(), surv.data_ptr(), xy_shift, int(bool(mirror)),
-        (ctypes.c_int * 18)(*flat), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        frames.data_ptr(), flipped.data_ptr(), hp, wp, sel_off.data_ptr(),
+        sel_q.data_ptr(), coords.data_ptr(), row_off.data_ptr(),
+        tile_list.data_ptr(), n_rows, tgt.data_ptr(), surv.data_ptr(),
+        xy_shift, int(bool(mirror)), (ctypes.c_int * 18)(*flat),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        dev.index)
     if rc != 0:
         raise RuntimeError(f"multimask_words kernel launch failed: "
                            f"cudaError {rc}")
@@ -273,8 +323,8 @@ def multimask_words_counts(frames, flipped, q_words, coords, row_off,
 
 multimask_words_counts.launches = 0
 
-# predicate -> (kernel wrapper, plain version); both take a launch's
-# tensors followed by MultiMaskScorer.kernel_tail()
+# predicate -> (kernel wrapper, plain version); both take
+# MultiMaskScorer.kernel_args() followed by MultiMaskScorer.kernel_tail()
 PREDICATE_KERNELS = {
     "ratio": (multimask_counts, multimask_counts_plain),
     "words": (multimask_words_counts, multimask_words_counts_plain),
@@ -344,9 +394,10 @@ def tile_live_from_words(words: torch.Tensor) -> tuple:
 
 @dataclass
 class LaunchTable:
-    """Host launch table of one exact launch."""
+    """Host launch table of one exact launch. Rows are in target order, so
+    that the blocks that read one target's windows run together."""
     row_off: np.ndarray     # int32 [R + 1] offsets into tile_list
-    tile_list: np.ndarray   # int32 [L] stacked-tile indices, row by row
+    tile_list: np.ndarray   # int32 [L] tile | directions << DIR_SHIFT, row by row
     tgt: np.ndarray         # int32 [R] target per row
     surv: np.ndarray        # int32 [R] survivor flag (all 1 from build_table)
     # engine position -> (row indices, their target indices)
@@ -365,13 +416,25 @@ def shared_params(engines) -> bool:
     return len({launch_params(e) for e in engines}) == 1
 
 
+def target_planes(packed, predicate: str) -> tuple:
+    """The padded target planes of `predicate`'s kernel from `packed`:
+    either those planes already (pixel_active.pad_for_predicate) or the
+    padded word frames (frames, flipped), from which the ratio planes are
+    prepared here (ratio_prep, as pad_ratio_planes builds them)."""
+    packed = tuple(packed)
+    if predicate == "words" or len(packed) == 4:
+        return packed
+    (rf, fw), (rf_m, fw_m) = (ratio_prep(f) for f in packed)
+    return (rf, fw.to(torch.uint8), rf_m, fw_m.to(torch.uint8))
+
+
 class MultiMaskScorer:
     """One-launch-many-masks exact sweep over a shared target block.
 
     engines: ActiveTilePixelEngine per mask; they must share zTolerance,
-    xyShift and predicate. Their query tiles (the predicate's tables:
-    q_cmp and q_f32 for "ratio", q_words for "words") are stacked once on
-    the host and uploaded once per device."""
+    xyShift and predicate. Their compact query lists (sel_off, sel_q and,
+    for "ratio", sel_f32) and tile origins are stacked once on the host
+    and uploaded once per device."""
 
     def __init__(self, engines: Sequence):
         self.engines = list(engines)
@@ -392,26 +455,41 @@ class MultiMaskScorer:
         # the padded frame the tiles' windows index (pad_from_words)
         self.frame_shape = (-(-h // TILE_H) * TILE_H + 2 * TILE_H,
                             -(-w // TILE_W) * TILE_W + 2 * TILE_W)
-        counts = [e.tiles.n_active for e in self.engines]
+        tiles = [e.tiles for e in self.engines]
+        counts = [t.n_active for t in tiles]
         self._tile_off = np.concatenate([[0], np.cumsum(counts)]).astype(
             np.int64)
-        tiles = [e.tiles for e in self.engines]
-        names = (("q_words",) if self.predicate == "words"
-                 else ("q_cmp", "q_f32"))
-        # the kernel's query arguments in order: the tables, then coords
-        self._q_host = tuple(
-            np.concatenate([getattr(t, n) for t in tiles])
-            for n in names + ("coords",))
+        # entries per stacked tile; a tile without any is never launched
+        self._n_sel = np.concatenate(
+            [np.diff(t.sel_off) for t in tiles]).astype(np.int64)
+        names = ("sel_q", "sel_f32") if self.predicate == "ratio" \
+            else ("sel_q",)
+        # the kernel's query arguments in order: sel_off, the lists, coords
+        self._q_host = (
+            np.concatenate([[0], np.cumsum(self._n_sel)]).astype(np.int32),
+            *(np.concatenate([getattr(t, n) for t in tiles]) for n in names),
+            np.concatenate([t.coords for t in tiles]))
         self._q_dev = {}  # torch.device -> the query tensors
 
     def _q_for(self, device: torch.device):
         """The stacked query tensors on `device`, in the kernel's argument
-        order: (q_cmp, q_f32, coords) or (q_words, coords)."""
+        order: (sel_off, sel_q, sel_f32, coords) or (sel_off, sel_q,
+        coords)."""
         got = self._q_dev.get(device)
         if got is None:
             got = tuple(torch.from_numpy(a).to(device) for a in self._q_host)
             self._q_dev[device] = got
         return got
+
+    def kernel_args(self, packed, table: LaunchTable) -> list:
+        """The tensors of one launch in the order of the predicate's
+        kernel: the target planes (target_planes(packed)), the query
+        tensors and the table's (row_off, tile_list, tgt, surv)."""
+        planes = target_planes(packed, self.predicate)
+        dev = planes[0].device
+        return (list(planes) + list(self._q_for(dev))
+                + [torch.from_numpy(a).to(dev) for a in
+                   (table.row_off, table.tile_list, table.tgt, table.surv)])
 
     def kernel_tail(self) -> tuple:
         """The arguments of the predicate's kernel after the launch's
@@ -419,12 +497,11 @@ class MultiMaskScorer:
         tail = (self.xy_shift, self.mirror)
         return tail + ((self.triples,) if self.predicate == "words" else ())
 
-    def counts(self, packed, query, table):
-        """Per-variant counts of one launch through the predicate's
-        wrapper: packed (frames, flipped), query = _q_for(device), table =
-        (row_off, tile_list, tgt, surv) tensors."""
+    def counts(self, args):
+        """Per-variant counts of one launch (args = kernel_args(...))
+        through the predicate's wrapper."""
         kernel, _ = PREDICATE_KERNELS[self.predicate]
-        return kernel(*packed, *query, *table, *self.kernel_tail())
+        return kernel(*args, *self.kernel_tail())
 
     def build_table(self, survivors: np.ndarray,
                     signal_ranges: Optional[np.ndarray] = None,
@@ -433,7 +510,10 @@ class MultiMaskScorer:
 
         signal_ranges: optional int32 [T, 2] or [T, 4] row (and column)
         signal extents; tile_live: optional (direct, mirrored) bitmaps.
-        Either restricts each row's tiles to those that can score."""
+        Either restricts each row's tiles, per direction, to those that
+        can score; a tile stays in a row's list with the directions that
+        can (exact: each test only drops windows without target signal).
+        Tiles without a selected query pixel are never listed."""
         s = max((abs(dy) for _, dy in self.shifts), default=0)
         sx = max((abs(dx) for dx, _ in self.shifts), default=0)
         row_counts, tiles_l, tgt_l = [], [], []
@@ -447,61 +527,82 @@ class MultiMaskScorer:
             dest = sidx.astype(np.int32)
             t = eng.tiles
             cy, cx = t.coords[:, 0], t.coords[:, 1]
-            live = np.ones((n, t.n_active), bool)
+            t0 = self._tile_off[pos]
+            has_sel = self._n_sel[t0:t0 + t.n_active] > 0
+            live_d = np.broadcast_to(has_sel, (n, t.n_active))
+            # the launch's mirror setting, not the engine's: a direction
+            # leaves a row's list only by an exact test, so the kernel's
+            # counts equal its plain version's for every engine
+            live_m = live_d if self.mirror else np.zeros_like(live_d)
             if tile_live is not None:
-                per_t = (tile_live[0] | tile_live[1]) if eng.mirror_query \
-                    else tile_live[0]
-                live &= per_t[dest][:, cy // TILE_H, cx // TILE_W]
+                live_d = live_d & tile_live[0][dest][:, cy // TILE_H,
+                                                     cx // TILE_W]
+                live_m = live_m & tile_live[1][dest][:, cy // TILE_H,
+                                                     cx // TILE_W]
             if signal_ranges is not None:
                 # a tile's shifts sample raw rows [cy - s, cy + 8 + s) and
                 # cols [cx - sx, cx + 128 + sx); the mirror pass samples
                 # the x-flipped raw plane, whose signal cols are the
                 # reflection of the target's about (w - 1) / 2
                 rr = signal_ranges[dest].astype(np.int64)
-                live &= ((cy[None] >= rr[:, :1] - TILE_H - s + 1)
-                         & (cy[None] <= rr[:, 1:2] + s))
+                rok = ((cy[None] >= rr[:, :1] - TILE_H - s + 1)
+                       & (cy[None] <= rr[:, 1:2] + s))
+                live_d = live_d & rok
+                live_m = live_m & rok
                 if rr.shape[1] >= 4:
                     c0, c1 = rr[:, 2:3], rr[:, 3:4]
-                    cok = ((cx[None] >= c0 - TILE_W - sx + 1)
-                           & (cx[None] <= c1 + sx))
-                    if eng.mirror_query:
-                        w = t.width
-                        cok |= ((cx[None] >= w - 1 - c1 - TILE_W - sx + 1)
-                                & (cx[None] <= w - 1 - c0 + sx))
-                    live &= cok
-            row, tl = np.nonzero(live)
+                    w = t.width
+                    live_d = live_d & ((cx[None] >= c0 - TILE_W - sx + 1)
+                                       & (cx[None] <= c1 + sx))
+                    live_m = live_m & (
+                        (cx[None] >= w - 1 - c1 - TILE_W - sx + 1)
+                        & (cx[None] <= w - 1 - c0 + sx))
+            row, tl = np.nonzero(live_d | live_m)
+            dirs = (live_d[row, tl].astype(np.int32)
+                    | (live_m[row, tl].astype(np.int32) << 1))
             row_counts.append(np.bincount(row, minlength=n))
-            tiles_l.append((self._tile_off[pos] + tl).astype(np.int32))
+            tiles_l.append((t0 + tl).astype(np.int32) | (dirs << DIR_SHIFT))
             tgt_l.append(dest)
             spans[pos] = (n_rows + np.arange(n), sidx)
             n_rows += n
         cat = (lambda xs, dt: np.concatenate(xs).astype(dt) if xs
                else np.zeros(0, dt))
         counts = cat(row_counts, np.int64)
+        tgt = cat(tgt_l, np.int32)
+        tile_list = cat(tiles_l, np.int32)
+        # rows in target order (stable: by mask within a target); the
+        # tile lists move with their rows
+        order = np.argsort(tgt, kind="stable")
+        new_counts = counts[order]
+        new_off = np.concatenate([[0], np.cumsum(new_counts)])
+        old_off = np.concatenate([[0], np.cumsum(counts)])
+        gather = (np.repeat(old_off[:-1][order] - new_off[:-1], new_counts)
+                  + np.arange(new_off[-1]))
+        rank = np.empty_like(order)
+        rank[order] = np.arange(len(order))
         return LaunchTable(
-            row_off=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
-            tile_list=cat(tiles_l, np.int32), tgt=cat(tgt_l, np.int32),
-            surv=np.ones(n_rows, np.int32), spans=spans)
+            row_off=new_off.astype(np.int32), tile_list=tile_list[gather],
+            tgt=tgt[order], surv=np.ones(n_rows, np.int32),
+            spans={pos: (rank[rows], sidx)
+                   for pos, (rows, sidx) in spans.items()})
 
     def launch_deferred(self, packed, survivors: np.ndarray,
                         signal_ranges: Optional[np.ndarray] = None,
                         tile_live: Optional[tuple] = None
                         ) -> List[DeferredScore]:
         """Queue the exact sweep of ALL masks over one packed target block
-        (on the frames' device); returns one DeferredScore per engine
-        (drain with pixel_active.drain_deferred: the shared output is
-        copied once)."""
-        frames, _ = packed
-        if tuple(frames.shape[1:]) != self.frame_shape:
-            raise ValueError(f"padded frames {tuple(frames.shape[1:])} do "
-                             f"not fit masks padded to {self.frame_shape}")
-        dev = frames.device
-        tsz = frames.shape[0]
+        (on its device): packed is the padded word frames or the
+        predicate's target planes (target_planes). Returns one
+        DeferredScore per engine (drain with pixel_active.drain_deferred:
+        the shared output is copied once)."""
+        packed = tuple(packed)
+        if tuple(packed[0].shape[1:]) != self.frame_shape:
+            raise ValueError(f"padded frames {tuple(packed[0].shape[1:])} "
+                             f"do not fit masks padded to {self.frame_shape}")
+        tsz = packed[0].shape[0]
         surv_np = np.asarray(survivors).astype(np.int32)
         tab = self.build_table(surv_np, signal_ranges, tile_live)
-        table = [torch.from_numpy(a).to(dev) for a in
-                 (tab.row_off, tab.tile_list, tab.tgt, tab.surv)]
-        out = self.counts(packed, self._q_for(dev), table)
+        out = self.counts(self.kernel_args(packed, tab))
         pendings = [[] for _ in self.engines]
         for pos, (rows, dest) in tab.spans.items():
             pendings[pos].append((dest, out, rows))

@@ -12,11 +12,16 @@ touches only the mask's ACTIVE 8x128 tiles. This module holds:
 - the host query tables (`ActiveTiles`, `build_active_tiles`): the
   mask's active tiles as raw words, their window origins and, for the
   ratio predicate only, its compare planes
-  (`ratio_bounds.query_ratio_planes`);
+  (`ratio_bounds.query_ratio_planes`); and the compact lists the
+  kernels walk (`compact_selected`): per active tile, the pixels that can
+  match under the engine's predicate, with their constants gathered in
+  that order;
 - target pack and pad as torch ops on an explicit device: the host
-  sparse pack of the reference (`native.mipops.sparse_pack_block`) then
+  sparse pack (`native/mipops.py:sparse_pack_block`, the port's copy) then
   a scatter with fill word 1, or a dense pack for full blocks; the ring
-  pad and the x-flip of the raw plane;
+  pad and the x-flip of the raw plane; for the ratio predicate, its
+  prepared target planes (`pad_ratio_planes`: the f32 ratio plane and the
+  flag plane, built once per target block in the same pass);
 - `ActiveTilePixelEngine.score_packed_deferred`, a one-mask launch of
   the exact multi-mask kernel of the engine's predicate
   (`cds/multimask.py`), and the deferred result handles drained with one
@@ -38,9 +43,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from colormipsearch_tpu.cds.exact_ratio import c9_split
-from colormipsearch_tpu.cds.oracle import shift_ring_offsets
-
+from ..native.mipops import sparse_pack_block
+from .exact_ratio import c9_split
+from .oracle import shift_ring_offsets
 from .pixel_kernel import (PAIR_K9, QueryPlanes, pack_planes,
                            prepare_query_planes, z_tolerance_to_zt9)
 from .ratio_bounds import query_ratio_planes
@@ -52,6 +57,13 @@ NV_PAD = 32  # most variants (2 * |shifts|) an engine may have, as the reference
 # int32 staged-rational test on packed words (the reference's
 # CMS_RATIO_PRED=0); both give the same scores
 PREDICATES = ("ratio", "words")
+# a compact entry carries its pixel's place in the tile, y * 128 + x
+# (10 bits), above the bits its predicate's constant uses: q_cmp uses
+# bits 0-17, a packed word bits 0-21
+POS_SHIFT = {"ratio": 20, "words": 22}
+# the compare-constant sentinels of ratio_bounds.query_ratio_planes: a
+# query pixel whose three constants are all sentinels never matches
+_SENTINELS = (31, 31, 63)
 
 
 # ---- the packed-word predicate, plain version ------------------------------
@@ -141,6 +153,14 @@ def _match_unpacked(q, t, triples):
     return ((qsel & tsel) > 0) & (same_ok | (adj & cond & gap_ok))
 
 
+def ratio_prep(w):
+    """Ratio plane a2/b2 (-1 where a2 == 0; IEEE f32 divide) and flag
+    plane w >> 16 of packed words (reference pixel_pallas._ratio_prep)."""
+    a2 = (w >> 8) & 0xFF
+    rf = a2.to(torch.float32) / (w & 0xFF).to(torch.float32)
+    return torch.where(a2 == 0, torch.full_like(rf, -1.0), rf), w >> 16
+
+
 def _match_predicate(q, t, zt9: int):
     """The packed-word predicate at zt9 (reference
     pixel_pallas._match_predicate without its v5e forms)."""
@@ -164,6 +184,11 @@ class ActiveTiles:
     q_words: np.ndarray   # int32 [K, TILE_H, TILE_W] raw packed query words
     q_cmp: Optional[np.ndarray] = None  # int32 [K, TILE_H, TILE_W] compare constants
     q_f32: Optional[np.ndarray] = None  # f32 [K, 4, TILE_H, TILE_W]: L, U, Cup, Cdn
+    # the compact lists of one predicate (compact_selected): tile k's
+    # selected pixels are entries sel_off[k] .. sel_off[k+1] - 1
+    sel_off: Optional[np.ndarray] = None  # int32 [K + 1]
+    sel_q: Optional[np.ndarray] = None    # int32 [P]: constant | pos << POS_SHIFT
+    sel_f32: Optional[np.ndarray] = None  # f32 [P, 4] ("ratio"): L, U, Cup, Cdn
 
     @classmethod
     def from_numpy(cls, coords, n_active: int, q_tiles, query_size: int,
@@ -191,14 +216,75 @@ class ActiveTiles:
         if predicate not in PREDICATES:
             raise ValueError(f"predicate {predicate!r} not in {PREDICATES}")
         if predicate == "words":
-            return dataclasses.replace(self, q_cmp=None, q_f32=None)
+            return dataclasses.replace(self, q_cmp=None, q_f32=None,
+                                       sel_off=None, sel_q=None,
+                                       sel_f32=None)
         if self.q_cmp is not None:
             return self
         q_cmp, q_f32 = query_ratio_planes(self.q_words, zt9)
         return dataclasses.replace(
             self, q_cmp=np.ascontiguousarray(q_cmp, dtype=np.int32),
             q_f32=np.ascontiguousarray(q_f32.transpose(1, 0, 2, 3),
-                                       dtype=np.float32))
+                                       dtype=np.float32),
+            sel_off=None, sel_q=None, sel_f32=None)
+
+    def compacted(self, predicate: str) -> "ActiveTiles":
+        """These tiles with the compact lists of `predicate` (built once;
+        see compact_selected)."""
+        if self.sel_off is not None and (predicate == "words") == (
+                self.sel_f32 is None):
+            return self
+        return dataclasses.replace(self, **compact_selected(self, predicate))
+
+
+def selected_pixels(tiles: ActiveTiles, predicate: str) -> np.ndarray:
+    """bool [K, TILE_H, TILE_W]: the query pixels that can match under
+    `predicate`; every other pixel scores 0 against any target (the
+    kernels' exact skips of the reference's layout).
+
+    - "ratio": not all three compare constants are sentinels;
+    - "words": sel is set and one of the three cases' query-side
+      preconditions holds (same: s1 > 0 and a1 > 0; up: s1 > 0 and cu;
+      down: s1 > 1 and cl), as _match_unpacked requires."""
+    if predicate == "ratio":
+        qc = tiles.q_cmp
+        sentinel = ((qc & 31) == _SENTINELS[0]) \
+            & (((qc >> 5) & 31) == _SENTINELS[1]) \
+            & (((qc >> 10) & 63) == _SENTINELS[2])
+        return ~sentinel
+    _, a1, s1, qsel, qcl, qcu = _unpack(tiles.q_words)
+    pre = ((s1 > 0) & (a1 > 0)) | ((s1 > 0) & (qcu > 0)) \
+        | ((s1 > 1) & (qcl > 0))
+    return (qsel > 0) & pre
+
+
+def compact_selected(tiles: ActiveTiles, predicate: str) -> dict:
+    """The compact lists the exact kernels walk, as ActiveTiles fields.
+
+    For each active tile the selected pixels (selected_pixels) in row-major
+    order: sel_off [K + 1] int32 offsets; sel_q [P] int32, the pixel's
+    constant (q_cmp for "ratio", its raw word for "words") with its place
+    in the tile (y * 128 + x) at bit POS_SHIFT[predicate]; for "ratio"
+    sel_f32 [P, 4] its four f32 bounds. A tile may hold 0 entries."""
+    if predicate not in PREDICATES:
+        raise ValueError(f"predicate {predicate!r} not in {PREDICATES}")
+    k = tiles.n_active
+    sel = selected_pixels(tiles, predicate).reshape(k, TILE_H * TILE_W)
+    tile, pos = np.nonzero(sel)
+    counts = np.bincount(tile, minlength=k)
+    const = (tiles.q_cmp if predicate == "ratio" else tiles.q_words
+             ).reshape(k, TILE_H * TILE_W)[tile, pos]
+    out = dict(
+        sel_off=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+        sel_q=np.ascontiguousarray(
+            const | (pos.astype(np.int32) << POS_SHIFT[predicate]),
+            dtype=np.int32),
+        sel_f32=None)
+    if predicate == "ratio":
+        out["sel_f32"] = np.ascontiguousarray(
+            tiles.q_f32.reshape(k, 4, TILE_H * TILE_W)[tile, :, pos],
+            dtype=np.float32).reshape(-1, 4)
+    return out
 
 
 def build_active_tiles(planes: QueryPlanes, zt9: int,
@@ -278,7 +364,7 @@ class ActiveTilePixelEngine:
             raise ValueError(f"predicate {predicate!r} not in {PREDICATES}")
         if predicate == "ratio" and tiles.q_cmp is None:
             raise ValueError("ratio predicate without ratio planes")
-        self.tiles = tiles
+        self.tiles = tiles.compacted(predicate)
         self.predicate = predicate
         self.mirror_query = bool(mirror_query)
         self.target_threshold = int(target_threshold)
@@ -312,7 +398,6 @@ class ActiveTilePixelEngine:
         (b=1, sel=0: never matches; sub-threshold pixels canonicalize to
         it, which no score, bound or skip can see). None when the block
         is too dense to benefit."""
-        from colormipsearch_tpu.native.mipops import sparse_pack_block
         t, h, w = t_block_u8.shape[:3]
         idx, vals = sparse_pack_block(t_block_u8, self.target_threshold)
         if len(idx) > (t * h * w) // 4:
@@ -352,6 +437,28 @@ class ActiveTilePixelEngine:
         return (pad(words, spec, value=1).contiguous(),
                 pad(torch.flip(words, dims=(2,)), spec, value=1).contiguous())
 
+    @staticmethod
+    def pad_ratio_planes(words: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The ratio kernel's target planes, built once per target block
+        in the pass that pads: (rf, fw, rf_m, fw_m), the ratio plane f32
+        and the flag plane uint8 of pad_from_words(words)'s frame and of
+        its x-flip, equal to ratio_prep of those frames bit for bit (the
+        fill word 1 has a2 = 0 and no flags: -1.0 and 0)."""
+        _, h, w = words.shape
+        gh = -(-h // TILE_H)
+        gw = -(-w // TILE_W)
+        spec = (TILE_W, gw * TILE_W - w + TILE_W,
+                TILE_H, gh * TILE_H - h + TILE_H)
+        pad = torch.nn.functional.pad
+        rf, fw = ratio_prep(words)
+        fw = fw.to(torch.uint8)
+        out = []
+        for plane, fill in ((rf, -1.0), (fw, 0)):
+            out.append((pad(plane, spec, value=fill).contiguous(),
+                        pad(torch.flip(plane, dims=(2,)), spec,
+                            value=fill).contiguous()))
+        return out[0][0], out[1][0], out[0][1], out[1][1]
+
     def prepare_targets(self, targets_u8: np.ndarray, device):
         """Pack targets into the tile-aligned padded frame (+ x-flip)."""
         return self.pad_from_words(self.pack_raw_words(targets_u8, device))
@@ -374,6 +481,17 @@ class ActiveTilePixelEngine:
 
     def score_packed(self, packed, survivors=None):
         return self.score_packed_deferred(packed, survivors)()
+
+
+def pad_for_predicate(words: torch.Tensor, predicate: str
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The padded target planes that `predicate`'s exact kernel reads:
+    pad_from_words for "words", pad_ratio_planes for "ratio"."""
+    if predicate not in PREDICATES:
+        raise ValueError(f"predicate {predicate!r} not in {PREDICATES}")
+    return (ActiveTilePixelEngine.pad_ratio_planes(words)
+            if predicate == "ratio"
+            else ActiveTilePixelEngine.pad_from_words(words))
 
 
 class DeferredScore:

@@ -101,7 +101,7 @@ class QueryPlanes:
 
 def query_rgb(query) -> np.ndarray:
     """int32 [H, W, 3] channels of a decoded RGB image
-    (`colormipsearch_tpu.imageproc.io.Image`) or of its [H, W, 3] uint8
+    (`imageproc.io.Image`) or of its [H, W, 3] uint8
     pixel array."""
     if hasattr(query, "rgb_i32"):
         return query.rgb_i32()
@@ -118,7 +118,7 @@ def prepare_query_planes(query, query_threshold: int,
     AbstractColorDepthSearchAlgorithm.java:96-126). Uses the native
     mipops packer when available (parity asserted in the reference's
     tests). `query` as in `query_rgb`."""
-    from colormipsearch_tpu.native import pack_planes_native
+    from ..native.mipops import pack_planes_native
     rgb = query_rgb(query)
     qsel = (rgb > query_threshold).any(axis=2)
     if excluded is not None:

@@ -37,8 +37,7 @@ import functools
 import numpy as np
 import torch
 
-from colormipsearch_tpu.cds.oracle import shift_ring_offsets
-
+from .oracle import shift_ring_offsets
 from .pixel_kernel import PAIR_K9
 
 NB = 10  # ratio bins per sector (bin width 1/NB >= zTolerance)

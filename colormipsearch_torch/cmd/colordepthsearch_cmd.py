@@ -2,18 +2,23 @@
 
 Counterpart of `colormipsearch_tpu/cmd/colordepthsearch_cmd.py`. The host
 logic (reading and filtering MIPs, decoding target partitions, the
-session entity, match building and flushing) is copied from it; the
-device work is the port's two-phase path
-(`parallel/twophase_sweep.TwoPhaseSweep`) on the `--device` given.
+session entity, match building and writing) is copied from it, over the
+port's own copies of the host modules (`model`, `dataio`, `mips`,
+`persist`, `results`, `imageproc`); the device work is the port's
+two-phase path (`parallel/twophase_sweep.TwoPhaseSweep`) on the
+`--device` given. Inputs and results are JSON files.
 
 The exact predicate follows the JAX package's own switch,
 `CMS_RATIO_PRED` (read once per run, default "1"): "1" runs the ratio
 kernel, any other value (the reference's "0") the packed-word kernel.
-Both give the same scores. No other `CMS_*` variable is read.
+Both give the same scores. Besides it, only the image cache's budget
+knobs of the reference are read (`CMS_IMAGE_CACHE_MB`, `CMS_LOW_MEM_PCT`;
+`mips/loader.py`, `utils/memguard.py`).
 
-Refused here, each with a pointer to ROADMAP.md: `--engine dense` (the
-dense engine is a later port) and `--jax-distributed` (multi-host is a
-later port). The multi-process grid options of the reference
+Refused here, before any work, each with a pointer to ROADMAP.md:
+`--engine dense` (the dense engine is a later port), `--jax-distributed`
+(multi-host is a later port), and `--db` and `--mips-storage db` (the
+store layer is a later port). The multi-process grid options of the reference
 (--process-id/--process-count) are not offered yet.
 """
 
@@ -29,19 +34,17 @@ from typing import List
 
 import numpy as np
 
-from colormipsearch_tpu.cmd.args import (ListArg, add_cds_params,
-                                         add_common_args,
-                                         excluded_regions_for)
-from colormipsearch_tpu.dataio import (DataSourceParam, JSONCDMIPsReader,
-                                       JSONCDSSessionWriter)
-from colormipsearch_tpu.mips import MIPsCache
-from colormipsearch_tpu.model import (CDMatchEntity, CDSSessionEntity,
-                                      ComputeFileType, ProcessingType)
-from colormipsearch_tpu.persist import TimebasedIdGenerator
-from colormipsearch_tpu.results import partition_collection
-
 from ..cds.pixel_kernel import z_tolerance_to_zt9
+from ..dataio import (DataSourceParam, JSONCDMIPsReader,
+                      JSONCDSSessionWriter, JSONNeuronMatchesWriter)
 from ..device import resolve_device
+from ..mips import MIPsCache
+from ..model import (CDMatchEntity, CDSSessionEntity, ComputeFileType,
+                     ProcessingType)
+from ..persist import TimebasedIdGenerator
+from ..results import partition_collection
+from .args import (ListArg, add_cds_params, add_common_args,
+                   excluded_regions_for)
 
 LOG = logging.getLogger(__name__)
 
@@ -59,7 +62,8 @@ def add_parser(subparsers) -> None:
                    help="target MIPs: JSON file(s) or (--mips-storage db) "
                         "library selector(s), 'name:offset:length'")
     p.add_argument("--mips-storage", choices=("file", "db"), default="file",
-                   help="where mask/target MIP entities come from")
+                   help="where mask/target MIP entities come from; 'db' is "
+                        "not ported")
     p.add_argument("--masks-index", type=int, default=0)
     p.add_argument("--masks-length", type=int, default=-1)
     p.add_argument("--targets-index", type=int, default=0)
@@ -97,9 +101,10 @@ def add_parser(subparsers) -> None:
                    metavar="STAGE=TAG",
                    help="skip masks already stamped with these tags")
     p.add_argument("--write-batch-size", type=int, default=0,
-                   help="flush results every N masks (0 = at end)")
+                   help="flush results every N masks to the store (--db "
+                        "only; JSON results are written at the end)")
     p.add_argument("--db", default=None,
-                   help="write matches to this SQLite store instead of JSON")
+                   help="refused: the SQLite/Mongo stores are not ported")
     p.add_argument("--jax-distributed", action="store_true",
                    help="refused: multi-host runs are not ported yet")
     p.add_argument("--cdsConcurrency", type=int, default=0,
@@ -156,34 +161,15 @@ def _side_selector(args, side: str) -> DataSourceParam:
 
 
 def _read_mips(args, files: List[str], index: int, length: int, side: str):
-    """Read one side's MIP entities from JSON files or (--mips-storage
-    db) store libraries, apply the side's selectors and keep entities
-    with an input CDM."""
+    """Read one side's MIP entities from JSON files, apply the side's
+    selectors and keep entities with an input CDM."""
     sel = _side_selector(args, side)
     entities = []
-    if getattr(args, "mips_storage", "file") == "db":
-        if not args.db:
-            raise SystemExit("--mips-storage db requires --db")
-        from colormipsearch_tpu.cmd.backends import get_store
-        from colormipsearch_tpu.dataio.db import DBCDMIPsReader
-        reader = DBCDMIPsReader(get_store(args.db))
-        for f in files:
-            la = ListArg.parse(f)
-            param = DataSourceParam(
-                alignment_space=sel.alignment_space,
-                libraries=[la.input], names=sel.names,
-                datasets=sel.datasets, tags=sel.tags,
-                excluded_tags=sel.excluded_tags,
-                annotations=sel.annotations,
-                excluded_annotations=sel.excluded_annotations,
-                offset=la.offset, size=la.length)
-            entities.extend(reader.read_mips(param))
-    else:
-        for f in files:
-            la = ListArg.parse(f)
-            param = DataSourceParam(offset=la.offset, size=la.length)
-            mips = JSONCDMIPsReader(la.input).read_mips(param)
-            entities.extend(e for e in mips if sel.matches_entity(e))
+    for f in files:
+        la = ListArg.parse(f)
+        param = DataSourceParam(offset=la.offset, size=la.length)
+        mips = JSONCDMIPsReader(la.input).read_mips(param)
+        entities.extend(e for e in mips if sel.matches_entity(e))
     entities = [e for e in entities
                 if ComputeFileType.InputColorDepthImage in e.compute_files]
     param = DataSourceParam(offset=index, size=length)
@@ -237,6 +223,12 @@ def _refuse(args) -> None:
         raise SystemExit("--jax-distributed: multi-host runs are not ported "
                          "to colormipsearch_torch yet (see ROADMAP.md, "
                          "queue 1)")
+    if args.db or args.mips_storage == "db":
+        raise SystemExit("--db and --mips-storage db: the SQLite/Mongo stores "
+                         "are not ported to colormipsearch_torch yet (see "
+                         "ROADMAP.md, queue 1); use JSON files (-m, -i, -od), "
+                         "or run `python -m colormipsearch_tpu "
+                         "colorDepthSearch`")
 
 
 def run(args: argparse.Namespace) -> int:
@@ -265,13 +257,13 @@ def run(args: argparse.Namespace) -> int:
 
     array_store = None
     if args.array_cache:
-        from colormipsearch_tpu.imageproc.store import PackedArrayStore
+        from ..imageproc.store import PackedArrayStore
         array_store = PackedArrayStore(args.array_cache)
     cache = MIPsCache(args.cacheSize, array_store=array_store)
     zt9 = z_tolerance_to_zt9(args.pixColorFluctuation)
 
     # persist session params for provenance
-    if args.output_dir or args.db:
+    if args.output_dir:
         session = CDSSessionEntity(
             entity_id=session_id, username=getpass.getuser(),
             params={"mirrorMask": args.mirrorMask,
@@ -282,11 +274,7 @@ def run(args: argparse.Namespace) -> int:
                     "pctPositivePixels": args.pctPositivePixels},
             masks=[{"file": f} for f in args.masks],
             targets=[{"file": f} for f in args.targets])
-        if args.db:
-            from colormipsearch_tpu.cmd.backends import get_store
-            get_store(args.db).create_session(session)
-        else:
-            JSONCDSSessionWriter(args.output_dir).create_session(session)
+        JSONCDSSessionWriter(args.output_dir).create_session(session)
 
     all_matches: List[CDMatchEntity] = []
     target_parts = partition_collection(targets, args.processingPartitionSize)
@@ -332,18 +320,6 @@ def run(args: argparse.Namespace) -> int:
     sweep = TwoPhaseSweep([eng for _, eng in prepared], [device], screen,
                           u_matrix, thresholds)
 
-    flushed = 0
-
-    def maybe_flush():
-        nonlocal flushed
-        if args.db and args.write_batch_size > 0 \
-                and len(all_matches) - flushed >= args.write_batch_size:
-            from colormipsearch_tpu.cmd.backends import matches_writer
-            matches_writer(args.db, None,
-                           update_scores_only=args.update_matches
-                           ).write(all_matches[flushed:])
-            flushed = len(all_matches)
-
     stage_totals = {"decode": 0.0, "matches": 0.0}
     # decode prefetch: partition i+1 decodes on a host thread while the
     # device scores partition i
@@ -383,8 +359,6 @@ def run(args: argparse.Namespace) -> int:
                 record_pair_errors(t_failed)
             if t_imgs:
                 yield t_entities, np.stack(t_imgs)
-            else:
-                maybe_flush()
 
     try:
         # pipelined: partition p+1 is launched before p's matches are built
@@ -415,31 +389,16 @@ def run(args: argparse.Namespace) -> int:
                                              run_tag)
                     all_matches.append(m)
             stage_totals["matches"] += time.perf_counter() - t0
-            maybe_flush()
     finally:
         prefetcher.shutdown(wait=True)
 
     n_groups = 0
-    if args.db or args.output_dir:
-        from colormipsearch_tpu.cmd.backends import matches_writer
-        per_masks = (os.path.join(args.output_dir, args.perMaskSubdir)
-                     if args.output_dir else None)
+    if args.output_dir:
         per_targets = (os.path.join(args.output_dir, args.perTargetSubdir)
-                       if args.output_dir and args.perTargetSubdir else None)
-        writer = matches_writer(args.db, per_masks, per_targets,
-                                update_scores_only=args.update_matches)
-        if args.db and flushed:
-            n_groups = writer.write(all_matches[flushed:]) \
-                if flushed < len(all_matches) else 0
-        else:
-            n_groups = writer.write(all_matches)
-    if args.db:
-        # stamp every searched mip with the run's processing tag in the
-        # store, matched or not
-        from colormipsearch_tpu.cmd.backends import get_store
-        from colormipsearch_tpu.dataio.db import DBCDMIPsWriter
-        DBCDMIPsWriter(get_store(args.db)).add_processing_tags(
-            masks + targets, ProcessingType.ColorDepthSearch, {run_tag})
+                       if args.perTargetSubdir else None)
+        n_groups = JSONNeuronMatchesWriter(
+            os.path.join(args.output_dir, args.perMaskSubdir),
+            per_targets).write(all_matches)
     LOG.info("stage times: %s",
              {k: round(v, 2) for k, v in stage_totals.items()})
     LOG.info("found %d matches (%d masks) in %.1fs",

@@ -1,9 +1,9 @@
 """CLI dispatcher: `python -m colormipsearch_torch <command> ...`.
 
 Counterpart of `colormipsearch_tpu/cmd/main.py`. colorDepthSearch runs on
-this package; the eight commands of the reference that hold no device
-code run from the reference modules unchanged; gradientScores is not
-ported yet and refuses.
+this package. The reference's other commands are not ported yet; each is
+registered under its own name and refuses with a pointer to the JAX
+package, which runs it (`python -m colormipsearch_tpu <command>`).
 """
 
 from __future__ import annotations
@@ -13,21 +13,22 @@ import logging
 import sys
 from typing import List, Optional
 
-# reference commands with no device code (they load no JAX)
-_HOST_COMMANDS = ("normalize_cmd", "createdatainput_cmd", "importppp_cmd",
-                  "exportdata_cmd", "tag_cmd", "copymips_cmd",
-                  "validate_cmd", "delete_cmd")
+# the reference's commands that are not ported yet (ROADMAP.md, queue 1):
+# gradientScores holds device code; the others are host commands over the
+# store layer and the export formats
+NOT_PORTED = ("gradientScores", "normalizeGradientScores",
+              "mormalizeGradientScores", "createColorDepthSearchDataInput",
+              "importPPPResults", "exportData", "tag", "copyToMipsStore",
+              "validateDBData", "deleteCDMatches")
 
 
-def _gradient_scores_refused(args) -> int:
-    raise SystemExit("gradientScores is not ported to colormipsearch_torch "
-                     "yet (see ROADMAP.md, queue 1); run it with "
-                     "`python -m colormipsearch_tpu gradientScores`")
+def _refused(args) -> int:
+    raise SystemExit(f"{args.command} is not ported to colormipsearch_torch "
+                     f"yet (see ROADMAP.md, queue 1); run it with "
+                     f"`python -m colormipsearch_tpu {args.command}`")
 
 
 def build_parser() -> argparse.ArgumentParser:
-    import importlib
-
     from . import colordepthsearch_cmd
     parser = argparse.ArgumentParser(
         prog="colormipsearch-torch",
@@ -35,20 +36,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-v", "--verbose", action="store_true")
     subparsers = parser.add_subparsers(dest="command")
     colordepthsearch_cmd.add_parser(subparsers)
-    g = subparsers.add_parser(
-        "gradientScores",
-        help="not ported yet: runs on colormipsearch_tpu only")
-    g.set_defaults(func=_gradient_scores_refused)
-    for name in _HOST_COMMANDS:
-        importlib.import_module(
-            f"colormipsearch_tpu.cmd.{name}").add_parser(subparsers)
+    for name in NOT_PORTED:
+        p = subparsers.add_parser(
+            name, help="not ported yet: runs on colormipsearch_tpu only")
+        p.set_defaults(func=_refused)
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
-    if extra and args.command != "gradientScores":  # it refuses any args
+    if extra and args.command not in NOT_PORTED:  # those refuse any args
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,

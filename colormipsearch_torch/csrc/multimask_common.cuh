@@ -1,17 +1,29 @@
 // Shared parts of the exact multi-mask kernels (multimask_ratio.cu, the
 // ratio predicate; multimask_words.cu, the packed-word predicate): tile
-// geometry, the xy-shift ring, the work split over threads, the staging
-// of one (row, tile) region in shared memory and the block reduction of
-// the per-variant counters; and the device switch of every C entry point
+// geometry, the xy-shift ring, the staged window and its asynchronous
+// copy, the walk over a row's live tiles and the block reduction of the
+// per-variant counters; and the device switch of every C entry point
 // (op_chain.cu's too).
 //
 // Work split of both kernels: one thread block per launch row (a mask and
-// a target, given by the host table) walks the row's live-tile list
-// tile_list[row_off[r] .. row_off[r+1]). No state carries across blocks.
-// Per (row, tile) the block stages the (8+2s) x (128+2s) region of the
-// padded frame that the shifts reach (origin (cy+8-s, cx+128-s)), direct
-// and flipped; each of the 256 threads owns 4 query pixels (one column,
-// rows r, r+2, r+4, r+6) and keeps one register counter per variant.
+// a target, given by the host table; rows come in target order, so blocks
+// that read one target's windows run together and share them in L2)
+// walks the row's live-tile list tile_list[row_off[r] .. row_off[r+1]).
+// No state carries across blocks. A list entry is a tile and the
+// directions (direct, mirrored) in which it can score.
+//
+// Per (row, tile) the block stages, for each live direction, the window of
+// the padded target planes that the shifts reach: rows cy+8-s .. cy+15+s
+// and the 136 columns from cx+124, a 16-byte aligned superset of the
+// reference's (8+2s) x (128+2s) region. The loads of tile k+1 are in
+// flight (cp.async, two stages in shared memory) while tile k computes.
+// The threads then walk the tile's compact list of selected query pixels
+// (those that can match; host lists, pixel_active.compact_selected), one
+// pixel per thread per pass, each with one register counter per variant,
+// so work follows the selected pixels and a tile without any costs
+// nothing. A window without an above-threshold target pixel (sel, bit 19
+// of a word, bit 3 of a flag byte) scores 0 for every query pixel, so the
+// block skips its compute: exact.
 
 #pragma once
 
@@ -22,10 +34,17 @@ namespace cms {
 
 constexpr int TILE_H = 8;
 constexpr int TILE_W = 128;
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr int TILE_PX = TILE_H * TILE_W;
-constexpr int ROWS_PER_PASS = THREADS / TILE_W;     // 2
-constexpr int PX_PER_THREAD = TILE_PX / THREADS;    // 4
+// the staged window starts WIN_X0 columns left of the tile's shift-0
+// column: cx + 128 - 4 is a multiple of 4 elements (16 bytes of f32/int32)
+constexpr int WIN_X0 = 4;
+constexpr int WIN_W = TILE_W + 2 * WIN_X0;  // 136 = 34 chunks of 4 elements
+constexpr int CHUNKS_PER_ROW = WIN_W / 4;
+// a tile_list entry: tile | directions << DIR_SHIFT (multimask.py)
+constexpr int DIR_SHIFT = 29;
+constexpr int TILE_MASK = (1 << DIR_SHIFT) - 1;
+constexpr int POS_MASK = TILE_PX - 1;  // a compact entry's place in its tile
 
 // Shift v of oracle.shift_ring_offsets(xy): v = 0 is (0, 0); then for each
 // ring i = 2, 4, .. the 8 offsets (xx, yy) in {-i, 0, i}^2 without (0, 0),
@@ -45,39 +64,88 @@ __host__ __device__ constexpr int ring_dy(int v) {
   return pos == 0 ? -i : (pos == 1 ? 0 : i);
 }
 
-// Stage the region of one (row, tile) at window origin (ry, rx) of the
-// frame that starts at fbase: put(plane, e, word) stores element e of
-// plane 0 (direct) or 1 (x-flipped, only when mirror). Returns, the same
-// in every thread of the block, bit 0 set when the direct region holds an
-// above-threshold target pixel (sel, bit 19 of a word) and bit 1 for the
-// flipped one. A region without one scores 0 for every query pixel (both
-// predicates AND the target's sel bit), so the caller skips it: exact.
-template <int S, class Put>
-__device__ __forceinline__ int stage_region(
-    const int32_t* __restrict__ frames, const int32_t* __restrict__ flipped,
-    long long fbase, int wp, int ry, int rx, int mirror, Put put) {
-  constexpr int RW = TILE_W + 2 * S;
-  constexpr int RN = (TILE_H + 2 * S) * RW;
-  __syncthreads();  // the previous tile's readers are done
-  int any_d = 0;
-  int any_m = 0;
-  for (int e = threadIdx.x; e < RN; e += THREADS) {
-    const int y = e / RW;
-    const int x = e - y * RW;
-    const long long off = fbase + static_cast<long long>(ry + y) * wp
-                          + (rx + x);
-    const int wd = frames[off];
-    put(0, e, wd);
-    any_d |= (wd >> 19) & 1;
-    if (mirror) {
-      const int wm = flipped[off];
-      put(1, e, wm);
-      any_m |= (wm >> 19) & 1;
+// Offset in a staged window of a query pixel's shift-0 target, from its
+// place y * 128 + x in the tile.
+template <int S>
+__device__ __forceinline__ int window_base(int pos) {
+  return ((pos >> 7) + S) * WIN_W + (pos & 127) + WIN_X0;
+}
+
+// ---- asynchronous copies (sm_80+) ------------------------------------------
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(gmem)
+                 : "memory");
+  } else {
+    static_assert(BYTES == 4, "4- or 16-byte chunks");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                 "l"(gmem)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's most recent groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of a WH x WIN_W window of T (4-byte f32/int32 or 1-byte
+// flags) from src (row pitch wp elements) into dst, in chunks of 4
+// elements; each thread copies the chunks c = threadIdx.x + k * THREADS.
+template <int WH, class T>
+__device__ __forceinline__ void stage_window(T* dst, const T* src, int wp) {
+  for (int c = threadIdx.x; c < WH * CHUNKS_PER_ROW; c += THREADS) {
+    const int y = c / CHUNKS_PER_ROW;
+    const int x = (c - y * CHUNKS_PER_ROW) * 4;
+    const T* from = src + static_cast<long long>(y) * wp + x;
+    cp_async<static_cast<int>(4 * sizeof(T))>(dst + y * WIN_W + x, from);
+  }
+}
+
+// Whether this thread's chunks of a staged window (stage_window's split)
+// hold a sel bit; valid once its copies have landed (cp_async_wait).
+template <int WH, class T>
+__device__ __forceinline__ int window_has_sel(const T* win) {
+  int any = 0;
+  for (int c = threadIdx.x; c < WH * CHUNKS_PER_ROW; c += THREADS) {
+    const int y = c / CHUNKS_PER_ROW;
+    const T* p = win + y * WIN_W + (c - y * CHUNKS_PER_ROW) * 4;
+    if constexpr (sizeof(T) == 1) {  // flag bytes: sel is bit 3
+      any |= (*reinterpret_cast<const uint32_t*>(p) & 0x08080808u) != 0;
+    } else {  // words: sel is bit 19
+      const int4 v = *reinterpret_cast<const int4*>(p);
+      any |= ((v.x | v.y | v.z | v.w) >> 19) & 1;
     }
   }
-  any_d = __syncthreads_or(any_d);
-  any_m = __syncthreads_or(any_m);
-  return (any_d ? 1 : 0) | (any_m ? 2 : 0);
+  return any;
+}
+
+// Entry k of a row's tile list: (tile, live directions; bit 0 direct,
+// bit 1 mirrored). The kernels walk a row's list two stages deep: the
+// copies of tile k+1's live windows are started (cp.async, one group per
+// tile and thread, possibly empty) before tile k is waited for and
+// scored, so wait_group 1 leaves only the next tile in flight.
+__device__ __forceinline__ int2 list_entry(const int32_t* __restrict__ tile_list,
+                                          int k, int mirror) {
+  const int e = tile_list[k];
+  return make_int2(e & TILE_MASK, (e >> DIR_SHIFT) & (mirror ? 3 : 1));
+}
+
+// The directions whose staged window holds a sel bit anywhere in the
+// block, from each thread's own chunks (`mine`); its barriers also make
+// every thread's copies visible. Uniform over the block.
+__device__ __forceinline__ int block_live(int mine) {
+  return (__syncthreads_or(mine & 1) ? 1 : 0)
+         | (__syncthreads_or(mine & 2) ? 2 : 0);
 }
 
 // Sum every variant's counter over the block and write the row's counts,

@@ -17,24 +17,31 @@
 // holds against the target pixel at that shift. Counts are int32 integers,
 // so they are exact in any order.
 //
-// Work split, staging and reduction: multimask_common.cuh. The staged
-// planes are the f32 ratio plane a2/b2 (-1 where a2 == 0) and the flag
-// plane w >> 16 (_ratio_prep, pixel_pallas.py:291-297). The divide is
-// IEEE (no fast-math), so the plane equals the reference's bit for bit.
-// Each thread loads its query pixels' compare constants (_ratio_consts,
-// pixel_pallas.py:281-288) into registers and evaluates all 2|S| variants
-// against shared memory.
+// What bounds it on the card: per live (row, tile, direction) the block
+// reads a 12 x 136 window of the two target planes (8.2 KB, mostly from
+// L2: rows come in target order) and 20 B of constants per selected query
+// pixel, against 9 predicate evaluations of ~12 integer and f32 ops per
+// selected pixel; at the shapes of the main path the operations bound it.
 //
-// What bounds it on the card: per live (row, tile) the block reads
-// 2 x 12 x 132 x 4 B = 12.7 KB of target window and 20 KB of query
-// constants (both mostly L2 hits: a mask's tiles and a target's frame are
-// reused by many rows), against 1024 x 18 predicate evaluations of ~12
-// integer and f32 ops each (~220K ops, ~7 ops per byte). It is bound by
-// the SMs' issue rate more than by memory. The design stages each window
-// once so that all 18 variants read it from shared memory, skips a tile
-// whose staged region has no above-threshold target pixel (exact: every
-// compare constant includes the target's sel bit), and skips query pixels
-// whose three compare constants are all sentinels (they never match).
+// Design (work split, staging and the walk: multimask_common.cuh), and
+// what each part does about the first port's costs:
+// - work follows the selected pixels: each thread takes one entry of the
+//   tile's compact list per pass (pixel_active.compact_selected: the pixels
+//   whose three compare constants are not all sentinels, the others never
+//   match), with its constant (q_cmp | place << 20) and its four f32 bounds
+//   (one 16-byte load) read coalesced in list order; a tile with no entry
+//   is never listed by the host;
+// - targets are prepared once per partition, not per (row, tile): the f32
+//   ratio plane a2/b2 (-1 where a2 == 0; the IEEE divide of _ratio_prep,
+//   pixel_pallas.py:291-297) and the flag plane w >> 16 (uint8) are built
+//   beside the padding (pixel_active.pad_ratio_planes), so staging is a
+//   copy: 16-byte cp.async chunks of the ratio plane and 4-byte chunks of
+//   the flag plane;
+// - loads overlap compute: the next tile's windows are in flight while the
+//   current tile computes (two stages);
+// - exact skips: a direction the host table marks dead (its window has no
+//   target signal by the live-tile bitmaps or signal ranges) is neither
+//   staged nor scored; a staged window without a sel bit is not scored.
 
 #include "multimask_common.cuh"
 
@@ -42,10 +49,7 @@ namespace {
 
 using namespace cms;
 
-// compare-constant sentinels (ratio_bounds.py _SAME_SENT/_UP_SENT/_DN_SENT)
-constexpr int SAME_SENT = 31;
-constexpr int UP_SENT = 31;
-constexpr int DN_SENT = 63;
+constexpr int POS_SHIFT = 20;  // pixel_active.POS_SHIFT["ratio"]
 
 struct QConst {
   int sc, uc, dc;
@@ -54,17 +58,16 @@ struct QConst {
 };
 
 // All |S| shift variants of one query pixel against one staged plane pair.
-// `base` is the pixel's (dx, dy) = (0, 0) position in the staged region.
+// `base` is the pixel's (dx, dy) = (0, 0) position in the staged window.
 template <int XY>
 __device__ __forceinline__ void score_pixel(const float* __restrict__ rf,
                                             const uint8_t* __restrict__ fw,
                                             int base, const QConst& q,
                                             int (&cnt)[1 + 4 * XY]) {
   constexpr int NS = 1 + 4 * XY;
-  constexpr int RW = TILE_W + 2 * XY;
 #pragma unroll
   for (int v = 0; v < NS; ++v) {
-    const int o = base + ring_dy(v) * RW + ring_dx(v);
+    const int o = base + ring_dy(v) * WIN_W + ring_dx(v);
     const float r = rf[o];
     const int f = fw[o];
     const bool same_ok = ((f & 15) == q.sc) & (r >= q.lo) & (r <= q.hi);
@@ -74,21 +77,15 @@ __device__ __forceinline__ void score_pixel(const float* __restrict__ rf,
   }
 }
 
-__device__ __forceinline__ void stage_word(int w, float* rf, uint8_t* fw,
-                                           int e) {
-  const int a2 = (w >> 8) & 0xFF;
-  rf[e] = a2 == 0 ? -1.0f : static_cast<float>(a2)
-                                / static_cast<float>(w & 0xFF);
-  // flags live in bits 16..21 of a word: sector, sel, cl, cu
-  fw[e] = static_cast<uint8_t>((w >> 16) & 0x3F);
-}
-
 template <int XY>
 __global__ void __launch_bounds__(THREADS)
-multimask_ratio_kernel(const int32_t* __restrict__ frames,
-                       const int32_t* __restrict__ flipped, int hp, int wp,
-                       const int32_t* __restrict__ q_cmp,
-                       const float* __restrict__ q_f32,
+multimask_ratio_kernel(const float* __restrict__ rf,
+                       const uint8_t* __restrict__ fw,
+                       const float* __restrict__ rf_m,
+                       const uint8_t* __restrict__ fw_m, int hp, int wp,
+                       const int32_t* __restrict__ sel_off,
+                       const int32_t* __restrict__ sel_q,
+                       const float4* __restrict__ sel_f32,
                        const int32_t* __restrict__ coords,
                        const int32_t* __restrict__ row_off,
                        const int32_t* __restrict__ tile_list,
@@ -98,18 +95,16 @@ multimask_ratio_kernel(const int32_t* __restrict__ frames,
   constexpr int S = XY;  // largest |dx|, |dy| of the ring
   constexpr int NS = 1 + 4 * XY;
   constexpr int NV = 2 * NS;
-  constexpr int RW = TILE_W + 2 * S;
-  constexpr int RN = (TILE_H + 2 * S) * RW;
+  constexpr int WH = TILE_H + 2 * S;
+  constexpr int WN = WH * WIN_W;
 
-  __shared__ float rf_s[2][RN];
-  __shared__ uint8_t fw_s[2][RN];
+  // [stage][direction] windows of the ratio and flag planes
+  __shared__ __align__(16) float rf_s[2][2][WN];
+  __shared__ __align__(16) uint8_t fw_s[2][2][WN];
 
-  const int tid = threadIdx.x;
-  const int col = tid % TILE_W;
-  const int qrow0 = tid / TILE_W;
   const long long r = blockIdx.x;
   if (surv[r] == 0) {  // uniform over the block
-    if (tid < NV) out[r * NV + tid] = 0;
+    if (threadIdx.x < NV) out[r * NV + threadIdx.x] = 0;
     return;
   }
   int cnt_d[NS];
@@ -121,51 +116,78 @@ multimask_ratio_kernel(const int32_t* __restrict__ frames,
   }
   const long long fbase = static_cast<long long>(tgt[r]) * hp * wp;
 
-  for (int k = row_off[r]; k < row_off[r + 1]; ++k) {
-    const int tile = tile_list[k];
-    const int any = stage_region<S>(
-        frames, flipped, fbase, wp, coords[2 * tile] + TILE_H - S,
-        coords[2 * tile + 1] + TILE_W - S, mirror,
-        [&](int p, int e, int w) { stage_word(w, rf_s[p], fw_s[p], e); });
-    if (!any) continue;  // uniform: no target signal here
-
-    const size_t tbase = static_cast<size_t>(tile) * TILE_PX;
-#pragma unroll
-    for (int i = 0; i < PX_PER_THREAD; ++i) {
-      const int qy = qrow0 + i * ROWS_PER_PASS;
-      const int qp = qy * TILE_W + col;
-      const int qc = q_cmp[tbase + qp];
-      QConst q;
-      q.sc = qc & 31;
-      q.uc = (qc >> 5) & 31;
-      q.dc = (qc >> 10) & 63;
-      if (q.sc == SAME_SENT && q.uc == UP_SENT && q.dc == DN_SENT)
-        continue;  // unselected query pixel: never matches
-      q.gup = ((qc >> 16) & 1) != 0;
-      q.gdn = ((qc >> 17) & 1) != 0;
-      const float* qf = q_f32 + 4 * tbase + qp;
-      q.lo = qf[0];
-      q.hi = qf[TILE_PX];
-      q.cup = qf[2 * TILE_PX];
-      q.cdn = qf[3 * TILE_PX];
-      const int base = (qy + S) * RW + (col + S);
-      if (any & 1) score_pixel<XY>(rf_s[0], fw_s[0], base, q, cnt_d);
-      if (any & 2) score_pixel<XY>(rf_s[1], fw_s[1], base, q, cnt_m);
+  const auto issue = [&](int2 ent, int st) {
+    const int tile = ent.x;
+    const int dirs = ent.y;
+    const long long off =
+        fbase
+        + static_cast<long long>(coords[2 * tile] + TILE_H - S) * wp
+        + coords[2 * tile + 1] + TILE_W - WIN_X0;
+    if (dirs & 1) {
+      stage_window<WH>(rf_s[st][0], rf + off, wp);
+      stage_window<WH>(fw_s[st][0], fw + off, wp);
     }
+    if (dirs & 2) {
+      stage_window<WH>(rf_s[st][1], rf_m + off, wp);
+      stage_window<WH>(fw_s[st][1], fw_m + off, wp);
+    }
+  };
+  const auto ready = [&](int st, int dirs) {
+    return ((dirs & 1) ? window_has_sel<WH>(fw_s[st][0]) : 0)
+           | ((dirs & 2) ? 2 * window_has_sel<WH>(fw_s[st][1]) : 0);
+  };
+  const int k0 = row_off[r];
+  const int k1 = row_off[r + 1];
+  if (k0 < k1) issue(list_entry(tile_list, k0, mirror), 0);
+  cp_async_commit();
+  for (int k = k0; k < k1; ++k) {
+    const int st = (k - k0) & 1;
+    const int2 cur = list_entry(tile_list, k, mirror);
+    if (k + 1 < k1)
+      issue(list_entry(tile_list, k + 1, mirror), st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of tile k have landed
+    const int live = block_live(ready(st, cur.y));
+    if (live) {
+      const int tile = cur.x;
+      const int p1 = sel_off[tile + 1];
+      for (int p = sel_off[tile] + threadIdx.x; p < p1; p += THREADS) {
+        const int qc = sel_q[p];
+        const float4 qf = sel_f32[p];
+        QConst q;
+        q.sc = qc & 31;
+        q.uc = (qc >> 5) & 31;
+        q.dc = (qc >> 10) & 63;
+        q.gup = ((qc >> 16) & 1) != 0;
+        q.gdn = ((qc >> 17) & 1) != 0;
+        q.lo = qf.x;
+        q.hi = qf.y;
+        q.cup = qf.z;
+        q.cdn = qf.w;
+        const int base = window_base<S>((qc >> POS_SHIFT) & POS_MASK);
+        if (live & 1)
+          score_pixel<XY>(rf_s[st][0], fw_s[st][0], base, q, cnt_d);
+        if (live & 2)
+          score_pixel<XY>(rf_s[st][1], fw_s[st][1], base, q, cnt_m);
+      }
+    }
+    __syncthreads();  // stage st is read: the next issue may refill it
   }
   reduce_write<NS>(cnt_d, cnt_m, out + r * NV);
 }
 
 template <int XY>
-cudaError_t launch(const void* frames, const void* flipped, int hp, int wp,
-                   const void* q_cmp, const void* q_f32, const void* coords,
+cudaError_t launch(const void* rf, const void* fw, const void* rf_m,
+                   const void* fw_m, int hp, int wp, const void* sel_off,
+                   const void* sel_q, const void* sel_f32, const void* coords,
                    const void* row_off, const void* tile_list, int n_rows,
                    const void* tgt, const void* surv, int mirror, void* out,
                    cudaStream_t stream) {
   multimask_ratio_kernel<XY><<<n_rows, THREADS, 0, stream>>>(
-      static_cast<const int32_t*>(frames),
-      static_cast<const int32_t*>(flipped), hp, wp,
-      static_cast<const int32_t*>(q_cmp), static_cast<const float*>(q_f32),
+      static_cast<const float*>(rf), static_cast<const uint8_t*>(fw),
+      static_cast<const float*>(rf_m), static_cast<const uint8_t*>(fw_m), hp,
+      wp, static_cast<const int32_t*>(sel_off),
+      static_cast<const int32_t*>(sel_q), static_cast<const float4*>(sel_f32),
       static_cast<const int32_t*>(coords),
       static_cast<const int32_t*>(row_off),
       static_cast<const int32_t*>(tile_list),
@@ -180,24 +202,25 @@ cudaError_t launch(const void* frames, const void* flipped, int hp, int wp,
 // `stream` of card `device` and returns cudaGetLastError() of the launch
 // (0 on success). The caller's current device is restored before return.
 // Supported xy_shift: 0 and 2 (2|S| <= 32 variants, the reference's NV_PAD
-// bound).
+// bound). The planes must be 16-byte aligned with wp a multiple of 16
+// (the wrapper checks both).
 extern "C" int cms_multimask_ratio(
-    const void* frames, const void* flipped, int hp, int wp,
-    const void* q_cmp, const void* q_f32, const void* coords,
-    const void* row_off, const void* tile_list, int n_rows, const void* tgt,
-    const void* surv, int xy_shift, int mirror, void* out, void* stream,
-    int device) {
+    const void* rf, const void* fw, const void* rf_m, const void* fw_m,
+    int hp, int wp, const void* sel_off, const void* sel_q,
+    const void* sel_f32, const void* coords, const void* row_off,
+    const void* tile_list, int n_rows, const void* tgt, const void* surv,
+    int xy_shift, int mirror, void* out, void* stream, int device) {
   if (n_rows <= 0) return 0;
   if (xy_shift != 0 && xy_shift != 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
     return xy_shift == 0
-               ? launch<0>(frames, flipped, hp, wp, q_cmp, q_f32, coords,
-                           row_off, tile_list, n_rows, tgt, surv, mirror,
-                           out, s)
-               : launch<2>(frames, flipped, hp, wp, q_cmp, q_f32, coords,
-                           row_off, tile_list, n_rows, tgt, surv, mirror,
-                           out, s);
+               ? launch<0>(rf, fw, rf_m, fw_m, hp, wp, sel_off, sel_q,
+                           sel_f32, coords, row_off, tile_list, n_rows, tgt,
+                           surv, mirror, out, s)
+               : launch<2>(rf, fw, rf_m, fw_m, hp, wp, sel_off, sel_q,
+                           sel_f32, coords, row_off, tile_list, n_rows, tgt,
+                           surv, mirror, out, s);
   });
 }

@@ -18,37 +18,44 @@
 // The same scores, by integer arithmetic alone, so on the card it is an
 // independent witness for the ratio kernel.
 //
-// Work split, staging and reduction: multimask_common.cuh, as K1. It
-// differs from K1 in three ways:
-// - the staged planes are the raw target words (one int32 plane per
-//   direction); each variant unpacks its word with bit-field extracts;
+// What bounds it on the card: per live (row, tile, direction) the block
+// reads a 12 x 136 window of target words (6.5 KB, mostly from L2) and
+// 4 B per selected query pixel, against 9 evaluations of ~35 integer ops
+// per selected pixel: the operations bound it, ~3x K1's.
+//
+// Design (work split, staging and the walk: multimask_common.cuh, as K1):
+// - work follows the selected pixels: each thread takes one entry of the
+//   tile's compact list per pass (pixel_active.compact_selected: sel = 1
+//   and one of the three cases' query-side preconditions holds, since the
+//   predicate ANDs qsel & tsel, pixel_pallas.py:118, and each case needs
+//   its precondition); an entry is the raw word with its place in the tile
+//   at bit 22, read coalesced in list order;
+// - staging is a copy of the raw target words (16-byte cp.async chunks),
+//   the next tile's window in flight while the current tile computes;
 // - each thread keeps its query pixel's unpacked fields, and the three
 //   constant triples the pixel can need, in registers: with the query
 //   sector s1 fixed, the same-sector test uses triple 0, the "up" pair
 //   (s2 == s1 + 1) uses lo = s1 and the "down" pair (s2 == s1 - 1) uses
-//   lo = s1 - 1, so no per-variant table lookup remains;
-// - the six c9_split triples (pixel_active.word_triples) arrive as
-//   kernel arguments, so one code path serves every zt9.
+//   lo = s1 - 1, so no per-variant table lookup remains; the six c9_split
+//   triples (pixel_active.word_triples) arrive as kernel arguments, so one
+//   code path serves every zt9;
+// - exact skips as K1's: a direction the host table marks dead is neither
+//   staged nor scored; a staged window without a sel bit is not scored.
 // Mirror geometry is K1's: the flipped frame is the x-flip of the raw
 // plane before the tile padding (pixel_active.pad_from_words), staged at
 // the same window origin as the direct one.
-// It keeps K1's two exact skips: a staged region with no sel bit, and a
-// query pixel that can never match (sel = 0, since the predicate ANDs
-// qsel & tsel, pixel_pallas.py:118; or none of the three cases' query-side
-// preconditions holds).
 //
 // Per (pixel, variant) one staged chain runs (the reference's general
 // form runs two; its packed-constant form, pixel_pallas.py:140, shows one
-// suffices: same and adjacent are exclusive), ~35 integer ops and
-// compares against ~12 for K1. What bounds it on the card: the same bytes
-// as K1 per live (row, tile) (12.7 KB of window, 4 KB of query words)
-// against ~3x K1's operations, so it is bound by the SMs' issue rate.
+// suffices: same and adjacent are exclusive).
 
 #include "multimask_common.cuh"
 
 namespace {
 
 using namespace cms;
+
+constexpr int POS_SHIFT = 22;  // pixel_active.POS_SHIFT["words"]
 
 // the six (Q, Rhi, Rlo) constants: index 0 the same-sector test, index
 // lo = 1..5 the adjacent pair (lo, lo + 1)
@@ -121,17 +128,18 @@ __device__ __forceinline__ void score_pixel(const int32_t* __restrict__ ws,
                                             int base, const QWord& q,
                                             int (&cnt)[1 + 4 * XY]) {
   constexpr int NS = 1 + 4 * XY;
-  constexpr int RW = TILE_W + 2 * XY;
 #pragma unroll
   for (int v = 0; v < NS; ++v)
-    cnt[v] += match_word(ws[base + ring_dy(v) * RW + ring_dx(v)], q) ? 1 : 0;
+    cnt[v] += match_word(ws[base + ring_dy(v) * WIN_W + ring_dx(v)], q)
+                  ? 1 : 0;
 }
 
 template <int XY>
 __global__ void __launch_bounds__(THREADS)
 multimask_words_kernel(const int32_t* __restrict__ frames,
                        const int32_t* __restrict__ flipped, int hp, int wp,
-                       const int32_t* __restrict__ q_words,
+                       const int32_t* __restrict__ sel_off,
+                       const int32_t* __restrict__ sel_q,
                        const int32_t* __restrict__ coords,
                        const int32_t* __restrict__ row_off,
                        const int32_t* __restrict__ tile_list,
@@ -141,23 +149,21 @@ multimask_words_kernel(const int32_t* __restrict__ frames,
   constexpr int S = XY;  // largest |dx|, |dy| of the ring
   constexpr int NS = 1 + 4 * XY;
   constexpr int NV = 2 * NS;
-  constexpr int RW = TILE_W + 2 * S;
-  constexpr int RN = (TILE_H + 2 * S) * RW;
+  constexpr int WH = TILE_H + 2 * S;
+  constexpr int WN = WH * WIN_W;
 
-  __shared__ int32_t w_s[2][RN];
+  __shared__ __align__(16) int32_t w_s[2][2][WN];  // [stage][direction]
   __shared__ int4 trip_s[6];
 
-  const int tid = threadIdx.x;
-  const int col = tid % TILE_W;
-  const int qrow0 = tid / TILE_W;
   const long long r = blockIdx.x;
   if (surv[r] == 0) {  // uniform over the block
-    if (tid < NV) out[r * NV + tid] = 0;
+    if (threadIdx.x < NV) out[r * NV + threadIdx.x] = 0;
     return;
   }
-  if (tid < 6)  // read after stage_region's first __syncthreads
-    trip_s[tid] = make_int4(trip.q[tid], trip.rh[tid], trip.rl[tid],
-                            (tid == 2) | (tid == 4));
+  if (threadIdx.x < 6)  // read after the tile loop's first barrier
+    trip_s[threadIdx.x] = make_int4(
+        trip.q[threadIdx.x], trip.rh[threadIdx.x], trip.rl[threadIdx.x],
+        (threadIdx.x == 2) | (threadIdx.x == 4));
   int cnt_d[NS];
   int cnt_m[NS];
 #pragma unroll
@@ -167,49 +173,68 @@ multimask_words_kernel(const int32_t* __restrict__ frames,
   }
   const long long fbase = static_cast<long long>(tgt[r]) * hp * wp;
 
-  for (int k = row_off[r]; k < row_off[r + 1]; ++k) {
-    const int tile = tile_list[k];
-    const int any = stage_region<S>(
-        frames, flipped, fbase, wp, coords[2 * tile] + TILE_H - S,
-        coords[2 * tile + 1] + TILE_W - S, mirror,
-        [&](int p, int e, int w) { w_s[p][e] = w; });
-    if (!any) continue;  // uniform: no target signal here
-
-    const size_t tbase = static_cast<size_t>(tile) * TILE_PX;
-#pragma unroll
-    for (int i = 0; i < PX_PER_THREAD; ++i) {
-      const int qy = qrow0 + i * ROWS_PER_PASS;
-      const int qw = q_words[tbase + qy * TILE_W + col];
-      if (!((qw >> 19) & 1)) continue;  // qsel = 0: never matches
-      QWord q;
-      q.b1 = qw & 0xFF;
-      q.a1 = (qw >> 8) & 0xFF;
-      q.s1 = (qw >> 16) & 7;
-      q.same_pre = (q.s1 > 0) & (q.a1 > 0);
-      q.up_pre = (q.s1 > 0) & (((qw >> 21) & 1) != 0);      // qcu
-      q.dn_pre = (q.s1 - 1 > 0) & (((qw >> 20) & 1) != 0);  // qcl
-      if (!(q.same_pre | q.up_pre | q.dn_pre)) continue;  // never matches
-      q.t_same = trip_s[0];
-      q.t_up = pair_triple(trip_s, q.s1);
-      q.t_dn = pair_triple(trip_s, q.s1 - 1);
-      const int base = (qy + S) * RW + (col + S);
-      if (any & 1) score_pixel<XY>(w_s[0], base, q, cnt_d);
-      if (any & 2) score_pixel<XY>(w_s[1], base, q, cnt_m);
+  const auto issue = [&](int2 ent, int st) {
+    const int tile = ent.x;
+    const int dirs = ent.y;
+    const long long off =
+        fbase
+        + static_cast<long long>(coords[2 * tile] + TILE_H - S) * wp
+        + coords[2 * tile + 1] + TILE_W - WIN_X0;
+    if (dirs & 1) stage_window<WH>(w_s[st][0], frames + off, wp);
+    if (dirs & 2) stage_window<WH>(w_s[st][1], flipped + off, wp);
+  };
+  const auto ready = [&](int st, int dirs) {
+    return ((dirs & 1) ? window_has_sel<WH>(w_s[st][0]) : 0)
+           | ((dirs & 2) ? 2 * window_has_sel<WH>(w_s[st][1]) : 0);
+  };
+  const int k0 = row_off[r];
+  const int k1 = row_off[r + 1];
+  if (k0 < k1) issue(list_entry(tile_list, k0, mirror), 0);
+  cp_async_commit();
+  for (int k = k0; k < k1; ++k) {
+    const int st = (k - k0) & 1;
+    const int2 cur = list_entry(tile_list, k, mirror);
+    if (k + 1 < k1)
+      issue(list_entry(tile_list, k + 1, mirror), st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of tile k have landed
+    const int live = block_live(ready(st, cur.y));
+    if (live) {
+      const int tile = cur.x;
+      const int p1 = sel_off[tile + 1];
+      for (int p = sel_off[tile] + threadIdx.x; p < p1; p += THREADS) {
+        const int qw = sel_q[p];
+        QWord q;
+        q.b1 = qw & 0xFF;
+        q.a1 = (qw >> 8) & 0xFF;
+        q.s1 = (qw >> 16) & 7;
+        q.same_pre = (q.s1 > 0) & (q.a1 > 0);
+        q.up_pre = (q.s1 > 0) & (((qw >> 21) & 1) != 0);      // qcu
+        q.dn_pre = (q.s1 - 1 > 0) & (((qw >> 20) & 1) != 0);  // qcl
+        q.t_same = trip_s[0];
+        q.t_up = pair_triple(trip_s, q.s1);
+        q.t_dn = pair_triple(trip_s, q.s1 - 1);
+        const int base = window_base<S>((qw >> POS_SHIFT) & POS_MASK);
+        if (live & 1) score_pixel<XY>(w_s[st][0], base, q, cnt_d);
+        if (live & 2) score_pixel<XY>(w_s[st][1], base, q, cnt_m);
+      }
     }
+    __syncthreads();  // stage st is read: the next issue may refill it
   }
   reduce_write<NS>(cnt_d, cnt_m, out + r * NV);
 }
 
 template <int XY>
 cudaError_t launch(const void* frames, const void* flipped, int hp, int wp,
-                   const void* q_words, const void* coords,
+                   const void* sel_off, const void* sel_q, const void* coords,
                    const void* row_off, const void* tile_list, int n_rows,
                    const void* tgt, const void* surv, int mirror,
                    const Triples& trip, void* out, cudaStream_t stream) {
   multimask_words_kernel<XY><<<n_rows, THREADS, 0, stream>>>(
       static_cast<const int32_t*>(frames),
       static_cast<const int32_t*>(flipped), hp, wp,
-      static_cast<const int32_t*>(q_words),
+      static_cast<const int32_t*>(sel_off),
+      static_cast<const int32_t*>(sel_q),
       static_cast<const int32_t*>(coords),
       static_cast<const int32_t*>(row_off),
       static_cast<const int32_t*>(tile_list),
@@ -224,13 +249,14 @@ cudaError_t launch(const void* frames, const void* flipped, int hp, int wp,
 // a host array of 18 ints, (Q, Rhi, Rlo) for each of the six constants of
 // pixel_active.word_triples. Launches on `stream` of card `device` and
 // returns cudaGetLastError() of the launch (0 on success); the caller's
-// current device is restored. Supported xy_shift: 0 and 2.
+// current device is restored. Supported xy_shift: 0 and 2. The frames
+// must be 16-byte aligned with wp a multiple of 16 (the wrapper checks).
 extern "C" int cms_multimask_words(
     const void* frames, const void* flipped, int hp, int wp,
-    const void* q_words, const void* coords, const void* row_off,
-    const void* tile_list, int n_rows, const void* tgt, const void* surv,
-    int xy_shift, int mirror, const int* triples, void* out, void* stream,
-    int device) {
+    const void* sel_off, const void* sel_q, const void* coords,
+    const void* row_off, const void* tile_list, int n_rows, const void* tgt,
+    const void* surv, int xy_shift, int mirror, const int* triples,
+    void* out, void* stream, int device) {
   if (n_rows <= 0) return 0;
   if (xy_shift != 0 && xy_shift != 2)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -243,10 +269,10 @@ extern "C" int cms_multimask_words(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
     return xy_shift == 0
-               ? launch<0>(frames, flipped, hp, wp, q_words, coords,
+               ? launch<0>(frames, flipped, hp, wp, sel_off, sel_q, coords,
                            row_off, tile_list, n_rows, tgt, surv, mirror,
                            trip, out, s)
-               : launch<2>(frames, flipped, hp, wp, q_words, coords,
+               : launch<2>(frames, flipped, hp, wp, sel_off, sel_q, coords,
                            row_off, tile_list, n_rows, tgt, surv, mirror,
                            trip, out, s);
   });

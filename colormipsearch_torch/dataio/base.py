@@ -1,0 +1,112 @@
+"""Storage-agnostic data I/O interfaces.
+
+Copy of the parts of `colormipsearch_tpu/dataio/base.py` that the
+colorDepthSearch command uses: the input selector DataSourceParam
+(dataio/DataSourceParam.java + dao/NeuronSelector.java) and the reader
+and writer interfaces of its JSON backend (dataio/CDMIPsReader.java,
+dataio/NeuronMatchesWriter.java).
+"""
+
+from __future__ import annotations
+
+import abc
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Set
+
+from ..model.entities import CDMatchEntity, NeuronEntity
+
+
+@dataclass
+class DataSourceParam:
+    """Input selector (dataio/DataSourceParam.java + dao/NeuronSelector
+    .java:15-31): alignment space, libraries, mip/entity/source-ref IDs,
+    names (with validity check), datasets, tags (incl. exclusions),
+    annotations = neuronTerms (incl. exclusions), processing tags,
+    neuron class, offsets."""
+    alignment_space: Optional[str] = None
+    libraries: List[str] = field(default_factory=list)
+    mip_ids: List[str] = field(default_factory=list)
+    names: List[str] = field(default_factory=list)
+    entity_ids: Set[int] = field(default_factory=set)
+    source_ref_ids: Set[str] = field(default_factory=set)
+    datasets: Set[str] = field(default_factory=set)
+    tags: Set[str] = field(default_factory=set)
+    excluded_tags: Set[str] = field(default_factory=set)
+    annotations: Set[str] = field(default_factory=set)
+    excluded_annotations: Set[str] = field(default_factory=set)
+    processing_tags: Dict[str, Set[str]] = field(default_factory=dict)
+    neuron_class: Optional[str] = None   # "EMNeuronEntity"/"LMNeuronEntity"
+    valid_name_only: bool = False        # publishedName set and not
+                                         # "No Consensus" (NeuronSelector
+                                         # .withValidPubishingName)
+    offset: int = 0
+    size: int = -1
+
+    NO_CONSENSUS = "No Consensus"
+
+    def matches_entity(self, e: NeuronEntity) -> bool:
+        if self.alignment_space and e.alignment_space != self.alignment_space:
+            return False
+        if self.libraries and e.library_name not in self.libraries:
+            return False
+        if self.mip_ids and e.mip_id not in self.mip_ids:
+            return False
+        if self.names and e.published_name not in self.names:
+            return False
+        if self.valid_name_only and (not e.published_name
+                                     or e.published_name == self.NO_CONSENSUS):
+            return False
+        if self.entity_ids and e.entity_id not in self.entity_ids:
+            return False
+        if self.source_ref_ids and e.source_ref_id not in self.source_ref_ids:
+            return False
+        if self.neuron_class and type(e).__name__ != self.neuron_class:
+            return False
+        if self.datasets and not (self.datasets & e.dataset_labels):
+            return False
+        if self.tags or self.excluded_tags:
+            all_tags = set(getattr(e, "tags", ()) or ())
+            for tags in e.processed_tags.values():
+                all_tags |= tags
+            if self.tags and not (self.tags & all_tags):
+                return False
+            if self.excluded_tags and (self.excluded_tags & all_tags):
+                return False
+        if self.annotations or self.excluded_annotations:
+            terms = set(e.neuron_terms or ())
+            if self.annotations and not (self.annotations & terms):
+                return False
+            if self.excluded_annotations and (self.excluded_annotations
+                                              & terms):
+                return False
+        if self.processing_tags:
+            for ptype_name, wanted in self.processing_tags.items():
+                have = set()
+                for ptype, tags in e.processed_tags.items():
+                    if ptype.name == ptype_name:
+                        have = tags
+                if wanted and not (wanted <= have):
+                    return False
+        return True
+
+    def apply_slice(self, items: Sequence) -> List:
+        start = self.offset if self.offset > 0 else 0
+        if self.size > 0:
+            return list(items[start:start + self.size])
+        return list(items[start:])
+
+
+class CDMIPsReader(abc.ABC):
+    """dataio/CDMIPsReader.java."""
+
+    @abc.abstractmethod
+    def read_mips(self, param: DataSourceParam) -> List[NeuronEntity]:
+        ...
+
+
+class NeuronMatchesWriter(abc.ABC):
+    """dataio/NeuronMatchesWriter.java."""
+
+    @abc.abstractmethod
+    def write(self, matches: List[CDMatchEntity]) -> int:
+        ...

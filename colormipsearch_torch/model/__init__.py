@@ -1,0 +1,7 @@
+"""Domain model: entities, enums and file references (counterpart of
+`colormipsearch_tpu/model/`)."""
+
+from .entities import (CDMatchEntity, CDSSessionEntity, EMNeuronEntity,
+                       LMNeuronEntity, NeuronEntity, entity_from_dict)
+from .enums import ComputeFileType, FileType, Gender, ProcessingType
+from .filedata import FileData, FileDataType

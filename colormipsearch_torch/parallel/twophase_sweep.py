@@ -2,8 +2,9 @@
 
 Counterpart of `colormipsearch_tpu/parallel/pallas_sweep.py` (:33-176).
 Targets are block-partitioned over the given devices and each device
-runs the whole pipeline on its shard: pack words, pad, prescreen bound,
-live tiles, exact kernel launch. Every (mask, target) score is
+runs the whole pipeline on its shard: pack words, pad (for the ratio
+predicate, into its prepared target planes), prescreen bound, live tiles,
+exact kernel launch. Every (mask, target) score is
 independent, so shards need no collectives. Launches are queued on each
 device's current stream; collect() drains a partition with one batched
 copy per device.
@@ -19,7 +20,7 @@ import torch
 
 from ..cds.multimask import (MultiMaskScorer, launch_params,
                              signal_ranges_from_words, tile_live_from_words)
-from ..cds.pixel_active import drain_deferred
+from ..cds.pixel_active import drain_deferred, pad_for_predicate
 
 
 def device_blocks(n: int, n_devices: int) -> List[Tuple[int, int]]:
@@ -104,7 +105,9 @@ class TwoPhaseSweep:
             clock[0] = time.perf_counter()
             words = eng0.pack_raw_words(targets_u8[off:off + ln], dev)
             mark("pack", dev)
-            packed = eng0.pad_from_words(words)
+            # each predicate's padded target planes, once per block
+            packed = {p: pad_for_predicate(words, p)
+                      for p in {scorer.predicate for _, scorer in self.groups}}
             mark("pad", dev)
             if self.screen is None:
                 survivors = np.ones((len(self.engines), ln), np.int32)
@@ -124,8 +127,8 @@ class TwoPhaseSweep:
             defs = [None] * len(self.engines)
             for idx, scorer in self.groups:
                 for i, d in zip(idx, scorer.launch_deferred(
-                        packed, survivors[idx], signal_ranges=ranges,
-                        tile_live=live)):
+                        packed[scorer.predicate], survivors[idx],
+                        signal_ranges=ranges, tile_live=live)):
                     defs[i] = d
             mark("launch", dev)
             launched.append((off, ln, defs))

@@ -55,15 +55,13 @@ def test_kernel_equals_plain(card, xy_shift, mirror, flags_off):
     engines = [ActiveTilePixelEngine(q, 20, mirror, 20, 1.0, xy_shift)
                for q in masks]
     words = engines[0].pack_raw_words(targets, card)
-    packed = engines[0].pad_from_words(words)
+    packed = engines[0].pad_ratio_planes(words)
     scorer = mm.MultiMaskScorer(engines)
     tab = scorer.build_table(surv, mm.signal_ranges_from_words(words),
                              mm.tile_live_from_words(words))
     if flags_off:
         tab.surv[::3] = 0  # rows the kernel must report as 0
-    args = list(packed) + list(scorer._q_for(card)) + [
-        torch.from_numpy(a).to(card)
-        for a in (tab.row_off, tab.tile_list, tab.tgt, tab.surv)]
+    args = scorer.kernel_args(packed, tab)
     before = mm.multimask_counts.launches
     got = mm.multimask_counts(*args, xy_shift, mirror)
     assert mm.multimask_counts.launches == before + 1
@@ -112,9 +110,7 @@ def test_words_kernel_equals_plain(card, pcf, xy_shift, mirror, flags_off):
                              mm.tile_live_from_words(words))
     if flags_off:
         tab.surv[::3] = 0  # rows the kernel must report as 0
-    args = list(packed) + list(scorer._q_for(card)) + [
-        torch.from_numpy(a).to(card)
-        for a in (tab.row_off, tab.tile_list, tab.tgt, tab.surv)]
+    args = scorer.kernel_args(packed, tab)
     before = mm.multimask_words_counts.launches
     got = mm.multimask_words_counts(*args, xy_shift, mirror, scorer.triples)
     assert mm.multimask_words_counts.launches == before + 1
@@ -123,10 +119,16 @@ def test_words_kernel_equals_plain(card, pcf, xy_shift, mirror, flags_off):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert got.any()
-    # the ratio kernel gives the same counts
+    # the ratio kernel gives the same counts (same rows; its tile lists
+    # hold the tiles with a selected pixel under its own predicate)
     ratio = mm.MultiMaskScorer([e.with_predicate("ratio") for e in engines])
-    rargs = list(packed) + list(ratio._q_for(card)) + args[4:]
-    assert torch.equal(mm.multimask_counts(*rargs, xy_shift, mirror), got)
+    rtab = ratio.build_table(surv, mm.signal_ranges_from_words(words),
+                             mm.tile_live_from_words(words))
+    np.testing.assert_array_equal(rtab.tgt, tab.tgt)
+    rtab.surv = tab.surv
+    rargs = ratio.kernel_args(engines[0].pad_ratio_planes(words), rtab)
+    rgot = mm.multimask_counts(*rargs, xy_shift, mirror)
+    assert torch.equal(rgot, got)
 
 
 @pytest.mark.cuda

@@ -2,6 +2,7 @@
 never falls back from the CUDA kernel to its plain version."""
 
 import os
+import re
 import subprocess
 import sys
 import types
@@ -23,27 +24,43 @@ from colormipsearch_torch.scripts import op_microbench as ob  # noqa: E402
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and build_parser(), load no jax* and no
+    colormipsearch_tpu* module."""
     code = (
-        "import sys\n"
-        "import colormipsearch_torch, colormipsearch_torch.device\n"
-        "import colormipsearch_torch.cmd.main as m\n"
-        "import colormipsearch_torch.cmd.colordepthsearch_cmd\n"
-        "import colormipsearch_torch.parallel.twophase_sweep\n"
-        "import colormipsearch_torch.cds.kernels\n"
-        "import colormipsearch_torch.cds.multimask\n"
-        "import colormipsearch_torch.cds.pixel_active\n"
-        "import colormipsearch_torch.cds.prescreen\n"
-        "import colormipsearch_torch.cds.ratio_bounds\n"
-        "import colormipsearch_torch.scripts.op_microbench\n"
-        "m.build_parser()\n"
+        "import importlib, pkgutil, sys\n"
+        "import colormipsearch_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    pkg.__path__, 'colormipsearch_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "importlib.import_module('colormipsearch_torch.cmd.main')"
+        ".build_parser()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax'\n"
-        "             or k.startswith(('jax.', 'jaxlib')))\n"
+        "             or k.startswith(('jax.', 'jaxlib', 'colormipsearch_tpu')))\n"
         "assert not bad, bad\n"
-        "print('no jax')\n")
+        "print('no jax', len(names))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert "no jax" in r.stdout
+    # the copies of the host modules are among the modules imported
+    assert int(r.stdout.split()[-1]) >= 30
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py names neither JAX nor the JAX package in an import,
+    and checks it runs in a checkout by port files only."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    with open(path) as f:
+        src = f.read()
+    imports = [ln.strip() for ln in src.splitlines()
+               if ln.strip().startswith(("import ", "from "))]
+    assert imports
+    bad = [ln for ln in imports
+           if re.search(r"\b(jax|jaxlib|colormipsearch_tpu)\b", ln)]
+    assert not bad, bad
+    assert "colormipsearch_tpu/" not in src.split("def main")[1]
 
 
 def test_cuda_device_without_card_raises(monkeypatch, tmp_path):
@@ -77,8 +94,8 @@ def test_kernel_wrapper_never_falls_back(monkeypatch, tmp_path):
     monkeypatch.setattr(ob, "op_chain_plain", plain)
     triples = pa.word_triples(10_000_000)
     calls = [
-        (mm.multimask_counts, 9, (2, True)),
-        (mm.multimask_words_counts, 8, (2, True, triples)),
+        (mm.multimask_counts, 12, (2, True)),
+        (mm.multimask_words_counts, 9, (2, True, triples)),
     ]
     for fn, n_tensors, rest in calls:
         args = [_fake("cuda:0") for _ in range(n_tensors)]
@@ -124,15 +141,25 @@ def test_one_library_per_source(monkeypatch, tmp_path):
 
 
 def test_cli_dispatch_table():
+    """colorDepthSearch runs on the port; gradientScores and the eight host
+    commands of the reference are registered and refuse with a pointer to
+    the JAX package."""
     sub = next(a for a in build_parser()._actions
                if isinstance(a.choices, dict))
-    assert set(sub.choices) >= {
-        "colorDepthSearch", "gradientScores", "normalizeGradientScores",
-        "createColorDepthSearchDataInput", "importPPPResults", "exportData",
-        "tag", "copyToMipsStore", "validateDBData", "deleteCDMatches"}
+    refused = {"gradientScores", "normalizeGradientScores",
+               "createColorDepthSearchDataInput", "importPPPResults",
+               "exportData", "tag", "copyToMipsStore", "validateDBData",
+               "deleteCDMatches"}
+    assert set(sub.choices) >= refused | {"colorDepthSearch"}
     from colormipsearch_torch.cmd import colordepthsearch_cmd
     assert sub.choices["colorDepthSearch"].get_default("func") is \
         colordepthsearch_cmd.run
+    for name in sorted(refused):
+        with pytest.raises(SystemExit) as e:
+            main([name, "--some-option", "x"])
+        msg = str(e.value)
+        assert f"python -m colormipsearch_tpu {name}" in msg, msg
+        assert "ROADMAP.md" in msg
 
 
 def _empty_engine(h, w):

@@ -150,7 +150,7 @@ def test_small_rows(library, ref_run):
         for i, e in enumerate(engines_ref)])
     scorer = mm.MultiMaskScorer([_carry(e) for e in engines_ref])
     tab = scorer.build_table(surv)
-    np.testing.assert_array_equal(tab.tgt, [5, 0, N_T - 1])
+    np.testing.assert_array_equal(tab.tgt, [0, 5, N_T - 1])  # target order
     got = drain_deferred(scorer.launch_deferred(ref_run["packed"], surv))
     _assert_same(got, want)
 
@@ -217,9 +217,7 @@ def test_survivor_flag_zero_rows(ref_run):
     engines = [_carry(e) for e in ref_run["engines"]]
     scorer = mm.MultiMaskScorer(engines)
     tab = scorer.build_table(surv)
-    args = list(ref_run["packed"]) + list(scorer._q_for(torch.device("cpu")))
-    args += [torch.from_numpy(a) for a in (tab.row_off, tab.tile_list,
-                                           tab.tgt, tab.surv)]
+    args = scorer.kernel_args(ref_run["packed"], tab)
     full = mm.multimask_counts(*args, 2, ref_run["mirror"])
     off = tab.surv.copy()
     off[::3] = 0

@@ -180,12 +180,15 @@ def test_cli_goldens_match_reference(workspace, tmp_path, prescreen):
 @pytest.mark.parametrize("argv,needle", [
     (["--engine", "dense"], "--engine dense"),
     (["--jax-distributed"], "multi-host"),
+    (["--db", "store.db"], "--db"),
+    (["--mips-storage", "db"], "--mips-storage db"),
 ])
 def test_cli_refusals_name_roadmap(workspace, tmp_path, argv, needle):
     with pytest.raises(SystemExit) as e:
         main(_search_args(str(workspace), str(tmp_path / "o"), "--device",
                           "cpu", *argv))
     assert needle in str(e.value) and "ROADMAP.md" in str(e.value)
+    assert not (tmp_path / "o").exists()  # refused before any work
 
 
 def test_gradient_scores_refused():

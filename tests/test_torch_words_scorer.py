@@ -115,7 +115,8 @@ def test_words_scorer_matches_reference(ref_run, dense):
     engines = [_carry(e) for e in ref_run["engines"]]
     scorer = mm.MultiMaskScorer(engines)
     assert scorer.predicate == "words"
-    assert len(scorer._q_for(torch.device("cpu"))) == 2  # q_words, coords
+    # sel_off, sel_q (the selected pixels' words), coords
+    assert len(scorer._q_for(torch.device("cpu"))) == 3
     got = drain_deferred(scorer.launch_deferred(ref_run["packed"], surv))
     _assert_same(got, want)
 

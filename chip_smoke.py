@@ -27,8 +27,9 @@ exact predicates, and the op microbench:
    and banded frames, label-region exclusion, 1% keep threshold), on the
    ratio path and on the word path (word tables from the ratio engines'
    query tiles): 439 among mask 0's scores, each path's kernel launches
-   > 0, the two paths' scores equal on all 524,288 pairs, 32 masks' rows
-   of each kernel equal to its plain version; pairs/s of both paths in
+   > 0, the two paths' scores equal on all 524,288 pairs, each kernel
+   equal to its plain version on partition 0's whole table, 32 masks'
+   one-launch scores equal to the sweep's; pairs/s of both paths in
    turns, survivor rate, stage seconds, peak memory, and each kernel on
    partition 0 over all masks with its work (evaluations that can count,
    staged bytes), its bound and its share of it. The timed round is the
@@ -45,7 +46,8 @@ kernel's device time, the top device kernels, and a Chrome trace in DIR.
 
 Any failure exits non-zero. The last two lines are a JSON object per
 kernel (its launches on the main path, worst error, time, plain time,
-bound and what bounds it) and {"ok": true, "device": {...}}. Outside a checkout of the repo,
+bound and what bounds it) and {"ok": true, "device": {...}}. Outside a
+checkout of the repo,
 or without a CUDA card, it exits with code 2 before printing any result.
 """
 
@@ -483,19 +485,32 @@ def phase_profile(run, bound_only, trace_dir):
 # 3.35 TB/s (NVIDIA H100 SXM data sheet), whichever is larger
 PEAK_LANE_OPS = 67e12 / 2
 PEAK_BYTES = 3.35e12
-# integer and f32 operations per (query pixel, variant) evaluation, from
-# the kernels' predicates: 3 masked equality tests, 4 f32 compares, 2
-# xors, their and/or and the add (ratio); the staged-rational chain of
-# match_word (words)
+# the operations one (query pixel, variant) evaluation needs at least:
+# ratio, 3 flag tests, 4 f32 compares, 2 xors, 2 ors and the add; words,
+# the case selection (~10) and the staged-rational chain (~25) of
+# match_word. The built kernels issue more (their SASS: 18 and ~80).
 OPS_PER_EVAL = {"ratio": 12, "words": 35}
+
+
+def event_ms(fn):
+    """(fn(), milliseconds of that one call by CUDA events)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def kernel_work(scorer, tab):
     """What one launch over `tab` must do: evaluations (selected pixels x
     variants over the live (row, tile) pairs, and in live directions
-    only), the bytes the kernel stages, the bytes it must read or write
-    once (each distinct target window of a live direction, the query
-    lists of the tiles it reads, the table, the counts) and its bound."""
+    only), the window bins, the bytes the kernel stages (one aligned
+    window per bin and live direction), the bytes it must read or write
+    once (each such window's region, the query lists of the tiles it
+    reads, the table, the counts) and its bound."""
     from colormipsearch_torch.cds import multimask as mm
     ns = len(scorer.shifts)
     s = max(abs(dy) for _, dy in scorer.shifts)
@@ -507,12 +522,10 @@ def kernel_work(scorer, tab):
     win_h = 8 + 2 * s
     coords = scorer._q_host[-1][tiles].astype(np.int64)
     tgt = np.repeat(tab.tgt, np.diff(tab.row_off)).astype(np.int64)
-    keys = []
-    for bit in (1, 2):
-        on = (dirs & bit) != 0
-        keys.append(((tgt[on] * 4096 + coords[on, 0]) * 4096
-                     + coords[on, 1]) * 2 + bit - 1)
-    n_windows = len(np.unique(np.concatenate(keys)))
+    hp, wp = scorer.frame_shape
+    bins = (tgt * hp + coords[:, 0]) * wp + coords[:, 1]
+    n_windows = len(np.unique(np.concatenate(
+        [bins[(dirs & bit) != 0] * 2 + bit - 1 for bit in (1, 2)])))
     used = np.unique(tiles)
     entry_bytes = 20 if scorer.predicate == "ratio" else 4
     bytes_once = (n_windows * win_h * (128 + 2 * s) * elem
@@ -524,8 +537,9 @@ def kernel_work(scorer, tab):
     ops_ms = 1e3 * evals_dir * OPS_PER_EVAL[scorer.predicate] / PEAK_LANE_OPS
     bytes_ms = 1e3 * bytes_once / PEAK_BYTES
     return {"nv": 2 * ns, "evals": int(n_sel.sum()) * 2 * ns,
-            "evals_dir": evals_dir,
-            "staged_bytes": int(n_dirs.sum()) * win_h * 136 * elem,
+            "evals_dir": evals_dir, "bins": len(np.unique(bins)),
+            "members": len(tiles), "windows": n_windows,
+            "staged_bytes": n_windows * win_h * 136 * elem,
             "bytes": bytes_once, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -641,32 +655,42 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
         t0 = time.perf_counter()
         tab = everyone.build_table(survivors, ranges, live)
         table_s = time.perf_counter() - t0
+        # the main path's launch, against the plain version on the same
+        # tensors (the plain version runs once, timed)
         args = everyone.kernel_args(planes[path], tab)
-        full_ms = cuda_ms(lambda: kernel(*args, *everyone.kernel_tail()), 3)
+        tail = everyone.kernel_tail()
+        plain_run = {}
+
+        def plain_once():
+            plain_run["out"], plain_run["ms"] = event_ms(
+                lambda: plain(*args, *tail))
+            return plain_run["out"]
+
+        checks[f"multimask_{path}"].compare(
+            f"at size, all masks of partition 0 ({len(tab.tgt)} survivor "
+            f"rows)", lambda: kernel(*args, *tail), plain_once)
+        kernel_ms = cuda_ms(lambda: kernel(*args, *tail), 3)
+        plain_ms = plain_run["ms"]
         work = kernel_work(everyone, tab)
         log(f"[phase 4] {path}: partition 0, all masks: host launch table "
-            f"{table_s:.3f}s, exact kernel {full_ms:.3f} ms "
-            f"({len(tab.tgt)} rows, {len(tab.tile_list)} live (row, tile) "
-            f"pairs)")
+            f"{table_s:.3f}s, exact kernel {kernel_ms:.3f} ms, plain "
+            f"version {plain_ms:.3f} ms ({len(tab.tgt)} rows, "
+            f"{len(tab.tile_list)} live (row, tile) pairs)")
         log(f"[phase 4] {path}: partition 0 work: {work['evals']} "
             f"evaluations that can count (selected pixels x "
             f"{work['nv']} over live (row, tile)), {work['evals_dir']} in "
-            f"live directions; {work['staged_bytes'] / 1e9:.3f} GB staged, "
+            f"live directions; {work['members']} (row, tile) members in "
+            f"{work['bins']} window bins, {work['windows']} windows staged "
+            f"({work['staged_bytes'] / 1e9:.3f} GB), "
             f"{work['bytes'] / 1e9:.3f} GB read or written once; bound "
             f"{work['bound_ms']:.3f} ms by {work['bound_by']} (ops "
             f"{work['ops_ms']:.3f} ms at {OPS_PER_EVAL[path]} ops per "
             f"evaluation, bytes {work['bytes_ms']:.3f} ms); kernel at "
-            f"{100 * work['bound_ms'] / full_ms:.1f} % of its bound")
+            f"{100 * work['bound_ms'] / kernel_ms:.1f} % of its bound")
 
-        # 32 masks' rows against the plain version
+        # 32 masks' rows reproduce the sweep's scores of those masks
         sub = list(range(min(32, n_masks)))
         scorer = mm.MultiMaskScorer([everyone.engines[i] for i in sub])
-        tab = scorer.build_table(survivors[sub], ranges, live)
-        counts, args, tail = compare_scorer(
-            checks, f"at size, masks 0-{sub[-1]} of partition 0 "
-            f"({int(survivors[sub].sum())} survivor rows)", scorer, tab,
-            planes[path])
-        # the sampled rows reproduce the sweep's scores of those masks
         defs = scorer.launch_deferred(planes[path], survivors[sub], ranges,
                                       live)
         sampled = np.stack([s for s, _, _ in drain_deferred(defs)])
@@ -674,17 +698,10 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
                               results[path][0][sub, :len(parts[0])]):
             raise SystemExit(f"{path}: sampled rows differ from the "
                              f"sweep's scores")
-        kernel_ms = cuda_ms(lambda: kernel(*args, *tail), 5)
-        plain_ms = cuda_ms(lambda: plain(*args, *tail), 1)
-        sample = kernel_work(scorer, tab)
-        log(f"[phase 4] {path}: exact kernel on the {len(sub)}-mask table "
-            f"({counts.shape[0]} rows, {len(tab.tile_list)} live "
-            f"tiles): {kernel_ms:.3f} ms, plain version {plain_ms:.3f} ms, "
-            f"bound {sample['bound_ms']:.3f} ms by {sample['bound_by']}")
         timing[f"multimask_{path}"] = {
             "launches": launches[path][path], "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": sample["bound_ms"],
-            "bound_by": sample["bound_by"], "library_ms": None}
+            "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+            "bound_by": work["bound_by"], "library_ms": None}
     if profile_dir is not None:
         part_words = [engines[0].pack_raw_words(tp, dev) for tp in parts]
         u_dev = torch.from_numpy(u_matrix).to(dev)

@@ -39,15 +39,15 @@ BINDINGS = {
     "multimask_ratio": {"cms_multimask_ratio": [
         _P, _P, _P, _P,          # rf, fw, rf_m, fw_m
         _I, _I,                  # hp, wp
-        _P, _P, _P, _P,          # sel_off, sel_q, sel_f32, coords
-        _P, _P, _I,              # row_off, tile_list, n_rows
-        _P, _P, _I, _I,          # tgt, surv, xy_shift, mirror
+        _P, _P, _P,              # sel_off, sel_q, sel_f32
+        _P, _I,                  # bin_off, n_bins
+        _P, _P, _I, _I,          # mem_row, mem_tile, xy_shift, mirror
         _P, _P, _I]},            # out, stream, device
     "multimask_words": {"cms_multimask_words": [
         _P, _P, _I, _I,          # frames, flipped, hp, wp
-        _P, _P, _P,              # sel_off, sel_q, coords
-        _P, _P, _I,              # row_off, tile_list, n_rows
-        _P, _P, _I, _I,          # tgt, surv, xy_shift, mirror
+        _P, _P,                  # sel_off, sel_q
+        _P, _I,                  # bin_off, n_bins
+        _P, _P, _I, _I,          # mem_row, mem_tile, xy_shift, mirror
         ctypes.POINTER(_I),      # triples: 6 x (Q, Rhi, Rlo), host ints
         _P, _P, _I]},            # out, stream, device
     "op_chain": {"cms_op_chain": [

@@ -6,7 +6,7 @@ phase scores each mask's prescreen survivors; one launch covers every
 mask of a target partition.
 
 - Host side, each mask's survivors become launch rows (mask, target,
-  survivor flag), in target order. Each row carries its exact list of
+  survivor flag). Each row carries its exact list of
   live tiles, each with the directions (direct, mirrored) in which it
   can score: the mask's active tiles that hold a selected query pixel
   and whose sampled window can hold target signal (the 3x3-dilated
@@ -18,8 +18,11 @@ mask of a target partition.
 - Device side, one kernel per predicate, each with a plain PyTorch
   version that CPU tensors run: `multimask_counts` launches the ratio
   kernel (`csrc/multimask_ratio.cu`, K1), `multimask_words_counts` the
-  packed-word kernel (`csrc/multimask_words.cu`, K3a). Each wrapper's
-  `.launches` counts its kernel launches.
+  packed-word kernel (`csrc/multimask_words.cu`, K3a). Each wrapper first
+  sorts the table's (row, tile) members into window bins on the device
+  (`window_bins`: one bin per target and tile position, so a window is
+  staged once for every mask that reads it) and launches one block per
+  bin. Each wrapper's `.launches` counts its kernel launches.
 
 Left out: the tier-2 bin-compat gate (off by default in the reference),
 and the adaptive live-table gate, ROWS, G_BUCKET and pow2 k-grid buckets,
@@ -168,6 +171,36 @@ def multimask_words_counts_plain(frames, flipped, sel_off, sel_q, coords,
                                      triples))
 
 
+def window_bins(row_off, tile_list, tgt, surv, coords, frame_shape,
+                n_targets: int):
+    """The kernels' work list (torch ops on the table's device, with no
+    wait on the device): the (row, tile) members sorted into bins by the
+    target window they read, bin = target * gh * gw + ty * gw + tx for the
+    tile origin (8 ty, 128 tx) on the gh x gw tile grid of padded frames
+    of frame_shape. A member of a row whose survivor flag is 0 keeps no
+    direction, so it scores nothing.
+
+    Returns bin_off int32 [n_targets * gh * gw + 1] (bin b's members are
+    bin_off[b] .. bin_off[b+1] - 1), mem_row int32 [L] and mem_tile int32
+    [L] (the tile_list entry: tile | directions << DIR_SHIFT)."""
+    hp, wp = frame_shape
+    gh, gw = hp // TILE_H - 2, wp // TILE_W - 2
+    n_bins = n_targets * gh * gw
+    dev = tile_list.device
+    rows = torch.repeat_interleave(
+        torch.arange(tgt.numel(), dtype=torch.int32, device=dev),
+        (row_off[1:] - row_off[:-1]).to(torch.int64),
+        output_size=tile_list.numel())
+    pos = coords[:, 0] // TILE_H * gw + coords[:, 1] // TILE_W
+    key, order = torch.sort(tgt[rows] * (gh * gw) + pos[tile_list & TILE_MASK])
+    rows = rows[order]
+    entry = tile_list[order]
+    entry = torch.where(surv[rows] != 0, entry, entry & TILE_MASK)
+    bin_off = torch.zeros(n_bins + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(torch.bincount(key, minlength=n_bins), 0, out=bin_off[1:])
+    return bin_off, rows, entry
+
+
 def _check(name, t, dtype, ndim, device):
     if t.dtype != dtype or t.dim() != ndim:
         raise ValueError(f"{name}: expected {dtype} with {ndim} dims, got "
@@ -260,17 +293,18 @@ def multimask_counts(rf, fw, rf_m, fw_m, sel_off, sel_q, sel_f32, coords,
          ("sel_f32", sel_f32, torch.float32, (4,))],
         coords, row_off, tile_list, tgt, surv, xy_shift)
     dev = rf.device
-    out = torch.empty((n_rows, nv), dtype=torch.int32, device=dev)
-    if n_rows == 0:
+    out = torch.zeros((n_rows, nv), dtype=torch.int32, device=dev)
+    n_t, hp, wp = rf.shape
+    bin_off, mem_row, mem_tile = window_bins(
+        row_off, tile_list, tgt, surv, coords, (hp, wp), n_t)
+    if mem_row.numel() == 0:
         return out
-    _, hp, wp = rf.shape
     rc = lib.cms_multimask_ratio(
         rf.data_ptr(), fw.data_ptr(), rf_m.data_ptr(), fw_m.data_ptr(), hp,
         wp, sel_off.data_ptr(), sel_q.data_ptr(), sel_f32.data_ptr(),
-        coords.data_ptr(), row_off.data_ptr(), tile_list.data_ptr(), n_rows,
-        tgt.data_ptr(), surv.data_ptr(), xy_shift, int(bool(mirror)),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        dev.index)
+        bin_off.data_ptr(), bin_off.numel() - 1, mem_row.data_ptr(),
+        mem_tile.data_ptr(), xy_shift, int(bool(mirror)), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if rc != 0:
         raise RuntimeError(f"multimask_ratio kernel launch failed: "
                            f"cudaError {rc}")
@@ -303,17 +337,18 @@ def multimask_words_counts(frames, flipped, sel_off, sel_q, coords, row_off,
     if len(flat) != 18:
         raise ValueError("triples: expected six (Q, Rhi, Rlo) triples")
     dev = frames.device
-    out = torch.empty((n_rows, nv), dtype=torch.int32, device=dev)
-    if n_rows == 0:
+    out = torch.zeros((n_rows, nv), dtype=torch.int32, device=dev)
+    n_t, hp, wp = frames.shape
+    bin_off, mem_row, mem_tile = window_bins(
+        row_off, tile_list, tgt, surv, coords, (hp, wp), n_t)
+    if mem_row.numel() == 0:
         return out
-    _, hp, wp = frames.shape
     rc = lib.cms_multimask_words(
         frames.data_ptr(), flipped.data_ptr(), hp, wp, sel_off.data_ptr(),
-        sel_q.data_ptr(), coords.data_ptr(), row_off.data_ptr(),
-        tile_list.data_ptr(), n_rows, tgt.data_ptr(), surv.data_ptr(),
-        xy_shift, int(bool(mirror)), (ctypes.c_int * 18)(*flat),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        dev.index)
+        sel_q.data_ptr(), bin_off.data_ptr(), bin_off.numel() - 1,
+        mem_row.data_ptr(), mem_tile.data_ptr(), xy_shift, int(bool(mirror)),
+        (ctypes.c_int * 18)(*flat), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if rc != 0:
         raise RuntimeError(f"multimask_words kernel launch failed: "
                            f"cudaError {rc}")
@@ -394,10 +429,9 @@ def tile_live_from_words(words: torch.Tensor) -> tuple:
 
 @dataclass
 class LaunchTable:
-    """Host launch table of one exact launch. Rows are in target order, so
-    that the blocks that read one target's windows run together."""
+    """Host launch table of one exact launch."""
     row_off: np.ndarray     # int32 [R + 1] offsets into tile_list
-    tile_list: np.ndarray   # int32 [L] tile | directions << DIR_SHIFT, row by row
+    tile_list: np.ndarray   # int32 [L] tile | directions << DIR_SHIFT, by row
     tgt: np.ndarray         # int32 [R] target per row
     surv: np.ndarray        # int32 [R] survivor flag (all 1 from build_table)
     # engine position -> (row indices, their target indices)
@@ -557,9 +591,9 @@ class MultiMaskScorer:
                     live_m = live_m & (
                         (cx[None] >= w - 1 - c1 - TILE_W - sx + 1)
                         & (cx[None] <= w - 1 - c0 + sx))
-            row, tl = np.nonzero(live_d | live_m)
-            dirs = (live_d[row, tl].astype(np.int32)
-                    | (live_m[row, tl].astype(np.int32) << 1))
+            code = live_d.view(np.uint8) | (live_m.view(np.uint8) << 1)
+            row, tl = np.nonzero(code)
+            dirs = code[row, tl].astype(np.int32)
             row_counts.append(np.bincount(row, minlength=n))
             tiles_l.append((t0 + tl).astype(np.int32) | (dirs << DIR_SHIFT))
             tgt_l.append(dest)
@@ -568,23 +602,10 @@ class MultiMaskScorer:
         cat = (lambda xs, dt: np.concatenate(xs).astype(dt) if xs
                else np.zeros(0, dt))
         counts = cat(row_counts, np.int64)
-        tgt = cat(tgt_l, np.int32)
-        tile_list = cat(tiles_l, np.int32)
-        # rows in target order (stable: by mask within a target); the
-        # tile lists move with their rows
-        order = np.argsort(tgt, kind="stable")
-        new_counts = counts[order]
-        new_off = np.concatenate([[0], np.cumsum(new_counts)])
-        old_off = np.concatenate([[0], np.cumsum(counts)])
-        gather = (np.repeat(old_off[:-1][order] - new_off[:-1], new_counts)
-                  + np.arange(new_off[-1]))
-        rank = np.empty_like(order)
-        rank[order] = np.arange(len(order))
         return LaunchTable(
-            row_off=new_off.astype(np.int32), tile_list=tile_list[gather],
-            tgt=tgt[order], surv=np.ones(n_rows, np.int32),
-            spans={pos: (rank[rows], sidx)
-                   for pos, (rows, sidx) in spans.items()})
+            row_off=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+            tile_list=cat(tiles_l, np.int32), tgt=cat(tgt_l, np.int32),
+            surv=np.ones(n_rows, np.int32), spans=spans)
 
     def launch_deferred(self, packed, survivors: np.ndarray,
                         signal_ranges: Optional[np.ndarray] = None,

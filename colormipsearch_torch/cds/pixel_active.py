@@ -187,7 +187,7 @@ class ActiveTiles:
     # the compact lists of one predicate (compact_selected): tile k's
     # selected pixels are entries sel_off[k] .. sel_off[k+1] - 1
     sel_off: Optional[np.ndarray] = None  # int32 [K + 1]
-    sel_q: Optional[np.ndarray] = None    # int32 [P]: constant | pos << POS_SHIFT
+    sel_q: Optional[np.ndarray] = None    # int32 [P]: const | pos << POS_SHIFT
     sel_f32: Optional[np.ndarray] = None  # f32 [P, 4] ("ratio"): L, U, Cup, Cdn
 
     @classmethod

@@ -1,29 +1,36 @@
 // Shared parts of the exact multi-mask kernels (multimask_ratio.cu, the
 // ratio predicate; multimask_words.cu, the packed-word predicate): tile
 // geometry, the xy-shift ring, the staged window and its asynchronous
-// copy, the walk over a row's live tiles and the block reduction of the
-// per-variant counters; and the device switch of every C entry point
-// (op_chain.cu's too).
+// copy, the window bins and the warp sums of the per-variant counters; and
+// the device switch of every C entry point (op_chain.cu's too).
 //
-// Work split of both kernels: one thread block per launch row (a mask and
-// a target, given by the host table; rows come in target order, so blocks
-// that read one target's windows run together and share them in L2)
-// walks the row's live-tile list tile_list[row_off[r] .. row_off[r+1]).
-// No state carries across blocks. A list entry is a tile and the
-// directions (direct, mirrored) in which it can score.
+// Work split of both kernels. A launch row is a mask and a target; each
+// row's live tiles make (row, tile) members. The wrapper sorts the members
+// into bins by the target window they read, one bin per (target, tile
+// position), in target order (cds/multimask.py:window_bins). Masks whose
+// active tiles sit at the same place share a bin, so its window is staged
+// once for all of them, where a block per row staged it once per row (an
+// at-size partition restaged each window ~45 times, and that copy traffic
+// from L2 bounded the kernel).
 //
-// Per (row, tile) the block stages, for each live direction, the window of
-// the padded target planes that the shifts reach: rows cy+8-s .. cy+15+s
-// and the 136 columns from cx+124, a 16-byte aligned superset of the
-// reference's (8+2s) x (128+2s) region. The loads of tile k+1 are in
-// flight (cp.async, two stages in shared memory) while tile k computes.
-// The threads then walk the tile's compact list of selected query pixels
-// (those that can match; host lists, pixel_active.compact_selected), one
-// pixel per thread per pass, each with one register counter per variant,
-// so work follows the selected pixels and a tile without any costs
-// nothing. A window without an above-threshold target pixel (sel, bit 19
-// of a word, bit 3 of a flag byte) scores 0 for every query pixel, so the
-// block skips its compute: exact.
+// One block per bin (an empty bin exits at once; the hardware schedules
+// the blocks, so bins of any size balance). The block stages the window of
+// the padded target planes that the shifts reach, for each direction
+// (direct, mirrored) a member needs: rows cy+8-s .. cy+15+s and the 136
+// columns from cx+124, a 16-byte aligned superset of the reference's
+// (8+2s) x (128+2s) region, with cp.async. Several blocks are resident on
+// an SM, so one block's copies are in flight while others compute. A
+// window without an above-threshold target pixel (sel, bit 19 of a word,
+// bit 3 of a flag byte) scores 0 for every query pixel, so the block skips
+// it: exact.
+//
+// The warps take the bin's members in turn; a warp's lanes walk the member
+// tile's compact list of selected query pixels (those that can match; host
+// lists, pixel_active.compact_selected), one pixel per lane per pass with
+// one register counter per variant, so work follows the selected pixels
+// and a tile without any costs nothing. The warp then sums each counter
+// (one REDUX per variant) and adds it to the row's counts with one atomic
+// add per variant: integer adds, exact in any order.
 
 #pragma once
 
@@ -35,13 +42,14 @@ namespace cms {
 constexpr int TILE_H = 8;
 constexpr int TILE_W = 128;
 constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
 constexpr int TILE_PX = TILE_H * TILE_W;
 // the staged window starts WIN_X0 columns left of the tile's shift-0
 // column: cx + 128 - 4 is a multiple of 4 elements (16 bytes of f32/int32)
 constexpr int WIN_X0 = 4;
 constexpr int WIN_W = TILE_W + 2 * WIN_X0;  // 136 = 34 chunks of 4 elements
 constexpr int CHUNKS_PER_ROW = WIN_W / 4;
-// a tile_list entry: tile | directions << DIR_SHIFT (multimask.py)
+// a member's entry: tile | directions << DIR_SHIFT (multimask.py)
 constexpr int DIR_SHIFT = 29;
 constexpr int TILE_MASK = (1 << DIR_SHIFT) - 1;
 constexpr int POS_MASK = TILE_PX - 1;  // a compact entry's place in its tile
@@ -129,17 +137,6 @@ __device__ __forceinline__ int window_has_sel(const T* win) {
   return any;
 }
 
-// Entry k of a row's tile list: (tile, live directions; bit 0 direct,
-// bit 1 mirrored). The kernels walk a row's list two stages deep: the
-// copies of tile k+1's live windows are started (cp.async, one group per
-// tile and thread, possibly empty) before tile k is waited for and
-// scored, so wait_group 1 leaves only the next tile in flight.
-__device__ __forceinline__ int2 list_entry(const int32_t* __restrict__ tile_list,
-                                          int k, int mirror) {
-  const int e = tile_list[k];
-  return make_int2(e & TILE_MASK, (e >> DIR_SHIFT) & (mirror ? 3 : 1));
-}
-
 // The directions whose staged window holds a sel bit anywhere in the
 // block, from each thread's own chunks (`mine`); its barriers also make
 // every thread's copies visible. Uniform over the block.
@@ -148,31 +145,47 @@ __device__ __forceinline__ int block_live(int mine) {
          | (__syncthreads_or(mine & 2) ? 2 : 0);
 }
 
-// Sum every variant's counter over the block and write the row's counts,
-// direct variants then mirrored: warp shuffles, then one partial per warp
-// in shared memory.
+// Add a warp's counters to its member row's counts (out_row: direct
+// variants then mirrored): one warp sum per variant, then lane v adds
+// variant v's, when it is not 0.
 template <int NS>
-__device__ __forceinline__ void reduce_write(const int (&cnt_d)[NS],
-                                             const int (&cnt_m)[NS],
-                                             int32_t* __restrict__ out_row) {
+__device__ __forceinline__ void warp_add(const int (&cnt_d)[NS],
+                                         const int (&cnt_m)[NS],
+                                         int32_t* __restrict__ out_row) {
   constexpr int NV = 2 * NS;
-  __shared__ int red_s[THREADS / 32][NV];
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  int mine = 0;
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
-    int x = v < NS ? cnt_d[v] : cnt_m[v - NS];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-    if (lane == 0) red_s[warp][v] = x;
+    const int s =
+        __reduce_add_sync(0xffffffffu, v < NS ? cnt_d[v] : cnt_m[v - NS]);
+    if (lane == v) mine = s;
   }
-  __syncthreads();
-  if (threadIdx.x < NV) {
-    int s = 0;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) s += red_s[w][threadIdx.x];
-    out_row[threadIdx.x] = s;
-  }
+  if (lane < NV && mine != 0) atomicAdd(out_row + lane, mine);
+}
+
+// Offset in the padded planes (hp x wp per target; tiles on a gh x gw
+// grid inside a one-tile ring) of the staged window of bin = target *
+// gh * gw + ty * gw + tx, whose tile origin is (cy, cx) = (8 ty, 128 tx).
+template <int S>
+__device__ __forceinline__ long long window_offset(int bin, int hp, int wp) {
+  const int gh = hp / TILE_H - 2;
+  const int gw = wp / TILE_W - 2;
+  const int t = bin / (gh * gw);
+  const int pos = bin - t * (gh * gw);
+  const int cy = (pos / gw) * TILE_H;
+  const int cx = (pos - (pos / gw) * gw) * TILE_W;
+  return (static_cast<long long>(t) * hp + cy + TILE_H - S) * wp + cx
+         + TILE_W - WIN_X0;
+}
+
+// The directions the bin's members need, over the block (uniform).
+__device__ __forceinline__ int bin_dirs(const int32_t* __restrict__ mem_tile,
+                                        int m0, int m1, int mirror) {
+  int u = 0;
+  for (int m = m0 + threadIdx.x; m < m1; m += THREADS)
+    u |= mem_tile[m] >> DIR_SHIFT;
+  return block_live(u & (mirror ? 3 : 1));
 }
 
 // Run launch() with `device` current and restore the caller's device;

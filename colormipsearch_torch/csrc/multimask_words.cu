@@ -18,21 +18,22 @@
 // The same scores, by integer arithmetic alone, so on the card it is an
 // independent witness for the ratio kernel.
 //
-// What bounds it on the card: per live (row, tile, direction) the block
-// reads a 12 x 136 window of target words (6.5 KB, mostly from L2) and
-// 4 B per selected query pixel, against 9 evaluations of ~35 integer ops
-// per selected pixel: the operations bound it, ~3x K1's.
+// What bounds it on the card: per (row, tile, live direction) 9
+// evaluations of the staged-rational chain for each selected query pixel,
+// ~80 SASS instructions each (nearly all integer, at half the FP32 lane
+// rate), against a 12 x 136 window of target words (6.5 KB) read once per
+// bin and 4 B per selected pixel: the operations bound it, ~4x K1's.
 //
-// Design (work split, staging and the walk: multimask_common.cuh, as K1):
-// - work follows the selected pixels: each thread takes one entry of the
-//   tile's compact list per pass (pixel_active.compact_selected: sel = 1
+// Design (work split, bins and staging: multimask_common.cuh, as K1):
+// - work follows the selected pixels: a warp's lanes take the entries of
+//   a member tile's compact list (pixel_active.compact_selected: sel = 1
 //   and one of the three cases' query-side preconditions holds, since the
 //   predicate ANDs qsel & tsel, pixel_pallas.py:118, and each case needs
 //   its precondition); an entry is the raw word with its place in the tile
 //   at bit 22, read coalesced in list order;
 // - staging is a copy of the raw target words (16-byte cp.async chunks),
-//   the next tile's window in flight while the current tile computes;
-// - each thread keeps its query pixel's unpacked fields, and the three
+//   once per window bin for every mask that reads it;
+// - each lane keeps its query pixel's unpacked fields, and the three
 //   constant triples the pixel can need, in registers: with the query
 //   sector s1 fixed, the same-sector test uses triple 0, the "up" pair
 //   (s2 == s1 + 1) uses lo = s1 and the "down" pair (s2 == s1 - 1) uses
@@ -140,11 +141,9 @@ multimask_words_kernel(const int32_t* __restrict__ frames,
                        const int32_t* __restrict__ flipped, int hp, int wp,
                        const int32_t* __restrict__ sel_off,
                        const int32_t* __restrict__ sel_q,
-                       const int32_t* __restrict__ coords,
-                       const int32_t* __restrict__ row_off,
-                       const int32_t* __restrict__ tile_list,
-                       const int32_t* __restrict__ tgt,
-                       const int32_t* __restrict__ surv, int mirror,
+                       const int32_t* __restrict__ bin_off,
+                       const int32_t* __restrict__ mem_row,
+                       const int32_t* __restrict__ mem_tile, int mirror,
                        Triples trip, int32_t* __restrict__ out) {
   constexpr int S = XY;  // largest |dx|, |dy| of the ring
   constexpr int NS = 1 + 4 * XY;
@@ -152,94 +151,79 @@ multimask_words_kernel(const int32_t* __restrict__ frames,
   constexpr int WH = TILE_H + 2 * S;
   constexpr int WN = WH * WIN_W;
 
-  __shared__ __align__(16) int32_t w_s[2][2][WN];  // [stage][direction]
+  __shared__ __align__(16) int32_t w_s[2][WN];  // [direction] windows
   __shared__ int4 trip_s[6];
 
-  const long long r = blockIdx.x;
-  if (surv[r] == 0) {  // uniform over the block
-    if (threadIdx.x < NV) out[r * NV + threadIdx.x] = 0;
-    return;
-  }
-  if (threadIdx.x < 6)  // read after the tile loop's first barrier
-    trip_s[threadIdx.x] = make_int4(
-        trip.q[threadIdx.x], trip.rh[threadIdx.x], trip.rl[threadIdx.x],
-        (threadIdx.x == 2) | (threadIdx.x == 4));
-  int cnt_d[NS];
-  int cnt_m[NS];
+  const int m0 = bin_off[blockIdx.x];
+  const int m1 = bin_off[blockIdx.x + 1];
+  if (m0 == m1) return;  // uniform: an empty bin
+  if (threadIdx.x == 0) {  // read after bin_dirs' barriers
 #pragma unroll
-  for (int v = 0; v < NS; ++v) {
-    cnt_d[v] = 0;
-    cnt_m[v] = 0;
+    for (int i = 0; i < 6; ++i)
+      trip_s[i] = make_int4(trip.q[i], trip.rh[i], trip.rl[i],
+                            (i == 2) | (i == 4));
   }
-  const long long fbase = static_cast<long long>(tgt[r]) * hp * wp;
-
-  const auto issue = [&](int2 ent, int st) {
-    const int tile = ent.x;
-    const int dirs = ent.y;
-    const long long off =
-        fbase
-        + static_cast<long long>(coords[2 * tile] + TILE_H - S) * wp
-        + coords[2 * tile + 1] + TILE_W - WIN_X0;
-    if (dirs & 1) stage_window<WH>(w_s[st][0], frames + off, wp);
-    if (dirs & 2) stage_window<WH>(w_s[st][1], flipped + off, wp);
-  };
-  const auto ready = [&](int st, int dirs) {
-    return ((dirs & 1) ? window_has_sel<WH>(w_s[st][0]) : 0)
-           | ((dirs & 2) ? 2 * window_has_sel<WH>(w_s[st][1]) : 0);
-  };
-  const int k0 = row_off[r];
-  const int k1 = row_off[r + 1];
-  if (k0 < k1) issue(list_entry(tile_list, k0, mirror), 0);
+  const int dirs = bin_dirs(mem_tile, m0, m1, mirror);
+  if (dirs == 0) return;  // uniform: only rows that report 0
+  const long long off = window_offset<S>(blockIdx.x, hp, wp);
+  if (dirs & 1) stage_window<WH>(w_s[0], frames + off, wp);
+  if (dirs & 2) stage_window<WH>(w_s[1], flipped + off, wp);
   cp_async_commit();
-  for (int k = k0; k < k1; ++k) {
-    const int st = (k - k0) & 1;
-    const int2 cur = list_entry(tile_list, k, mirror);
-    if (k + 1 < k1)
-      issue(list_entry(tile_list, k + 1, mirror), st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this thread's copies of tile k have landed
-    const int live = block_live(ready(st, cur.y));
-    if (live) {
-      const int tile = cur.x;
-      const int p1 = sel_off[tile + 1];
-      for (int p = sel_off[tile] + threadIdx.x; p < p1; p += THREADS) {
-        const int qw = sel_q[p];
-        QWord q;
-        q.b1 = qw & 0xFF;
-        q.a1 = (qw >> 8) & 0xFF;
-        q.s1 = (qw >> 16) & 7;
-        q.same_pre = (q.s1 > 0) & (q.a1 > 0);
-        q.up_pre = (q.s1 > 0) & (((qw >> 21) & 1) != 0);      // qcu
-        q.dn_pre = (q.s1 - 1 > 0) & (((qw >> 20) & 1) != 0);  // qcl
-        q.t_same = trip_s[0];
-        q.t_up = pair_triple(trip_s, q.s1);
-        q.t_dn = pair_triple(trip_s, q.s1 - 1);
-        const int base = window_base<S>((qw >> POS_SHIFT) & POS_MASK);
-        if (live & 1) score_pixel<XY>(w_s[st][0], base, q, cnt_d);
-        if (live & 2) score_pixel<XY>(w_s[st][1], base, q, cnt_m);
-      }
+  cp_async_wait<0>();
+  const int live =
+      block_live(((dirs & 1) ? window_has_sel<WH>(w_s[0]) : 0)
+                 | ((dirs & 2) ? 2 * window_has_sel<WH>(w_s[1]) : 0));
+  if (live == 0) return;  // uniform: no target signal in the window
+
+  const int lane = threadIdx.x & 31;
+  for (int m = m0 + (threadIdx.x >> 5); m < m1; m += WARPS) {
+    const int e = mem_tile[m];
+    const int d = (e >> DIR_SHIFT) & live;  // uniform over the warp
+    if (d == 0) continue;
+    const int tile = e & TILE_MASK;
+    int cnt_d[NS];
+    int cnt_m[NS];
+#pragma unroll
+    for (int v = 0; v < NS; ++v) {
+      cnt_d[v] = 0;
+      cnt_m[v] = 0;
     }
-    __syncthreads();  // stage st is read: the next issue may refill it
+    const int p1 = sel_off[tile + 1];
+    for (int p = sel_off[tile] + lane; p < p1; p += 32) {
+      const int qw = sel_q[p];
+      QWord q;
+      q.b1 = qw & 0xFF;
+      q.a1 = (qw >> 8) & 0xFF;
+      q.s1 = (qw >> 16) & 7;
+      q.same_pre = (q.s1 > 0) & (q.a1 > 0);
+      q.up_pre = (q.s1 > 0) & (((qw >> 21) & 1) != 0);      // qcu
+      q.dn_pre = (q.s1 - 1 > 0) & (((qw >> 20) & 1) != 0);  // qcl
+      q.t_same = trip_s[0];
+      q.t_up = pair_triple(trip_s, q.s1);
+      q.t_dn = pair_triple(trip_s, q.s1 - 1);
+      const int base = window_base<S>((qw >> POS_SHIFT) & POS_MASK);
+      if (d & 1) score_pixel<XY>(w_s[0], base, q, cnt_d);
+      if (d & 2) score_pixel<XY>(w_s[1], base, q, cnt_m);
+    }
+    warp_add<NS>(cnt_d, cnt_m, out + static_cast<long long>(mem_row[m]) * NV);
   }
-  reduce_write<NS>(cnt_d, cnt_m, out + r * NV);
 }
 
 template <int XY>
 cudaError_t launch(const void* frames, const void* flipped, int hp, int wp,
-                   const void* sel_off, const void* sel_q, const void* coords,
-                   const void* row_off, const void* tile_list, int n_rows,
-                   const void* tgt, const void* surv, int mirror,
-                   const Triples& trip, void* out, cudaStream_t stream) {
-  multimask_words_kernel<XY><<<n_rows, THREADS, 0, stream>>>(
+                   const void* sel_off, const void* sel_q, const void* bin_off,
+                   int n_bins, const void* mem_row, const void* mem_tile,
+                   int mirror, const Triples& trip, void* out,
+                   cudaStream_t stream) {
+  multimask_words_kernel<XY><<<n_bins, THREADS, 0, stream>>>(
       static_cast<const int32_t*>(frames),
       static_cast<const int32_t*>(flipped), hp, wp,
       static_cast<const int32_t*>(sel_off),
       static_cast<const int32_t*>(sel_q),
-      static_cast<const int32_t*>(coords),
-      static_cast<const int32_t*>(row_off),
-      static_cast<const int32_t*>(tile_list),
-      static_cast<const int32_t*>(tgt), static_cast<const int32_t*>(surv),
-      mirror, trip, static_cast<int32_t*>(out));
+      static_cast<const int32_t*>(bin_off),
+      static_cast<const int32_t*>(mem_row),
+      static_cast<const int32_t*>(mem_tile), mirror, trip,
+      static_cast<int32_t*>(out));
   return cudaGetLastError();
 }
 
@@ -247,17 +231,17 @@ cudaError_t launch(const void* frames, const void* flipped, int hp, int wp,
 
 // Plain C entry point (bound with ctypes by cds/kernels.py). `triples` is
 // a host array of 18 ints, (Q, Rhi, Rlo) for each of the six constants of
-// pixel_active.word_triples. Launches on `stream` of card `device` and
-// returns cudaGetLastError() of the launch (0 on success); the caller's
+// pixel_active.word_triples. `out` must hold zeros: the kernel adds each
+// member's counts to its row. Launches on `stream` of card `device` and
+// returns the first CUDA error of the launch (0 on success); the caller's
 // current device is restored. Supported xy_shift: 0 and 2. The frames
 // must be 16-byte aligned with wp a multiple of 16 (the wrapper checks).
 extern "C" int cms_multimask_words(
     const void* frames, const void* flipped, int hp, int wp,
-    const void* sel_off, const void* sel_q, const void* coords,
-    const void* row_off, const void* tile_list, int n_rows, const void* tgt,
-    const void* surv, int xy_shift, int mirror, const int* triples,
-    void* out, void* stream, int device) {
-  if (n_rows <= 0) return 0;
+    const void* sel_off, const void* sel_q, const void* bin_off, int n_bins,
+    const void* mem_row, const void* mem_tile, int xy_shift, int mirror,
+    const int* triples, void* out, void* stream, int device) {
+  if (n_bins <= 0) return 0;
   if (xy_shift != 0 && xy_shift != 2)
     return static_cast<int>(cudaErrorInvalidValue);
   Triples trip;
@@ -269,11 +253,9 @@ extern "C" int cms_multimask_words(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
     return xy_shift == 0
-               ? launch<0>(frames, flipped, hp, wp, sel_off, sel_q, coords,
-                           row_off, tile_list, n_rows, tgt, surv, mirror,
-                           trip, out, s)
-               : launch<2>(frames, flipped, hp, wp, sel_off, sel_q, coords,
-                           row_off, tile_list, n_rows, tgt, surv, mirror,
-                           trip, out, s);
+               ? launch<0>(frames, flipped, hp, wp, sel_off, sel_q, bin_off,
+                           n_bins, mem_row, mem_tile, mirror, trip, out, s)
+               : launch<2>(frames, flipped, hp, wp, sel_off, sel_q, bin_off,
+                           n_bins, mem_row, mem_tile, mirror, trip, out, s);
   });
 }

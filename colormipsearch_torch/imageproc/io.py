@@ -1,19 +1,20 @@
 """Image decoding into dense NumPy planes.
 
 Copy of `colormipsearch_tpu/imageproc/io.py`. Counterpart of the
-reference's image decoding layer (colormipsearch-api imageprocessing/ImageArrayUtils.java:98-121 and the
-ImageArray family, imageprocessing/ImageArray.java) — but instead of flat
-packed-int buffers we decode straight into dense NumPy arrays, the layout
-the device path wants:
+reference's image decoding layer (colormipsearch-api
+imageprocessing/ImageArrayUtils.java:98-121 and the ImageArray family,
+imageprocessing/ImageArray.java) — but instead of flat packed-int
+buffers we decode straight into dense NumPy arrays, the layout the
+device path wants:
 
 - RGB   -> uint8  [H, W, 3]
 - GRAY8 -> uint8  [H, W]
 - GRAY16-> uint16 [H, W]
 
-Decoding uses Pillow for all formats (TIFF incl. packbits, PNG, BMP, GIF,
-JPEG). The reference's special ranged packbits TIFF read
-(ImageArrayUtils.java:184-258) is an I/O optimization for reading a pixel
-strip; here full decode feeds a packed preprocessed cache (see
+Decoding uses Pillow for all formats (TIFF incl. packbits, PNG, BMP,
+GIF, JPEG). The reference's special ranged packbits TIFF read
+(ImageArrayUtils.java:184-258) is an I/O optimization for reading a
+pixel strip; here full decode feeds a packed preprocessed cache (see
 imageproc.store) so steady-state runs never re-decode.
 """
 

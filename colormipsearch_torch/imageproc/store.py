@@ -1,11 +1,12 @@
 """Packed preprocessed array cache (`--array-cache`).
 
 Copy of `colormipsearch_tpu/imageproc/store.py`. SURVEY.md §7 flags host
-decode throughput as a hard part: production sweeps touch 100k+ TIFFs. This store converts decoded images to .npy
-files once (a one-time ingest), after which steady-state loads are
-memory-mapped at memcpy speed; the PIL decoder remains the ingest path
-(the reference's ranged packbits read, ImageArrayUtils.java:184-258,
-plays the same role for its Java pipeline).
+decode throughput as a hard part: production sweeps touch 100k+ TIFFs.
+This store converts decoded images to .npy files once (a one-time
+ingest), after which steady-state loads are memory-mapped at memcpy
+speed; the PIL decoder remains the ingest path (the reference's ranged
+packbits read, ImageArrayUtils.java:184-258, plays the same role for its
+Java pipeline).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Optional
 import numpy as np
 
 from ..model.filedata import FileData
-from .io import Image, image_from_array, load_image
+from .io import Image, image_from_array
 
 LOG = logging.getLogger(__name__)
 

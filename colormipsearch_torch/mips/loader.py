@@ -1,10 +1,11 @@
 """MIP loading: FileData -> decoded Image, with caching.
 
 Copy of `colormipsearch_tpu/mips/loader.py` without `filedata_exists`
-(used by validateDBData only). Counterparts of mips/NeuronMIPUtils.java:62-236 (loadComputeFile /
-loadImageFromFileData / openInputStream: plain file, directory entry, or
-zip entry with a fallback archive scan) and cmd/CachedMIPsUtils.java:19-112
-(the bounded MIP cache keyed on (neuron, computeFileType)).
+(used by validateDBData only). Counterparts of
+mips/NeuronMIPUtils.java:62-236 (loadComputeFile / loadImageFromFileData
+/ openInputStream: plain file, directory entry, or zip entry with a
+fallback archive scan) and cmd/CachedMIPsUtils.java:19-112 (the bounded
+MIP cache keyed on (neuron, computeFileType)).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Domain entities: neurons, matches, sessions.
 
 Copy of `colormipsearch_tpu/model/entities.py` without the PPP match
-entity and the gradient-score helpers of CDMatchEntity, which the
-colorDepthSearch path does not use. Counterparts of the reference model
+entity, the gradient-score helpers of CDMatchEntity and the ref-id
+helpers of AbstractMatchEntity, which the colorDepthSearch path does not
+use. Counterparts of the reference model
 layer (model/AbstractNeuronEntity.java:25-50, EMNeuronEntity.java,
 LMNeuronEntity.java:17-28, AbstractMatchEntity.java:22-30,
 CDMatchEntity.java:12-170, CDSSessionEntity.java). JSON round-trips use
@@ -213,16 +214,6 @@ class AbstractMatchEntity:
     match_compute_files: Dict[str, FileData] = field(default_factory=dict)
     match_files: Dict[FileType, str] = field(default_factory=dict)
     tags: Set[str] = field(default_factory=set)
-
-    def mask_ref(self) -> Optional[int]:
-        if self.mask_image_ref_id is not None:
-            return self.mask_image_ref_id
-        return self.mask_image.entity_id if self.mask_image else None
-
-    def matched_ref(self) -> Optional[int]:
-        if self.matched_image_ref_id is not None:
-            return self.matched_image_ref_id
-        return self.matched_image.entity_id if self.matched_image else None
 
 
 @dataclass

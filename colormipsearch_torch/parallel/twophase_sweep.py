@@ -106,8 +106,8 @@ class TwoPhaseSweep:
             words = eng0.pack_raw_words(targets_u8[off:off + ln], dev)
             mark("pack", dev)
             # each predicate's padded target planes, once per block
-            packed = {p: pad_for_predicate(words, p)
-                      for p in {scorer.predicate for _, scorer in self.groups}}
+            predicates = {scorer.predicate for _, scorer in self.groups}
+            packed = {p: pad_for_predicate(words, p) for p in predicates}
             mark("pad", dev)
             if self.screen is None:
                 survivors = np.ones((len(self.engines), ln), np.int32)

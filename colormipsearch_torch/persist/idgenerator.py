@@ -1,10 +1,11 @@
 """Distributed time-based unique ID generator.
 
 Copy of `colormipsearch_tpu/persist/idgenerator.py`. Counterpart of
-dao/TimebasedIdGenerator.java:16-132: IDs are (millis - epoch_offset) << 22 | block_index << 12 | deployment_context << 8
-| last_ip_octet, handed out in blocks of up to 1024 per millisecond, with
-an optional cross-process file lock for multi-process uniqueness (the
-reference's --use-id-generator-lock).
+dao/TimebasedIdGenerator.java:16-132: IDs are
+(millis - epoch_offset) << 22 | block_index << 12
+| deployment_context << 8 | last_ip_octet, handed out in blocks of up to
+1024 per millisecond, with an optional cross-process file lock for
+multi-process uniqueness (the reference's --use-id-generator-lock).
 """
 
 from __future__ import annotations

@@ -35,8 +35,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(name)\n"
         "importlib.import_module('colormipsearch_torch.cmd.main')"
         ".build_parser()\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax'\n"
-        "             or k.startswith(('jax.', 'jaxlib', 'colormipsearch_tpu')))\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(\n"
+        "    ('jax.', 'jaxlib', 'colormipsearch_tpu')))\n"
         "assert not bad, bad\n"
         "print('no jax', len(names))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

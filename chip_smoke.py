@@ -211,10 +211,12 @@ def every_tile_table(scorer, n_targets):
     which build_table never lists."""
     from colormipsearch_torch.cds import multimask as mm
     tiles, counts, tgt = [], [], []
-    for pos, eng in enumerate(scorer.engines):
+    tile_off = 0
+    for eng in scorer.engines:
         n = eng.tiles.n_active
-        entry = ((scorer._tile_off[pos] + np.arange(n)).astype(np.int32)
+        entry = ((tile_off + np.arange(n)).astype(np.int32)
                  | (3 << mm.DIR_SHIFT))
+        tile_off += n
         for t in range(n_targets):
             tiles.append(entry)
             counts.append(n)
@@ -241,9 +243,8 @@ def edge_mask(h, w):
 
 def compaction_edges(checks, dev, speckle, targets):
     """Each kernel against its plain version on the compact lists' edges:
-    tiles with 0, 1 and 1024 selected pixels (the last spans 8 passes of
-    the block's threads), and rows whose tile list spans hundreds of
-    pipeline stages (a full-frame speckle mask)."""
+    tiles with 0, 1 and 1024 selected pixels (the last spans 32 passes of
+    a warp), and rows of hundreds of tiles (a full-frame speckle mask)."""
     from colormipsearch_torch.cds import multimask as mm
     from colormipsearch_torch.cds.pixel_active import (ActiveTilePixelEngine,
                                                        pad_for_predicate)

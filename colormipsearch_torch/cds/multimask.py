@@ -486,24 +486,33 @@ class MultiMaskScorer:
         if len(sizes) != 1:
             raise ValueError(f"masks of different sizes: {sorted(sizes)}")
         h, w = sizes.pop()
-        # the padded frame the tiles' windows index (pad_from_words)
-        self.frame_shape = (-(-h // TILE_H) * TILE_H + 2 * TILE_H,
-                            -(-w // TILE_W) * TILE_W + 2 * TILE_W)
+        self._width = w
+        # the mask tile grid and the padded frame the tiles' windows index
+        # (pad_from_words)
+        self._grid = (-(-h // TILE_H), -(-w // TILE_W))
+        self.frame_shape = ((self._grid[0] + 2) * TILE_H,
+                            (self._grid[1] + 2) * TILE_W)
         tiles = [e.tiles for e in self.engines]
-        counts = [t.n_active for t in tiles]
-        self._tile_off = np.concatenate([[0], np.cumsum(counts)]).astype(
-            np.int64)
         # entries per stacked tile; a tile without any is never launched
         self._n_sel = np.concatenate(
             [np.diff(t.sel_off) for t in tiles]).astype(np.int64)
         names = ("sel_q", "sel_f32") if self.predicate == "ratio" \
             else ("sel_q",)
+        coords = np.concatenate([t.coords for t in tiles])
         # the kernel's query arguments in order: sel_off, the lists, coords
         self._q_host = (
             np.concatenate([[0], np.cumsum(self._n_sel)]).astype(np.int32),
             *(np.concatenate([getattr(t, n) for t in tiles]) for n in names),
-            np.concatenate([t.coords for t in tiles]))
+            coords)
         self._q_dev = {}  # torch.device -> the query tensors
+        # the stacked tiles a launch row may list (those with an entry):
+        # engine i's are _listed[_listed_off[i]:_listed_off[i + 1]], at
+        # grid positions _listed_pos (ty * gw + tx)
+        self._listed = np.flatnonzero(self._n_sel).astype(np.int32)
+        self._listed_off = np.searchsorted(
+            self._listed, np.cumsum([0] + [t.n_active for t in tiles]))
+        cy, cx = coords[self._listed].T
+        self._listed_pos = cy // TILE_H * self._grid[1] + cx // TILE_W
 
     def _q_for(self, device: torch.device):
         """The stacked query tensors on `device`, in the kernel's argument
@@ -547,65 +556,73 @@ class MultiMaskScorer:
         Either restricts each row's tiles, per direction, to those that
         can score; a tile stays in a row's list with the directions that
         can (exact: each test only drops windows without target signal).
-        Tiles without a selected query pixel are never listed."""
+        Tiles without a selected query pixel are never listed.
+
+        Rows come in engine order, each engine's in target order, and a
+        row's tiles in the engine's tile order."""
+        survivors = np.asarray(survivors)
+        eng, dest = np.nonzero(survivors)
+        codes = self._direction_codes(survivors.shape[1], signal_ranges,
+                                      tile_live)
+        # the candidates: every row with every listed tile of its engine
+        cnt = np.diff(self._listed_off)[eng]
+        ends = np.cumsum(cnt)
+        starts = ends - cnt
+        n_cand = int(ends[-1]) if len(ends) else 0
+        idx = np.arange(n_cand) + np.repeat(self._listed_off[eng] - starts,
+                                            cnt)
+        code = codes[np.repeat(dest * (self._grid[0] * self._grid[1]), cnt)
+                     + self._listed_pos[idx]]
+        keep = np.flatnonzero(code)
+        bounds = np.searchsorted(eng, np.arange(len(self.engines) + 1))
+        spans = {pos: (np.arange(a, b), dest[a:b]) for pos, (a, b)
+                 in enumerate(zip(bounds[:-1], bounds[1:])) if b > a}
+        return LaunchTable(
+            row_off=np.searchsorted(keep, np.append(starts, n_cand)
+                                    ).astype(np.int32),
+            tile_list=self._listed[idx[keep]]
+            | (code[keep].astype(np.int32) << DIR_SHIFT),
+            tgt=dest.astype(np.int32), surv=np.ones(len(eng), np.int32),
+            spans=spans)
+
+    def _direction_codes(self, n_targets: int,
+                         signal_ranges: Optional[np.ndarray],
+                         tile_live: Optional[tuple]) -> np.ndarray:
+        """uint8 [n_targets * gh * gw]: for each target and tile position
+        (ty * gw + tx) on the mask tile grid, the directions (bit 0 direct,
+        bit 1 mirrored) in which a tile there can score against that
+        target (build_table's tests)."""
+        gh, gw = self._grid
         s = max((abs(dy) for _, dy in self.shifts), default=0)
         sx = max((abs(dx) for dx, _ in self.shifts), default=0)
-        row_counts, tiles_l, tgt_l = [], [], []
-        spans = {}
-        n_rows = 0
-        for pos, eng in enumerate(self.engines):
-            sidx = np.nonzero(survivors[pos])[0]
-            if len(sidx) == 0:
-                continue
-            n = len(sidx)
-            dest = sidx.astype(np.int32)
-            t = eng.tiles
-            cy, cx = t.coords[:, 0], t.coords[:, 1]
-            t0 = self._tile_off[pos]
-            has_sel = self._n_sel[t0:t0 + t.n_active] > 0
-            live_d = np.broadcast_to(has_sel, (n, t.n_active))
-            # the launch's mirror setting, not the engine's: a direction
-            # leaves a row's list only by an exact test, so the kernel's
-            # counts equal its plain version's for every engine
-            live_m = live_d if self.mirror else np.zeros_like(live_d)
-            if tile_live is not None:
-                live_d = live_d & tile_live[0][dest][:, cy // TILE_H,
-                                                     cx // TILE_W]
-                live_m = live_m & tile_live[1][dest][:, cy // TILE_H,
-                                                     cx // TILE_W]
-            if signal_ranges is not None:
-                # a tile's shifts sample raw rows [cy - s, cy + 8 + s) and
-                # cols [cx - sx, cx + 128 + sx); the mirror pass samples
-                # the x-flipped raw plane, whose signal cols are the
-                # reflection of the target's about (w - 1) / 2
-                rr = signal_ranges[dest].astype(np.int64)
-                rok = ((cy[None] >= rr[:, :1] - TILE_H - s + 1)
-                       & (cy[None] <= rr[:, 1:2] + s))
-                live_d = live_d & rok
-                live_m = live_m & rok
-                if rr.shape[1] >= 4:
-                    c0, c1 = rr[:, 2:3], rr[:, 3:4]
-                    w = t.width
-                    live_d = live_d & ((cx[None] >= c0 - TILE_W - sx + 1)
-                                       & (cx[None] <= c1 + sx))
-                    live_m = live_m & (
-                        (cx[None] >= w - 1 - c1 - TILE_W - sx + 1)
-                        & (cx[None] <= w - 1 - c0 + sx))
-            code = live_d.view(np.uint8) | (live_m.view(np.uint8) << 1)
-            row, tl = np.nonzero(code)
-            dirs = code[row, tl].astype(np.int32)
-            row_counts.append(np.bincount(row, minlength=n))
-            tiles_l.append((t0 + tl).astype(np.int32) | (dirs << DIR_SHIFT))
-            tgt_l.append(dest)
-            spans[pos] = (n_rows + np.arange(n), sidx)
-            n_rows += n
-        cat = (lambda xs, dt: np.concatenate(xs).astype(dt) if xs
-               else np.zeros(0, dt))
-        counts = cat(row_counts, np.int64)
-        return LaunchTable(
-            row_off=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
-            tile_list=cat(tiles_l, np.int32), tgt=cat(tgt_l, np.int32),
-            surv=np.ones(n_rows, np.int32), spans=spans)
+        live_d = np.ones((n_targets, gh, gw), bool)
+        # the launch's mirror setting, not the engine's: a direction
+        # leaves a row's list only by an exact test, so the kernel's
+        # counts equal its plain version's for every engine
+        live_m = live_d if self.mirror else np.zeros_like(live_d)
+        if tile_live is not None:
+            live_d = live_d & tile_live[0]
+            live_m = live_m & tile_live[1]
+        if signal_ranges is not None:
+            # a tile's shifts sample raw rows [cy - s, cy + 8 + s) and
+            # cols [cx - sx, cx + 128 + sx); the mirror pass samples the
+            # x-flipped raw plane, whose signal cols are the reflection of
+            # the target's about (w - 1) / 2
+            rr = np.asarray(signal_ranges).astype(np.int64)
+            cy = np.arange(gh) * TILE_H
+            rok = ((cy >= rr[:, :1] - TILE_H - s + 1)
+                   & (cy <= rr[:, 1:2] + s))[:, :, None]
+            live_d = live_d & rok
+            live_m = live_m & rok
+            if rr.shape[1] >= 4:
+                cx = np.arange(gw) * TILE_W
+                c0, c1 = rr[:, 2:3], rr[:, 3:4]
+                w = self._width
+                live_d = live_d & ((cx >= c0 - TILE_W - sx + 1)
+                                   & (cx <= c1 + sx))[:, None, :]
+                live_m = live_m & ((cx >= w - 1 - c1 - TILE_W - sx + 1)
+                                   & (cx <= w - 1 - c0 + sx))[:, None, :]
+        return (live_d.view(np.uint8) | (live_m.view(np.uint8) << 1)).ravel()
 
     def launch_deferred(self, packed, survivors: np.ndarray,
                         signal_ranges: Optional[np.ndarray] = None,

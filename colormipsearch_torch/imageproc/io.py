@@ -65,11 +65,6 @@ class Image:
             return self.pixels.astype(np.int32)
         raise ValueError(f"not an RGB image: {self.kind}")
 
-    def gray_i32(self) -> np.ndarray:
-        if self.kind == ImageKind.RGB:
-            raise ValueError("not a gray image")
-        return self.pixels.astype(np.int32)
-
 
 IMAGE_EXTENSIONS = (".bmp", ".gif", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".wbmp")
 

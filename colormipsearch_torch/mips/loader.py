@@ -32,10 +32,6 @@ class NeuronMIP:
     file_data: Optional[FileData]
     image: Optional[Image]
 
-    @property
-    def has_image(self) -> bool:
-        return self.image is not None
-
 
 def _load_from_zip(archive: str, entry: str) -> Optional[Image]:
     with zipfile.ZipFile(archive) as zf:

@@ -45,15 +45,8 @@ class NeuronEntity:
 
     JSON_CLASS = ""
 
-    @property
-    def neuron_id(self) -> Optional[str]:
-        return self.published_name
-
     def compute_file(self, ftype: ComputeFileType) -> Optional[FileData]:
         return self.compute_files.get(ftype)
-
-    def has_compute_file(self, ftype: ComputeFileType) -> bool:
-        return ftype in self.compute_files
 
     def add_processed_tag(self, ptype: ProcessingType, tag: str) -> None:
         self.processed_tags.setdefault(ptype, set()).add(tag)
@@ -160,10 +153,6 @@ class LMNeuronEntity(NeuronEntity):
     objective: Optional[str] = None
 
     JSON_CLASS = _LM_CLASS
-
-    @property
-    def neuron_id(self) -> Optional[str]:
-        return self.slide_code
 
     def to_dict(self) -> Dict[str, Any]:
         d = self._base_dict()

@@ -11,7 +11,6 @@ string; zip entries as {"dataType": "zipEntry", "fileName": ..,
 from __future__ import annotations
 
 import enum
-import os
 from dataclasses import dataclass
 from typing import Optional, Union
 
@@ -33,25 +32,9 @@ class FileData:
             return None
         return FileData(file_name=fn)
 
-    @staticmethod
-    def from_components(data_type: FileDataType, parent: str, name: str) -> "FileData":
-        if data_type == FileDataType.zipEntry:
-            return FileData(file_name=parent, data_type=data_type, entry_name=name)
-        return FileData(file_name=os.path.join(parent, name))
-
     @property
     def name(self) -> str:
         return self.entry_name if self.entry_name else self.file_name
-
-    @property
-    def name_component(self) -> str:
-        return os.path.basename(self.name)
-
-    @property
-    def name_without_ext(self) -> str:
-        base = self.name_component
-        stem, ext = os.path.splitext(base)
-        return stem if stem else base
 
     def to_json(self) -> Union[str, dict]:
         if self.data_type == FileDataType.file:

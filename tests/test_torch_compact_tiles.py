@@ -26,7 +26,7 @@ from colormipsearch_tpu.imageproc.io import image_from_array  # noqa: E402
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
 from colormipsearch_torch.cds import pixel_active as pa  # noqa: E402
 from colormipsearch_torch.cds.pixel_active import (  # noqa: E402
-    ActiveTilePixelEngine, ActiveTiles, drain_deferred)
+    ActiveTilePixelEngine, ActiveTiles, drain_deferred, pad_for_predicate)
 
 H, W = 48, 400
 N_T = 8  # targets: one small block keeps the interpreted JAX runs short
@@ -175,6 +175,58 @@ def test_ratio_planes_equal_reference_prep(library):
                                       want_rf.view(np.uint32))
         np.testing.assert_array_equal(fw.numpy().astype(np.int32), want_fw)
         assert (want_rf == -1.0).any() and (want_rf > 0).any()
+
+
+@pytest.mark.parametrize("mirror", [True, False], ids=["mirror", "direct"])
+def test_launch_table_cut_is_exact(library, mirror):
+    """build_table's rows (engine order, then target order) list each
+    engine's tiles with an entry, in tile order, with the directions its
+    live-tile bitmaps and signal ranges leave; each (row, tile, direction)
+    it leaves out counts 0 in the plain version, and it leaves some out."""
+    masks, targets = library
+    engines = [ActiveTilePixelEngine(m, 20, mirror, 20, 1.0, 2)
+               for m in masks]
+    words = engines[0].pack_raw_words(targets, "cpu")
+    scorer = mm.MultiMaskScorer(engines)
+    full = scorer.build_table(SURV)
+    cut = scorer.build_table(SURV, mm.signal_ranges_from_words(words),
+                             mm.tile_live_from_words(words))
+    eng, dest = np.nonzero(SURV)
+    for tab in (full, cut):
+        np.testing.assert_array_equal(tab.tgt, dest)
+        for pos, (rows, tgt) in tab.spans.items():
+            np.testing.assert_array_equal(rows, np.flatnonzero(eng == pos))
+            np.testing.assert_array_equal(tgt, dest[rows])
+    # every (row, tile) of the full table as a one-tile row
+    n_full = len(full.tile_list)
+    rows = np.repeat(np.arange(len(full.tgt)), np.diff(full.row_off))
+    single = mm.LaunchTable(
+        row_off=np.arange(n_full + 1, dtype=np.int32),
+        tile_list=full.tile_list, tgt=full.tgt[rows],
+        surv=np.ones(n_full, np.int32))
+    tiles = full.tile_list & mm.TILE_MASK
+    assert (full.tile_list >> mm.DIR_SHIFT == (3 if mirror else 1)).all()
+    listed = np.flatnonzero(scorer._n_sel)
+    tile_off = np.cumsum([0] + [e.tiles.n_active for e in engines])
+    for r, e in enumerate(eng):
+        np.testing.assert_array_equal(
+            tiles[rows == r],
+            listed[(listed >= tile_off[e]) & (listed < tile_off[e + 1])])
+    counts = mm.multimask_counts(
+        *scorer.kernel_args(pad_for_predicate(words, "ratio"), single),
+        *scorer.kernel_tail()).numpy()
+    ns = counts.shape[1] // 2
+    kept = dict(zip(zip(np.repeat(np.arange(len(cut.tgt)),
+                                  np.diff(cut.row_off)).tolist(),
+                        (cut.tile_list & mm.TILE_MASK).tolist()),
+                    (cut.tile_list >> mm.DIR_SHIFT).tolist()))
+    dirs = np.array([kept.get((r, t), 0)
+                     for r, t in zip(rows.tolist(), tiles.tolist())])
+    assert counts.any()
+    assert ((dirs & 1) == 0).any() and (dirs[counts[:, :ns].any(1)] & 1).all()
+    if mirror:
+        assert ((dirs & 2) == 0).any()
+        assert (dirs[counts[:, ns:].any(1)] & 2).all()
 
 
 def test_window_bins(library):

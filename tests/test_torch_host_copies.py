@@ -234,8 +234,7 @@ def _case_model_entities(tmp_path, fixtures_dir):
         fg, fw = got.FileData.from_json(v), want.FileData.from_json(v)
         assert (fg is None) == (fw is None)
         if fg is not None:
-            assert (fg.to_json(), fg.name, fg.name_without_ext) == \
-                (fw.to_json(), fw.name, fw.name_without_ext)
+            assert (fg.to_json(), fg.name) == (fw.to_json(), fw.name)
     s_got = got.CDSSessionEntity(entity_id=7, username="u", params={"a": 1})
     s_want = want.CDSSessionEntity(entity_id=7, username="u", params={"a": 1})
     assert s_got.to_dict() == s_want.to_dict()

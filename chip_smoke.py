@@ -8,7 +8,8 @@ exact predicates, and the op microbench:
 
 1. card: nvidia-smi name and power limit; the three kernel libraries
    (multimask_ratio, multimask_words, op_chain) built in parallel, with
-   their build seconds, registers and shared memory;
+   their build seconds, registers and shared memory; the native host
+   word packer of the pack stage (g++), which must build and load;
 2. each exact kernel against its plain PyTorch version, exactly, on a
    random library of full 566x1210 frames (16 masks x 64 targets): sparse
    and dense survivors, a mask with zero survivors, one survivor at the
@@ -32,13 +33,14 @@ exact predicates, and the op microbench:
    one-launch scores equal to the sweep's; pairs/s of both paths in
    turns, survivor rate, stage seconds, peak memory, and each kernel on
    partition 0 over all masks with its work (evaluations that can count,
-   staged bytes), its bound and its share of it. The timed round is the
+   staged bytes), its bound and its share of it, and its pixel loop's
+   SASS instructions per evaluation by pipe. The timed round is the
    pipelined partition loop of the CLI (`TwoPhaseSweep.sweep_parts`);
 5. the op microbench (`python -m colormipsearch_torch.scripts.op_microbench
    --device cuda`): its ten cases, each kernel == plain at 512 and at
    32,768 steps, Top/s at 32,768 steps, and a time ratio of 65,536 to
-   32,768 steps within 1.8-2.2, and its bound from the SASS instructions
-   per step and the measured issue rates.
+   32,768 steps within 1.8-2.2, and its bound: each case's main-loop SASS
+   instructions at the card's peak rate for the busiest pipe they use.
 
 `python3 chip_smoke.py --profile DIR` adds a torch.profiler round of the
 phase-4 ratio sweep: device busy share, the bound's and the exact
@@ -167,6 +169,16 @@ def phase_card():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build]   {name}<{fn.replace('ILi', '')}> "
                     f"{line.replace('ptxas info    :', '').strip()}")
+    # the pack stage's host word packer: the native copy, never its NumPy
+    # path, on the card's host
+    from colormipsearch_torch.native import mipops
+    t0 = time.perf_counter()
+    if not mipops.available():
+        raise SystemExit(f"the native word packer did not build or load "
+                         f"({mipops.library_path()}): the pack stage would "
+                         f"run its NumPy path")
+    log(f"[build] native word packer (g++) ready in "
+        f"{time.perf_counter() - t0:.2f}s: {mipops.library_path()}")
     return card
 
 
@@ -480,6 +492,20 @@ def phase_profile(run, bound_only, trace_dir):
     log(f"[profile] trace: {path}")
 
 
+def pixel_loop(path, xy_shift):
+    """Mnemonic counts of the exact kernel's pixel loop for xy_shift (the
+    innermost loop with the most shared-memory loads), read from the
+    built library's SASS: one pass scores one selected query pixel in
+    both directions."""
+    from colormipsearch_torch.cds import kernels
+    name = f"multimask_{path}"
+    for fn, loops in kernels.sass_loops(kernels.sass(name)).items():
+        if f"{name}_kernelILi{xy_shift}E" in fn:
+            return max(kernels.innermost_loops(loops), key=lambda lp: sum(
+                n for m, n in lp.body.items() if m.startswith("LDS"))).body
+    raise SystemExit(f"no {name} kernel for xyShift {xy_shift} in its SASS")
+
+
 # the least time of a kernel: its operations over the card's lane rate
 # (67 TFLOP/s of f32 outside the tensor cores, an FMA counted as two: 33.5
 # T lane-operations/s) or its bytes, each read or written once, over HBM3's
@@ -489,7 +515,7 @@ PEAK_BYTES = 3.35e12
 # the operations one (query pixel, variant) evaluation needs at least:
 # ratio, 3 flag tests, 4 f32 compares, 2 xors, 2 ors and the add; words,
 # the case selection (~10) and the staged-rational chain (~25) of
-# match_word. The built kernels issue more (their SASS: 18 and ~80).
+# match_word. The built kernels issue more (phase 4 reads their SASS).
 OPS_PER_EVAL = {"ratio": 12, "words": 35}
 
 
@@ -549,6 +575,7 @@ def kernel_work(scorer, tab):
 def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
                   n_targets=512, part=256):
     import torch
+    from colormipsearch_torch.cds import kernels
     from colormipsearch_torch.cds import multimask as mm
     from colormipsearch_torch.cds.pixel_active import (ActiveTilePixelEngine,
                                                        drain_deferred,
@@ -688,6 +715,20 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
             f"{work['ops_ms']:.3f} ms at {OPS_PER_EVAL[path]} ops per "
             f"evaluation, bytes {work['bytes_ms']:.3f} ms); kernel at "
             f"{100 * work['bound_ms'] / kernel_ms:.1f} % of its bound")
+        # what the kernel issues: its pixel loop's instructions for this
+        # launch's evaluations at the busiest pipe's peak rate
+        loop = pixel_loop(path, everyone.xy_shift)
+        per_eval = {p: n / work["nv"]
+                    for p, n in kernels.pipe_counts(loop).items()}
+        loop_s, pipe = kernels.issue_bound_s(
+            loop, work["evals_dir"] / work["nv"])
+        log(f"[phase 4] {path}: pixel loop (SASS, static body over its "
+            f"{work['nv']} evaluations): " + ", ".join(
+                f"{p} {v:.2f}" for p, v in per_eval.items())
+            + f" instructions per evaluation; this launch's "
+            f"{work['evals_dir']} take {1e3 * loop_s:.3f} ms on the "
+            f"{pipe} pipe at its peak, {100e3 * loop_s / kernel_ms:.1f} % "
+            f"of the kernel's time")
 
         # 32 masks' rows reproduce the sweep's scores of those masks
         sub = list(range(min(32, n_masks)))
@@ -717,16 +758,6 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
 
 # ---- phase 5 ---------------------------------------------------------------
 
-# SASS instructions per second of each op_chain case's main loop, as
-# measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, K4 table): the
-# integer pipe issues ~16.3 T/s, FMUL ~31.9 T/s, cases on two pipes more
-K4_ISSUE_RATES = {
-    "add i32": 16.244e12, "mul i32": 16.345e12,
-    "mul i32 by const 1000": 16.328e12, "add i16": 16.266e12,
-    "mul i16": 29.231e12, "mul u16": 30.071e12, "add u8": 16.259e12,
-    "mul f32": 31.902e12, "mul bf16": 24.679e12, "cmp+sel i32": 16.242e12,
-}
-
 def phase_microbench(dev):
     """The microbench's entry point as a user runs it (its launches are
     the path's count), then each case against its plain version."""
@@ -754,9 +785,11 @@ def phase_microbench(dev):
         err = max(err, r["max_abs_err"])
         ms += r["ms"]
         plain_ms += r["plain_ms"]
-        # the case's SASS instructions over its measured issue rate
-        insts = ob.H * ob.W * ob.TIMED_STEPS * per_step[name][0]
-        bound_ms += 1e3 * insts / K4_ISSUE_RATES[name]
+        # the case's main-loop instructions at the busiest pipe's peak
+        case_ms, pipe = ob.bound_ms(per_step[name][1])
+        bound_ms += case_ms
+        log(f"  op_chain {name}: bound {case_ms:.4f} ms by the {pipe} pipe "
+            f"({100 * case_ms / r['ms']:.1f} %)")
     log(f"[phase 5] op_chain == plain in {len(ob.CASE_NAMES)} cases; at "
         f"{ob.TIMED_STEPS} steps the ten cases take {ms:.3f} ms on the "
         f"kernel, {plain_ms:.3f} ms plain; bound {bound_ms:.3f} ms by "

@@ -9,7 +9,9 @@ at first use, from the sources in the checkout only, into
 local header it includes and of the flags, so a stale build is never
 loaded. A failed build raises; nothing falls back to a plain version.
 `load_libraries` builds several at once, one nvcc process each; `sass`
-disassembles a built library.
+disassembles a built library, `sass_loops` finds its loops, and
+`issue_bound_s` puts a loop's instructions against the card's peak issue
+rates.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -169,3 +172,84 @@ def load_libraries(names: Sequence[str] = LIBRARIES
     load the named libraries; raises if any build fails."""
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         return dict(zip(names, pool.map(load_library, names)))
+
+
+# ---- reading the built code ------------------------------------------------
+
+_SASS_INSN = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(\S[^;]*?)\s*;",
+                        re.MULTILINE)
+_SASS_BRA = re.compile(r"\bBRA\s+0x([0-9a-f]+)")
+
+
+@dataclass
+class SassLoop:
+    start: int        # address of the branch target
+    end: int          # address of the backward branch
+    body: Counter     # mnemonic counts from start to end, guards dropped
+
+
+def sass_loops(sass_text: str) -> Dict[str, List[SassLoop]]:
+    """{function name: its loops} of a cuobjdump -sass listing: the body
+    of every backward branch."""
+    out: Dict[str, List[SassLoop]] = {}
+    for func in sass_text.split("Function : ")[1:]:
+        name = func.split("\n", 1)[0].strip()
+        raw = _SASS_INSN.findall(func)
+        insns = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", t).split()[0])
+                 for a, t in raw]
+        loops = []
+        for addr, text in raw:
+            bra = _SASS_BRA.search(text)
+            if bra and int(bra.group(1), 16) < int(addr, 16):
+                lo, hi = int(bra.group(1), 16), int(addr, 16)
+                loops.append(SassLoop(lo, hi, Counter(
+                    m for a, m in insns if lo <= a <= hi)))
+        out[name] = loops
+    return out
+
+
+def innermost_loops(loops: List[SassLoop]) -> List[SassLoop]:
+    """The loops that hold no other loop."""
+    return [lp for lp in loops if not any(
+        lp.start <= o.start and o.end <= lp.end and o is not lp
+        for o in loops)]
+
+
+# Peak issue rates of one H100 SXM: 132 SMs at the 1.98 GHz boost clock
+# (67 TFLOP/s of f32), in lane-instructions per SM per clock, from the
+# CUDA C++ Programming Guide's arithmetic-instruction throughput table for
+# compute capability 9.0: the four schedulers issue one warp instruction
+# each (128); f32 add, multiply and fma and the packed 16-bit HFMA2, HMUL2
+# and HADD2 (256 results) take the two FMA pipes (128); integer
+# multiply-add (IMAD and its MOV/SHL/IADD forms) the heavy one of them
+# (64); integer add, logic, shift, compare, min/max and select, and f32
+# compare, the ALU pipe (64). Other instructions (memory, branches,
+# uniform and warp ops) take an issue slot only.
+H100_SM_CLOCKS = 132 * 1.98e9
+PIPE_LANES = {"issue": 128, "fma": 128, "imad": 64, "alu": 64}
+_FMA_OPS = frozenset(("FFMA", "FMUL", "FADD", "HFMA2", "HMUL2", "HADD2"))
+_ALU_OPS = frozenset((
+    "IADD3", "VIADD", "LOP3", "SHF", "LEA", "SEL", "ISETP", "FSETP", "PLOP3",
+    "IMNMX", "VIMNMX", "VIMNMX3", "FMNMX", "PRMT", "MOV", "IABS", "FSEL",
+    "P2R", "R2P"))
+
+
+def pipe_counts(mix: Counter) -> Dict[str, int]:
+    """The instructions of a mix that each pipe takes (the FMA pipes'
+    count holds IMAD's too)."""
+    by_op = Counter()
+    for mnemonic, n in mix.items():
+        by_op[mnemonic.split(".")[0]] += n
+    imad = by_op["IMAD"]
+    return {"issue": sum(by_op.values()),
+            "fma": imad + sum(by_op[op] for op in _FMA_OPS),
+            "imad": imad, "alu": sum(by_op[op] for op in _ALU_OPS)}
+
+
+def issue_bound_s(mix: Counter, executions: float):
+    """(seconds, pipe): the least time `executions` lane-executions of the
+    instruction mix take on the card at the pipes' peak rates, and the
+    busiest pipe, which sets it."""
+    clocks = {p: n / PIPE_LANES[p] for p, n in pipe_counts(mix).items()}
+    pipe = max(clocks, key=clocks.get)
+    return executions * clocks[pipe] / H100_SM_CLOCKS, pipe

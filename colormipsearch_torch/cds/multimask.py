@@ -41,7 +41,7 @@ import torch
 from . import kernels
 from .oracle import shift_ring_offsets
 from .pixel_active import (POS_SHIFT, TILE_H, TILE_W, DeferredScore,
-                           _match_unpacked, _unpack, ratio_prep)
+                           _match_unpacked, _unpack)
 
 KERNEL_XY_SHIFTS = (0, 2)  # xy_shift values the kernels are built for
 
@@ -450,18 +450,6 @@ def shared_params(engines) -> bool:
     return len({launch_params(e) for e in engines}) == 1
 
 
-def target_planes(packed, predicate: str) -> tuple:
-    """The padded target planes of `predicate`'s kernel from `packed`:
-    either those planes already (pixel_active.pad_for_predicate) or the
-    padded word frames (frames, flipped), from which the ratio planes are
-    prepared here (ratio_prep, as pad_ratio_planes builds them)."""
-    packed = tuple(packed)
-    if predicate == "words" or len(packed) == 4:
-        return packed
-    (rf, fw), (rf_m, fw_m) = (ratio_prep(f) for f in packed)
-    return (rf, fw.to(torch.uint8), rf_m, fw_m.to(torch.uint8))
-
-
 class MultiMaskScorer:
     """One-launch-many-masks exact sweep over a shared target block.
 
@@ -524,11 +512,10 @@ class MultiMaskScorer:
             self._q_dev[device] = got
         return got
 
-    def kernel_args(self, packed, table: LaunchTable) -> list:
+    def kernel_args(self, planes, table: LaunchTable) -> list:
         """The tensors of one launch in the order of the predicate's
-        kernel: the target planes (target_planes(packed)), the query
-        tensors and the table's (row_off, tile_list, tgt, surv)."""
-        planes = target_planes(packed, self.predicate)
+        kernel: the target planes (pixel_active.pad_for_predicate), the
+        query tensors and the table's (row_off, tile_list, tgt, surv)."""
         dev = planes[0].device
         return (list(planes) + list(self._q_for(dev))
                 + [torch.from_numpy(a).to(dev) for a in
@@ -629,8 +616,8 @@ class MultiMaskScorer:
                         tile_live: Optional[tuple] = None
                         ) -> List[DeferredScore]:
         """Queue the exact sweep of ALL masks over one packed target block
-        (on its device): packed is the padded word frames or the
-        predicate's target planes (target_planes). Returns one
+        (on its device): packed is the predicate's padded target planes
+        (pixel_active.pad_for_predicate). Returns one
         DeferredScore per engine (drain with pixel_active.drain_deferred:
         the shared output is copied once)."""
         packed = tuple(packed)

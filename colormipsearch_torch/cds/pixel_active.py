@@ -460,8 +460,10 @@ class ActiveTilePixelEngine:
         return out[0][0], out[1][0], out[0][1], out[1][1]
 
     def prepare_targets(self, targets_u8: np.ndarray, device):
-        """Pack targets into the tile-aligned padded frame (+ x-flip)."""
-        return self.pad_from_words(self.pack_raw_words(targets_u8, device))
+        """Pack targets into the padded planes of the engine's predicate
+        (pad_for_predicate)."""
+        return pad_for_predicate(self.pack_raw_words(targets_u8, device),
+                                 self.predicate)
 
     # ---- scoring -------------------------------------------------------
 

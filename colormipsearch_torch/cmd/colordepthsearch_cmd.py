@@ -17,8 +17,9 @@ knobs of the reference are read (`CMS_IMAGE_CACHE_MB`, `CMS_LOW_MEM_PCT`;
 
 Refused here, before any work, each with a pointer to ROADMAP.md:
 `--engine dense` (the dense engine is a later port), `--jax-distributed`
-(multi-host is a later port), and `--db` and `--mips-storage db` (the
-store layer is a later port). The multi-process grid options of the reference
+(multi-host is a later port), and `--db`, `--mips-storage db`,
+`--update-matches` and `--write-batch-size` (the store layer is a later
+port). The multi-process grid options of the reference
 (--process-id/--process-count) are not offered yet.
 """
 
@@ -55,15 +56,12 @@ def add_parser(subparsers) -> None:
     add_common_args(p)
     add_cds_params(p)
     p.add_argument("-m", "--masks", nargs="+", required=True,
-                   help="mask MIPs: JSON file(s) 'path:offset:length', or "
-                        "with --mips-storage db, library selector(s) "
-                        "'library:offset:length'")
+                   help="mask MIPs: JSON file(s) 'path:offset:length'")
     p.add_argument("-i", "--targets", "--images", nargs="+", required=True,
-                   help="target MIPs: JSON file(s) or (--mips-storage db) "
-                        "library selector(s), 'name:offset:length'")
+                   help="target MIPs: JSON file(s) 'path:offset:length'")
     p.add_argument("--mips-storage", choices=("file", "db"), default="file",
                    help="where mask/target MIP entities come from; 'db' is "
-                        "not ported")
+                        "refused: the store layer is not ported")
     p.add_argument("--masks-index", type=int, default=0)
     p.add_argument("--masks-length", type=int, default=-1)
     p.add_argument("--targets-index", type=int, default=0)
@@ -90,9 +88,8 @@ def add_parser(subparsers) -> None:
                    help="also write per-target grouped results")
     p.add_argument("--processing-tag", default=None)
     p.add_argument("--update-matches", action="store_true",
-                   help="re-run mode: refresh pixel scores of existing "
-                        "(mask, target) matches without clobbering their "
-                        "gradient/normalized scores")
+                   help="refused: refreshing matches in a store needs the "
+                        "store layer, which is not ported")
     p.add_argument("--masks-processing-tags", nargs="*", default=[],
                    metavar="STAGE=TAG",
                    help="only process masks already stamped with these "
@@ -101,8 +98,8 @@ def add_parser(subparsers) -> None:
                    metavar="STAGE=TAG",
                    help="skip masks already stamped with these tags")
     p.add_argument("--write-batch-size", type=int, default=0,
-                   help="flush results every N masks to the store (--db "
-                        "only; JSON results are written at the end)")
+                   help="refused when set: batched flushes go to the store "
+                        "layer, which is not ported")
     p.add_argument("--db", default=None,
                    help="refused: the SQLite/Mongo stores are not ported")
     p.add_argument("--jax-distributed", action="store_true",
@@ -223,9 +220,13 @@ def _refuse(args) -> None:
         raise SystemExit("--jax-distributed: multi-host runs are not ported "
                          "to colormipsearch_torch yet (see ROADMAP.md, "
                          "queue 1)")
-    if args.db or args.mips_storage == "db":
-        raise SystemExit("--db and --mips-storage db: the SQLite/Mongo stores "
-                         "are not ported to colormipsearch_torch yet (see "
+    store = [flag for flag, given in (
+        ("--db", args.db), ("--mips-storage db", args.mips_storage == "db"),
+        ("--update-matches", args.update_matches),
+        ("--write-batch-size", args.write_batch_size)) if given]
+    if store:
+        raise SystemExit(f"{', '.join(store)}: the SQLite/Mongo stores are "
+                         "not ported to colormipsearch_torch yet (see "
                          "ROADMAP.md, queue 1); use JSON files (-m, -i, -od), "
                          "or run `python -m colormipsearch_tpu "
                          "colorDepthSearch`")

@@ -18,10 +18,11 @@
 // so they are exact in any order.
 //
 // What bounds it on the card: per (row, tile, live direction) 9 predicate
-// evaluations for each selected query pixel, 18 SASS instructions each
-// (14 of them integer, at half the FP32 lane rate; 4 FSETP), against a
-// 12 x 136 window of the two target planes (8.2 KB) read once per bin and
-// 20 B of constants per selected pixel: the operations bound it.
+// evaluations for each selected query pixel, ~21 SASS instructions each,
+// ~16 of them on the ALU pipe (half the FP32 lane rate; chip_smoke.py
+// phase 4 reads the pixel loop's SASS by pipe), against a 12 x 136 window
+// of the two target planes (8.2 KB) read once per bin and 20 B of
+// constants per selected pixel: the operations bound it.
 //
 // Design (work split, bins and staging: multimask_common.cuh), and what
 // each part does about the first port's costs:

@@ -20,9 +20,11 @@
 //
 // What bounds it on the card: per (row, tile, live direction) 9
 // evaluations of the staged-rational chain for each selected query pixel,
-// ~80 SASS instructions each (nearly all integer, at half the FP32 lane
-// rate), against a 12 x 136 window of target words (6.5 KB) read once per
-// bin and 4 B per selected pixel: the operations bound it, ~4x K1's.
+// ~80 SASS instructions each in the pixel loop's static body, ~54 of them
+// on the ALU pipe (half the FP32 lane rate; chip_smoke.py phase 4 reads
+// the loop by pipe), against a 12 x 136 window of target words (6.5 KB)
+// read once per bin and 4 B per selected pixel: the operations bound it,
+// ~4x K1's.
 //
 // Design (work split, bins and staging: multimask_common.cuh, as K1):
 // - work follows the selected pixels: a warp's lanes take the entries of

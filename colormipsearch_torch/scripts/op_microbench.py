@@ -20,7 +20,9 @@ launched prints "unsupported"; any failed case makes the exit code 1.
 ptxas may merge two dependent steps into one three-input instruction, so
 beside the rate in steps it prints the SASS instructions per step of
 each case's main loop (`loop_instructions`, from cuobjdump -sass of the
-built kernel) and the instruction rate they give.
+built kernel), the instruction rate they give, and the case's bound: its
+main loops' instructions at the card's peak rate for the busiest pipe
+they use (`bound_ms`, kernels.issue_bound_s), with the time's share of it.
 """
 
 from __future__ import annotations
@@ -194,42 +196,42 @@ def measure(name: str, device, reps: int = 5, rounds: int = 3) -> dict:
             "ok": err == 0 and RATIO_BAND[0] <= ms2 / ms <= RATIO_BAND[1]}
 
 
-_SASS_INSN = re.compile(r"^\s*/\*([0-9a-f]+)\*/\s+(\S[^;]*?)\s*;",
-                        re.MULTILINE)
-_SASS_BRA = re.compile(r"\bBRA\s+0x([0-9a-f]+)")
-
-
 def loop_instructions(sass: str) -> Dict[int, Counter]:
     """{op case: mnemonic counts of its kernel's main loop}, read from
     cuobjdump -sass of the op_chain library: in each op_chain_kernel<C>,
     the longest body of a backward branch (op_chain.cu's main loop of
     UNROLL steps of each chain, with its loop control)."""
     out: Dict[int, Counter] = {}
-    for func in sass.split("Function : ")[1:]:
-        m = re.search(r"op_chain_kernelILi(\d+)E", func.split("\n", 1)[0])
-        if m is None:
-            continue
-        insns = [(int(a, 16), t) for a, t in _SASS_INSN.findall(func)]
-        best: list = []
-        for addr, text in insns:
-            bra = _SASS_BRA.search(text)
-            if bra and int(bra.group(1), 16) < addr:
-                tgt = int(bra.group(1), 16)
-                body = [t for a, t in insns if tgt <= a <= addr]
-                best = max(best, body, key=len)
-        out[int(m.group(1))] = Counter(
-            re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for t in best)
+    for name, loops in kernels.sass_loops(sass).items():
+        m = re.search(r"op_chain_kernelILi(\d+)E", name)
+        if m is not None:
+            out[int(m.group(1))] = max(
+                (lp.body for lp in loops),
+                key=lambda c: sum(c.values()), default=Counter())
     return out
 
 
 def instructions_per_step() -> Dict[str, tuple]:
-    """{case name: (SASS instructions per step, mnemonic counts)} of the
-    built kernel's main loops, loop control included."""
-    lib = kernels.load_library("op_chain")
-    steps = lib.lib.cms_op_chain_loop_steps()
+    """{case name: (SASS instructions per step, mnemonic counts of the
+    main loop)} of the built kernel's main loops, loop control included."""
     loops = loop_instructions(kernels.sass("op_chain"))
+    steps = loop_steps()
     return {name: (sum(loops[i].values()) / steps, loops[i])
             for i, name in enumerate(CASE_NAMES) if i in loops}
+
+
+def loop_steps() -> int:
+    """Element steps (over all of a thread's chains) per pass of the main
+    loop."""
+    return kernels.load_library("op_chain").lib.cms_op_chain_loop_steps()
+
+
+def bound_ms(mnemonics: Counter, steps: int = TIMED_STEPS) -> tuple:
+    """(ms, pipe): the least time of a `steps`-step chain over [H, W]
+    whose main loop issues `mnemonics` per pass, at the card's peak issue
+    rates (kernels.issue_bound_s), and the pipe that sets it."""
+    s, pipe = kernels.issue_bound_s(mnemonics, H * W * steps / loop_steps())
+    return 1e3 * s, pipe
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -265,8 +267,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             failed += 1
             continue
         per_step, mnemonics = loops[name]
+        b_ms, pipe = bound_ms(mnemonics)
         print(f"{'':24s} SASS {per_step:.3f} instructions per step = "
-              f"{r['tops'] * per_step:.3f} Tinst/s; main loop "
+              f"{r['tops'] * per_step:.3f} Tinst/s; bound {b_ms:.4f} ms by "
+              f"the {pipe} pipe ({100 * b_ms / r['ms']:.1f} %); main loop "
               + ", ".join(f"{k} x{v}" for k, v in mnemonics.most_common(4)),
               flush=True)
     return 1 if failed else 0

@@ -113,8 +113,12 @@ def test_compact_lists_score_like_reference(library, predicate, pcf):
     assert [tuple(c) for c in edge.coords[:3]] == [(0, 0), (0, 128),
                                                    (0, 256)]
     assert list(np.diff(edge.sel_off)[:3]) == EDGE_COUNTS
+    frames = tuple(torch.from_numpy(np.array(a)) for a in packed)
+    if ratio:  # the ratio kernel's planes of the reference's frames
+        (rf, fw), (rf_m, fw_m) = (pa.ratio_prep(f) for f in frames)
+        frames = (rf, fw.to(torch.uint8), rf_m, fw_m.to(torch.uint8))
     got = drain_deferred(mm.MultiMaskScorer(engines).launch_deferred(
-        tuple(torch.from_numpy(np.array(a)) for a in packed), SURV))
+        frames, SURV))
     assert any(s.any() for s, _, _ in got)
     for (gs, gr, gm), (ws, wr, wm) in zip(got, want):
         np.testing.assert_array_equal(gs, ws)

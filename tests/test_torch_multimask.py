@@ -16,7 +16,8 @@ from colormipsearch_tpu.imageproc.io import image_from_array  # noqa: E402
 
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
 from colormipsearch_torch.cds.pixel_active import (  # noqa: E402
-    ActiveTilePixelEngine, ActiveTiles, drain_deferred)
+    ActiveTilePixelEngine, ActiveTiles, drain_deferred, pad_for_predicate,
+    ratio_prep)
 
 N_T = 16  # targets: one 16-target block keeps the interpreted JAX runs short
 
@@ -58,6 +59,13 @@ def _carry(ref_engine, tiles=None):
         ref_engine.zt9, ref_engine.xy_shift)
 
 
+def _ratio_planes(packed):
+    """The ratio kernel's planes (rf, fw, rf_m, fw_m) of the reference's
+    padded word frames, as pad_ratio_planes builds them."""
+    (rf, fw), (rf_m, fw_m) = (ratio_prep(f) for f in packed)
+    return rf, fw.to(torch.uint8), rf_m, fw_m.to(torch.uint8)
+
+
 def _assert_same(got, want):
     assert len(got) == len(want)
     for (gs, gr, gm), (ws, wr, wm) in zip(got, want):
@@ -79,6 +87,7 @@ def ref_run(request, library):
     packed = engines[0].prepare_targets(targets)
     out = {"engines": engines, "mirror": mirror,
            "packed": tuple(torch.from_numpy(np.array(a)) for a in packed)}
+    out["planes"] = _ratio_planes(out["packed"])
     for dense in (False, True):
         surv = _survivors(len(engines), N_T, dense)
         scorer = ref_mm.MultiMaskScorer(engines, interpret=True)
@@ -103,7 +112,7 @@ def test_scorer_matches_reference(ref_run, dense, order):
         perm = perm[::-1]
     engines = [_carry(ref_run["engines"][i]) for i in perm]
     scorer = mm.MultiMaskScorer(engines)
-    got = drain_deferred(scorer.launch_deferred(ref_run["packed"],
+    got = drain_deferred(scorer.launch_deferred(ref_run["planes"],
                                                 surv[perm]))
     _assert_same(got, [want_mm[i] for i in perm])
     _assert_same(got, [want_pm[i] for i in perm])
@@ -113,13 +122,13 @@ def test_one_mask_launches_match_reference(ref_run):
     """score_packed_deferred (the per-mask route, a one-mask launch)."""
     surv, _, want_pm = ref_run[False]
     engines = [_carry(e) for e in ref_run["engines"]]
-    got = drain_deferred([e.score_packed_deferred(ref_run["packed"],
+    got = drain_deferred([e.score_packed_deferred(ref_run["planes"],
                                                   survivors=surv[i])
                           for i, e in enumerate(engines)])
     _assert_same(got, want_pm)
     if ref_run["mirror"]:
         _, _, want_dense = ref_run[True]
-        _assert_same([e.score_packed(ref_run["packed"]) for e in engines],
+        _assert_same([e.score_packed(ref_run["planes"]) for e in engines],
                      want_dense)
 
 
@@ -151,7 +160,7 @@ def test_small_rows(library, ref_run):
     scorer = mm.MultiMaskScorer([_carry(e) for e in engines_ref])
     tab = scorer.build_table(surv)
     np.testing.assert_array_equal(tab.tgt, [5, 0, N_T - 1])
-    got = drain_deferred(scorer.launch_deferred(ref_run["packed"], surv))
+    got = drain_deferred(scorer.launch_deferred(ref_run["planes"], surv))
     _assert_same(got, want)
 
 
@@ -175,7 +184,7 @@ def test_k768_bucket_state(ref_run):
     engines[1] = _carry(e, padded)
     assert engines[1].tiles.q_cmp.shape[0] == t.n_active
     got = drain_deferred(mm.MultiMaskScorer(engines).launch_deferred(
-        ref_run["packed"], surv))
+        ref_run["planes"], surv))
     _assert_same(got, want_mm)
 
 
@@ -198,7 +207,7 @@ def test_live_tile_restriction_is_exact(library, ref_run):
         for i, e in enumerate(engines_ref)])
     engines = [_carry(e) for e in engines_ref]
     words = engines[0].pack_raw_words(banded, torch.device("cpu"))
-    packed = engines[0].pad_from_words(words)
+    packed = pad_for_predicate(words, "ratio")
     ranges = mm.signal_ranges_from_words(words)
     live = mm.tile_live_from_words(words)
     scorer = mm.MultiMaskScorer(engines)
@@ -217,7 +226,7 @@ def test_survivor_flag_zero_rows(ref_run):
     engines = [_carry(e) for e in ref_run["engines"]]
     scorer = mm.MultiMaskScorer(engines)
     tab = scorer.build_table(surv)
-    args = scorer.kernel_args(ref_run["packed"], tab)
+    args = scorer.kernel_args(ref_run["planes"], tab)
     full = mm.multimask_counts(*args, 2, ref_run["mirror"])
     off = tab.surv.copy()
     off[::3] = 0

@@ -3,7 +3,11 @@ its plain chain equals a jax.lax.fori_loop of the same jnp op for all ten
 (op, dtype) cases of the JAX package's scripts/op_microbench.py (not
 imported: it sets a compilation-cache directory when imported), and the
 wrapper runs the plain version on CPU tensors. Exact equality: integer
-chains wrap, float chains round the same way at every step."""
+chains wrap, float chains round the same way at every step. Also the
+SASS reading (kernels.sass_loops) and the peak-rate bound of an
+instruction mix (kernels.issue_bound_s) on synthetic listings."""
+
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -14,6 +18,7 @@ torch.set_num_threads(2)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from colormipsearch_torch.cds import kernels  # noqa: E402
 from colormipsearch_torch.scripts import op_microbench as ob  # noqa: E402
 
 SHAPE = (4, 96)
@@ -89,6 +94,38 @@ def test_loop_instructions_reads_the_main_loop():
     assert loops == {3: {"VIADD": 1, "IADD3": 2, "ISETP.NE.AND": 1,
                          "BRA": 1}}
     assert ob.loop_instructions("no functions here") == {}
+
+
+def test_sass_loops_and_the_innermost():
+    """Every backward branch is a loop; the innermost hold no other."""
+    loops = kernels.sass_loops(_sass())
+    assert len(loops) == 2 and "_ZN4cms5otherEv" in loops
+    assert any("op_chain_kernelILi3E" in n for n in loops)
+    spans = [(lp.start, lp.end) for lp in loops["_ZN4cms5otherEv"]]
+    assert spans == [(0x10, 0x50), (0x60, 0x70)]
+    nested = kernels.SassLoop(0x0, 0x80, Counter())
+    inner = kernels.innermost_loops(loops["_ZN4cms5otherEv"] + [nested])
+    assert [(lp.start, lp.end) for lp in inner] == spans
+
+
+@pytest.mark.parametrize("mix,pipe,clocks", [
+    # add i32: three-input adds on the ALU pipe (64 lanes per clock)
+    ({"IADD3": 128, "VIADD": 1, "UIADD3": 1, "ISETP.GT.AND": 1}, "alu",
+     130 / 64),
+    # mul f32: the two FMA pipes take 128 lanes, so issue sets the bound
+    ({"FMUL": 256, "IADD3": 1, "ISETP.GT.AND": 1, "UIADD3": 1}, "issue",
+     259 / 128),
+    # mul bf16: packed HFMA2/HMUL2 on the FMA pipes, issue-bound
+    ({"HFMA2.MMA.BF16_V2": 64, "HMUL2.BF16_V2": 64, "PRMT": 8,
+      "UIADD3": 1}, "issue", 137 / 128),
+    # mul i32: IMAD on the heavy FMA pipe only (64)
+    ({"IMAD": 256, "IADD3": 1, "UIADD3": 1, "ISETP.GT.AND": 1}, "imad",
+     256 / 64),
+])
+def test_issue_bound_takes_the_busiest_pipe(mix, pipe, clocks):
+    seconds, got = kernels.issue_bound_s(Counter(mix), 1e9)
+    assert got == pipe
+    assert seconds == pytest.approx(1e9 * clocks / (132 * 1.98e9))
 
 
 def test_microbench_needs_a_card(monkeypatch):

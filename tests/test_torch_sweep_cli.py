@@ -182,6 +182,8 @@ def test_cli_goldens_match_reference(workspace, tmp_path, prescreen):
     (["--jax-distributed"], "multi-host"),
     (["--db", "store.db"], "--db"),
     (["--mips-storage", "db"], "--mips-storage db"),
+    (["--update-matches"], "--update-matches"),
+    (["--write-batch-size", "100"], "--write-batch-size"),
 ])
 def test_cli_refusals_name_roadmap(workspace, tmp_path, argv, needle):
     with pytest.raises(SystemExit) as e:

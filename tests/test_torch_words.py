@@ -155,15 +155,15 @@ def test_words_equal_ratio(pcf, xy_shift, mirror):
     np.testing.assert_array_equal(back.tiles.q_f32, ratio[1].tiles.q_f32)
     cpu = torch.device("cpu")
     w = ratio[0].pack_raw_words(targets, cpu)
-    packed = ratio[0].pad_from_words(w)
+    packed = {p: pa.pad_for_predicate(w, p) for p in ("ratio", "words")}
     cut = (mm.signal_ranges_from_words(w), mm.tile_live_from_words(w))
     for restrict in (None, cut):
         kw = {} if restrict is None else dict(signal_ranges=restrict[0],
                                               tile_live=restrict[1])
         got = pa.drain_deferred(mm.MultiMaskScorer(words).launch_deferred(
-            packed, surv, **kw))
+            packed["words"], surv, **kw))
         want = pa.drain_deferred(mm.MultiMaskScorer(ratio).launch_deferred(
-            packed, surv, **kw))
+            packed["ratio"], surv, **kw))
         for (gs, _, gm), (ws, _, wm) in zip(got, want):
             np.testing.assert_array_equal(gs, ws)
             np.testing.assert_array_equal(gm, wm)

@@ -40,7 +40,24 @@ exact predicates, and the op microbench:
    --device cuda`): its ten cases, each kernel == plain at 512 and at
    32,768 steps, Top/s at 32,768 steps, and a time ratio of 65,536 to
    32,768 steps within 1.8-2.2, and its bound: each case's main-loop SASS
-   instructions at the card's peak rate for the busiest pipe they use.
+   instructions at the card's peak rate for the busiest pipe they use;
+6. gradientScores (torch ops on the card, no kernel of its own): (a)
+   target planes of the three golden fixtures in both z-gap modes, query
+   planes of the three EM fixtures at borders 0 and 4, and the scorer's
+   rows, built on the card equal to the CPU's, bit for bit; (b) the CLI
+   (`colormipsearch_torch gradientScores --device cuda`) on phase 3's
+   output: 21365/731, 33884/523 (z-gap file) and 40696/17253 (mirrored),
+   normalized scores 100.0 and 414/439, 426/439 x 100; (c) at size, the
+   JAX package's two bench.py gradient configurations through
+   `score_mask_partitions` (128 targets of 566x1210, 128 per batch):
+   precomputed z-gap files (one cold pass, three warm masks) and z-gap on
+   the fly (three cold reps, one warm mask). Each prints its cold seconds
+   per target (decode and device plane build), warm matches/s, the
+   scorer's and the plane builds' ms by CUDA events beside their bytes
+   bounds, their calls per round, peak device memory and its host-path
+   plane builds (must be 0); mask 0's scores must equal a `--device cpu`
+   run of the same batch. Phase 6's numbers are one JSON line before the
+   kernels line.
 
 `python3 chip_smoke.py --profile DIR` adds a torch.profiler round of the
 phase-4 ratio sweep: device busy share, the bound's and the exact
@@ -353,13 +370,24 @@ def write_workspace(ws):
           "libraryName": "flyem_test", "publishedName": "12191",
           "computeFiles": {"InputColorDepthImage": os.path.join(
               FIXTURES, "ems", "12191_JRC2018U.tif")}}
+
+    def compute_files(name):
+        """The CDM, the gradient and (BJD only) the z-gap file."""
+        files = {"InputColorDepthImage": os.path.join(FIXTURES, "lms",
+                                                      f"{name}.tif"),
+                 "GradientImage": os.path.join(FIXTURES, "grad",
+                                               f"{name}.png")}
+        zgap = os.path.join(FIXTURES, "zgap", f"{name}.tif")
+        if os.path.exists(zgap):
+            files["ZGapImage"] = zgap
+        return files
+
     lms = [{"class": "org.janelia.colormipsearch.model.LMNeuronEntity",
             "id": str(2001 + i), "mipId": f"lm-{i}",
             "alignmentSpace": "JRC2018_Unisex_20x_HR",
             "libraryName": "flylight_test",
             "publishedName": name.split("_")[0],
-            "computeFiles": {"InputColorDepthImage": os.path.join(
-                FIXTURES, "lms", f"{name}.tif")},
+            "computeFiles": compute_files(name),
             "slideCode": f"sc-{i}", "anatomicalArea": "Brain",
             "objective": "40x", "gender": "f"}
            for i, name in enumerate(LM_GOLDEN)]
@@ -799,6 +827,294 @@ def phase_microbench(dev):
             "bound_by": "operations", "library_ms": None}
 
 
+# ---- phase 6 ---------------------------------------------------------------
+
+def load_gray16(path):
+    from colormipsearch_torch.imageproc.io import load_image
+    img = load_image(path)
+    if img.pixels.ndim != 2:
+        raise SystemExit(f"{path}: expected a gray gradient image")
+    return img.pixels.astype(np.uint16)
+
+
+def golden_target_frames():
+    """The three golden LM fixtures: CDM, 16-bit gradient, and a z-gap
+    frame (BJD's file; the production 10 px dilation of the CDM for the
+    two without one)."""
+    from colormipsearch_torch.imageproc.filters import max_filter_rgb
+    cdm, grad, zgap = [], [], []
+    for name in LM_GOLDEN:
+        px = load_rgb(os.path.join(FIXTURES, "lms", f"{name}.tif"))
+        cdm.append(px)
+        grad.append(load_gray16(os.path.join(FIXTURES, "grad",
+                                             f"{name}.png")))
+        zpath = os.path.join(FIXTURES, "zgap", f"{name}.tif")
+        zgap.append(load_rgb(zpath) if os.path.exists(zpath)
+                    else max_filter_rgb(px, 10.0))
+    return np.stack(cdm), np.stack(grad), np.stack(zgap)
+
+
+def same_tensors(label, got, want):
+    import torch
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+            raise SystemExit(f"{label}: plane {i} built on the card differs "
+                             f"from the CPU's")
+
+
+def phase_planes(dev):
+    """(a) Target and query planes built on the card equal the CPU's, bit
+    for bit, on the golden fixtures in both z-gap modes, and the scorer's
+    rows on the card equal the CPU's."""
+    import torch
+    from colormipsearch_torch.cds import shape_device as sd
+    from colormipsearch_torch.cds import shape_kernel as sk
+    cpu = torch.device("cpu")
+    cdm, grad, zgap = golden_target_frames()
+    h, w = cdm.shape[1:3]
+    excluded = label_regions(h, w)
+    t0 = time.perf_counter()
+    targets = {}
+    for mode in ("file", "otf"):
+        zg = zgap if mode == "file" else None
+        got = sd.build_target_planes(cdm, grad, zg, excluded, thr=20,
+                                     zgap_mode=mode, grad_is_rgb=False,
+                                     device=dev)
+        want = sd.build_target_planes(cdm, grad, zg, excluded, thr=20,
+                                      zgap_mode=mode, grad_is_rgb=False,
+                                      device=cpu)
+        same_tensors(f"target planes ({mode})", got, want)
+        targets[mode] = (got, want)
+    ems = sorted(os.listdir(os.path.join(FIXTURES, "ems")))
+    rows = []
+    for name in ems:
+        rgb = load_rgb(os.path.join(FIXTURES, "ems", name))
+        for border in (0, 4):
+            got = sd.build_query_planes(rgb, excluded, border, device=dev)
+            want = sd.build_query_planes(rgb, excluded, border, device=cpu)
+            names = ("q_nonzero", "q_slice", "q_mask", "high_expr")
+            same_tensors(f"query planes of {name}, border {border}",
+                         [getattr(got, n) for n in names],
+                         [getattr(want, n) for n in names])
+            if not np.array_equal(got.row_any, want.row_any):
+                raise SystemExit(f"query rows of {name} differ")
+            if border == 0:
+                rows.append((got, want))
+    for (qg, qc), mode in zip(rows, ("file", "otf", "file")):
+        r0, r1 = qg.active_row_range()
+        for mirror in (True, False):
+            out = []
+            for q, planes in ((qg, targets[mode][0]), (qc, targets[mode][1])):
+                out.append(sk.shape_score_stacked(
+                    q.q_nonzero, q.q_slice, q.q_mask, q.high_expr,
+                    list(planes[0]), list(planes[1]), list(planes[2]),
+                    list(planes[3]), r0=r0, r1=r1, mirror=mirror))
+            same_tensors(f"scorer rows ({mode}, mirror {mirror})", *out)
+    log(f"[phase 6] planes: target planes of {len(LM_GOLDEN)} fixtures in "
+        f"both z-gap modes, query planes of {len(ems)} masks at borders 0 "
+        f"and 4, and the scorer's rows: card == CPU, bit for bit "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+
+def phase_gradient_cli(ws):
+    """(b) The CLI's gradientScores --device cuda on phase 3's output."""
+    from colormipsearch_torch.cmd.main import main
+    masks = os.path.join(ws, "out1", "masks")
+    t0 = time.perf_counter()
+    rc = main(["gradientScores", "-md", masks, "--maskThreshold", "20",
+               "--mirrorMask", "--computeZGapOnTheFly", "--device", "cuda"])
+    if rc != 0:
+        raise SystemExit(f"gradientScores exited {rc}")
+    with open(os.path.join(masks, "em-12191.json")) as f:
+        res = {r["image"]["mipId"]: r for r in json.load(f)["results"]}
+    got = [(k, res[k]["gradientAreaGap"], res[k]["highExpressionArea"],
+            res[k]["mirrored"], res[k]["normalizedScore"])
+           for k in ("lm-0", "lm-1", "lm-2")]
+    log(f"[phase 6] gradientScores CLI goldens {got} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    want = [("lm-0", 21365, 731, False, 100.0),
+            ("lm-1", 33884, 523, False, float(np.float32(414 / 439 * 100))),
+            ("lm-2", 40696, 17253, True, float(np.float32(426 / 439 * 100)))]
+    if got != want:
+        raise SystemExit(f"gradientScores goldens wrong: {got}")
+
+
+def target_library(ws, n, zgap_files):
+    """n LM entities over the golden fixtures that have a gradient file,
+    in turn (the JAX package's bench.py gradient configurations); with
+    zgap_files, each carries a precomputed 10 px z-gap file."""
+    from PIL import Image
+    from colormipsearch_torch.imageproc.filters import max_filter_rgb
+    from colormipsearch_torch.model import (ComputeFileType, FileData,
+                                            LMNeuronEntity)
+    sources = [nm for nm in sorted(os.listdir(os.path.join(FIXTURES, "lms")))
+               if os.path.exists(os.path.join(
+                   FIXTURES, "grad", nm.rsplit(".", 1)[0] + ".png"))]
+    zgaps = {}
+    if zgap_files:
+        for src in sources:
+            path = os.path.join(ws, f"zgap_{src}")
+            Image.fromarray(max_filter_rgb(load_rgb(os.path.join(
+                FIXTURES, "lms", src)), 10.0)).save(path)
+            zgaps[src] = path
+    targets = []
+    for i in range(n):
+        src = sources[i % len(sources)]
+        lm = LMNeuronEntity(entity_id=100 + i, mip_id=f"lm-{i}")
+        files = {ComputeFileType.InputColorDepthImage:
+                 os.path.join(FIXTURES, "lms", src),
+                 ComputeFileType.GradientImage: os.path.join(
+                     FIXTURES, "grad", src.rsplit(".", 1)[0] + ".png")}
+        if zgap_files:
+            files[ComputeFileType.ZGapImage] = zgaps[src]
+        for cft, path in files.items():
+            lm.compute_files[cft] = FileData.from_string(path)
+        targets.append(lm)
+    return targets
+
+
+def plane_bytes(n_targets, h, w, mode):
+    """Bytes a target plane build must move: the raw frames read once
+    (CDM 3 B/px, 16-bit gradient 2, z-gap file 3) and the four planes
+    written once (1 + 2 + 1 + 2 B/px)."""
+    return n_targets * h * w * (3 + 2 + (3 if mode == "file" else 0) + 6)
+
+
+def phase_gradient_at_size(dev, ws, n_targets=128, batch=128):
+    """(c) The two gradient configurations of bench.py through the port's
+    score_mask_partitions at the full frame: cold decode and device plane
+    build, warm matches/s, the scorer and the plane builds by CUDA events
+    with their bytes bounds, peak device memory, host-path plane builds
+    (must be 0), and mask 0's scores equal to a --device cpu run."""
+    import torch
+    from colormipsearch_torch.cds import shape_device as sd
+    from colormipsearch_torch.cds import shape_kernel as sk
+    from colormipsearch_torch.cmd import gradientscores_cmd as gc
+    from colormipsearch_torch.mips import MIPsCache
+    from colormipsearch_torch.model import CDMatchEntity, EMNeuronEntity
+    from colormipsearch_torch.scripts.op_microbench import cuda_ms
+    query = load_rgb(os.path.join(FIXTURES, "ems", "12191_JRC2018U.tif"))
+    h, w = query.shape[:2]
+    excluded = label_regions(h, w)
+    from colormipsearch_torch.imageproc.io import image_from_array
+    mask_img = image_from_array(query)
+    counters = (sd.build_target_planes, sd.build_query_planes,
+                sk.shape_score_rows)
+    report = {}
+    for config, zgap_files in (("production", True), ("otf", False)):
+        targets = target_library(ws, n_targets, zgap_files)
+        args = argparse.Namespace(
+            maskThreshold=20, mirrorMask=True,
+            computeZGapOnTheFly=not zgap_files, targetsPerBatch=batch,
+            planes_threads=0)
+
+        def run_mask(mi, cache, planes_cache, device):
+            em = EMNeuronEntity(entity_id=1000 + mi, mip_id=f"em-{mi}")
+            matches = []
+            for t in targets:
+                m = CDMatchEntity()
+                m.mask_image, m.matched_image = em, t
+                matches.append(m)
+            t0 = time.perf_counter()
+            qplanes = gc._build_qplanes(mask_img, excluded, None, 0, device)
+            scored = gc.score_mask_partitions(matches, qplanes, cache, args,
+                                              excluded, planes_cache)
+            if len(scored) != n_targets:
+                raise SystemExit(f"{config}: {len(scored)} of {n_targets} "
+                                 f"targets scored")
+            return ([(m.gradient_area_gap, m.high_expression_area)
+                     for m in scored], time.perf_counter() - t0, qplanes)
+
+        for fn in counters:
+            fn.calls = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        cold_s, warm_rates, host_builds = [], [], 0
+        # cold passes: fresh image and plane caches (production: one;
+        # on the fly: three reps, as bench.py runs them)
+        for _ in range(1 if zgap_files else 3):
+            planes_cache = gc.PlaneCache(dev)
+            planes_cache.sync = True
+            cache = MIPsCache(4096)
+            scores0, dt, qplanes = run_mask(0, cache, planes_cache, dev)
+            host_builds += planes_cache.host_builds
+            cold_s.append((dt, dict(planes_cache.seconds)))
+        # warm masks: the plane cache hits
+        planes_cache.sync = False
+        for mi in range(1, 4 if zgap_files else 2):
+            got, dt, _ = run_mask(mi, cache, planes_cache, dev)
+            if got != scores0:
+                raise SystemExit(f"{config}: mask {mi} scored differently")
+            warm_rates.append(n_targets / dt)
+        peak = torch.cuda.max_memory_allocated(dev)
+        calls = {fn.__name__: fn.calls for fn in counters}
+        if host_builds:
+            raise SystemExit(f"{config}: {host_builds} target plane sets "
+                             f"were built on the host")
+        # the same batch on the CPU
+        t0 = time.perf_counter()
+        cpu_scores, _, _ = run_mask(0, MIPsCache(4096),
+                                    gc.PlaneCache("cpu"), torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        if cpu_scores != scores0:
+            bad = [i for i, (a, b) in enumerate(zip(scores0, cpu_scores))
+                   if a != b]
+            raise SystemExit(f"{config}: mask 0's scores on the card differ "
+                             f"from the CPU's at {bad[:8]}")
+        # the device functions alone, by CUDA events, on this batch
+        tplanes = [planes_cache.get(t.entity_id) for t in targets[:batch]]
+        r0, r1 = qplanes.active_row_range()
+        score_ms = cuda_ms(lambda: sk.shape_score_stacked(
+            qplanes.q_nonzero, qplanes.q_slice, qplanes.q_mask,
+            qplanes.high_expr, [p.t_above for p in tplanes],
+            [p.grad for p in tplanes], [p.z_nonzero for p in tplanes],
+            [p.z_slice for p in tplanes], r0=r0, r1=r1, mirror=True), 5)
+        raws = [gc._decode_raw(t, cache, args) for t in targets[:batch]]
+        mode = "file" if zgap_files else "otf"
+        frames = [torch.from_numpy(np.stack([r[0] for r in raws])).to(dev),
+                  torch.from_numpy(np.stack([r[1][0] for r in raws]
+                                            ).view(np.int16)).to(dev),
+                  (torch.from_numpy(np.stack([r[2] for r in raws])).to(dev)
+                   if zgap_files else None),
+                  torch.from_numpy(excluded).to(dev)]
+        build_ms = cuda_ms(lambda: sd.build_target_planes(
+            *frames, thr=20, zgap_mode=mode, grad_is_rgb=False,
+            device=dev), 3)
+        query_dev = torch.from_numpy(query).to(dev)
+        query_ms = cuda_ms(lambda: sd.build_query_planes(
+            query_dev, frames[3], 0, device=dev), 5)
+        rows = r1 - r0
+        bounds = {
+            "build_target_planes": plane_bytes(batch, h, w, mode),
+            "build_query_planes": h * w * (3 + 1 + 2 + 1 + 1),
+            # query crops read once (5 B/px), target crops (6 B/px), the
+            # four int32 row sums written once
+            "shape_score_rows": rows * w * (5 + 6 * batch) + 16 * batch * rows,
+        }
+        report[config] = {
+            "targets": n_targets, "batch": batch, "frame": [h, w],
+            "row_band": [r0, r1],
+            "cold_s_per_target": [round(dt / n_targets, 6)
+                                  for dt, _ in cold_s],
+            "cold_decode_s_per_target": [round(s["decode"] / n_targets, 6)
+                                         for _, s in cold_s],
+            "cold_planes_s_per_target": [round(s["planes"] / n_targets, 6)
+                                         for _, s in cold_s],
+            "warm_matches_per_s": [round(r, 1) for r in warm_rates],
+            "scorer_ms_per_batch": round(score_ms, 4),
+            "build_target_planes_ms_per_batch": round(build_ms, 4),
+            "build_query_planes_ms": round(query_ms, 4),
+            "bound_ms": {k: round(1e3 * b / PEAK_BYTES, 4)
+                         for k, b in bounds.items()},
+            "calls_per_round": calls,
+            "peak_device_gib": round(peak / 2**30, 3),
+            "host_plane_builds": host_builds,
+            "cpu_run_s": round(cpu_s, 2),
+            "mask0_head": scores0[:3],
+        }
+        log(f"[phase 6] {config}: " + json.dumps(report[config]))
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -825,11 +1141,17 @@ def main():
     with tempfile.TemporaryDirectory() as ws:
         phase_cli(ws, "1")
         phase_cli(ws, "0")
-    timing = phase_at_size(checks, dev, opts.profile)
-    timing["op_chain"] = phase_microbench(dev)
+        timing = phase_at_size(checks, dev, opts.profile)
+        timing["op_chain"] = phase_microbench(dev)
+        t6 = time.perf_counter()
+        phase_planes(dev)
+        phase_gradient_cli(ws)
+        gradient = phase_gradient_at_size(dev, ws)
+        log(f"[phase 6] gradientScores in {time.perf_counter() - t6:.1f}s")
     for name, check in checks.items():
         timing[name]["max_abs_err"] = check.max_abs_err
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f}s")
+    print(json.dumps({"gradient": gradient}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: timing[name][k] for k in (

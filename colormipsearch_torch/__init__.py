@@ -1,4 +1,4 @@
-"""colormipsearch_torch — the colorDepthSearch path in PyTorch and CUDA.
+"""colormipsearch_torch — colorDepthSearch and gradientScores on PyTorch/CUDA.
 
 A port of `colormipsearch_tpu/` (JAX, Pallas on a TPU) to PyTorch with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a). The JAX package is
@@ -10,12 +10,14 @@ What is here:
   live-tile bitmaps and the exact multi-mask scorer with its CUDA kernels
   (`csrc/multimask_ratio.cu`, `csrc/multimask_words.cu`, built at first
   use by `cds/kernels.py`);
+- `cds/shape_device.py`, `cds/shape_kernel.py`: the gradientScores
+  shape planes and scorer as torch ops on the card;
 - `parallel/twophase_sweep.py`: the two-phase sweep over CUDA devices;
-- `cmd/`: the CLI. colorDepthSearch runs here; the reference's other
-  commands refuse with a pointer to the JAX package;
+- `cmd/`: the CLI. colorDepthSearch and gradientScores run here; the
+  reference's other commands refuse with a pointer to the JAX package;
 - `model/`, `dataio/`, `mips/`, `imageproc/`, `persist/`, `results/`,
   `native/`, `utils/`: the port's own copies of the host modules the
-  command needs, each pinned to its reference by
+  commands need, each pinned to its reference by
   `tests/test_torch_host_copies.py`.
 
 The package imports `torch` and never `jax`, nor any module of the JAX

@@ -1,4 +1,5 @@
-"""Color depth search scoring: host tables, torch ops and the CUDA kernel.
+"""Color depth search scoring: host tables, torch ops and the CUDA kernels.
 
-Counterpart of `colormipsearch_tpu/cds/` for the colorDepthSearch path.
+Counterpart of `colormipsearch_tpu/cds/` for the colorDepthSearch path
+and the gradientScores shape planes and scorer.
 """

@@ -1,0 +1,528 @@
+"""gradientScores command: shape-score re-ranking of top CDS matches.
+
+Counterpart of `colormipsearch_tpu/cmd/gradientscores_cmd.py`
+(cmd/CalculateGradientScoresCmd.java:71-647): list masks with matches ->
+read + filter matches -> select best lines/samples/matches -> per-mask
+query planes built once -> target planes built on the device in batches
+and kept in a byte-bounded LRU -> batched shape scoring -> per-mask
+normalization -> write updates + tags. Matches are the per-mask JSON
+files of colorDepthSearch (`-md`); everything on the device runs on the
+one `--device` given.
+
+Target frames decode on a thread pool; their planes derive on the device
+from the raw u8 frames (`cds/shape_device.py`). The host plane builds of
+`cds/shape_oracle.py` run only where the reference's do: ROI-mask runs
+(query planes) and non-RGB images. The plane cache keeps its budget of
+4 GiB and 2048 entries, counted in the planes' real bytes.
+
+Refused here, before any work, each with a pointer to ROADMAP.md: `--db`
+(the store layer is a later port) and `--process-id/--process-count`
+(the multi-process grid belongs with multi-host). One card: the
+reference's spread over every local device waits for multi-host too.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import threading
+import time
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
+from typing import List
+
+import numpy as np
+import torch
+
+from ..cds import shape_device
+from ..cds.shape_kernel import (finish_shape_scores, shape_score_rows,
+                                shape_score_stacked)
+from ..cds.shape_oracle import (QueryShapePlanes, TargetShapePlanes,
+                                build_mirrored_query_shape_planes,
+                                build_query_shape_planes,
+                                build_target_shape_planes)
+from ..dataio import (DataSourceParam, JSONNeuronMatchesReader,
+                      JSONNeuronMatchesWriter, ScoresFilter)
+from ..device import resolve_device
+from ..imageproc.io import ImageKind, load_image
+from ..mips import MIPsCache
+from ..model import CDMatchEntity, ComputeFileType, ProcessingType
+from ..results import (group_matches_by_mask, normalize_match_scores,
+                       partition_collection, select_best_matches)
+from .args import add_cds_params, add_common_args, excluded_regions_for
+
+LOG = logging.getLogger(__name__)
+
+PLANES_CACHE_BYTES = 4 << 30
+PLANES_CACHE_ENTRIES = 2048
+
+
+def add_parser(subparsers) -> None:
+    p = subparsers.add_parser("gradientScores",
+                              help="gradient/shape score re-ranking")
+    add_common_args(p)
+    add_cds_params(p)
+    p.add_argument("-md", "--matchesDir", default=None,
+                   help="per-mask matches dir (from colorDepthSearch)")
+    p.add_argument("--db", default=None,
+                   help="refused: the SQLite/Mongo stores are not ported")
+    p.add_argument("--masks-mip-ids", nargs="*", default=None,
+                   help="only process these mask MIP ids")
+    p.add_argument("--nBestLines", type=int, default=-1)
+    p.add_argument("--nBestSamplesPerLine", type=int, default=-1)
+    p.add_argument("--nBestMatchesPerSample", type=int, default=-1)
+    p.add_argument("--targetsPerBatch", type=int, default=128,
+                   help="max targets scored per device step")
+    p.add_argument("--planes-threads", type=int, default=0,
+                   help="host threads decoding target frames "
+                        "(0 = cpu count)")
+    p.add_argument("--processing-tag", default=None)
+    p.add_argument("--masks-tags", nargs="*", default=[],
+                   help="only rescore masks carrying these tags "
+                        "(AbstractGradientScoresArgs.java mask selectors)")
+    p.add_argument("--masks-processing-tags", nargs="*", default=[],
+                   metavar="STAGE=TAG",
+                   help="only rescore masks stamped with these processing "
+                        "tags (AbstractGradientScoresArgs.java:58)")
+    p.add_argument("--cancel-previous-gradient-scores", action="store_true")
+    p.add_argument("--use-bidirectional-matching", action="store_true",
+                   help="accepted for command-line compatibility; 3D "
+                        "bidirectional shape matching is not computed "
+                        "(CalculateGradientScoresCmd.java:89-94 hard-codes "
+                        "it false)")
+    p.add_argument("--computeZGapOnTheFly", action="store_true",
+                   help="derive missing ZGap variants by 10px dilation")
+    p.add_argument("--write-batch-size", type=int, default=10000,
+                   help="flush score updates once this many matches are "
+                        "pending (0 = one flush at the end; "
+                        "CalculateGradientScoresCmd.java:602-614)")
+    p.add_argument("--process-id", type=int, default=-1,
+                   help="refused: the multi-process grid is not ported")
+    p.add_argument("--process-count", type=int, default=0,
+                   help="refused: the multi-process grid is not ported")
+    p.add_argument("--device", default="cuda",
+                   help="torch device for planes and scoring: cuda, "
+                        "cuda:N or cpu")
+    p.set_defaults(func=run)
+
+
+def _refuse(args) -> None:
+    if args.db:
+        raise SystemExit("--db: the SQLite/Mongo stores are not ported to "
+                         "colormipsearch_torch yet (see ROADMAP.md, queue "
+                         "1); use the per-mask JSON files (-md), or run "
+                         "`python -m colormipsearch_tpu gradientScores`")
+    if args.process_id != -1 or args.process_count != 0:
+        raise SystemExit("--process-id/--process-count: the multi-process "
+                         "grid is not ported to colormipsearch_torch yet "
+                         "(it belongs with multi-host, see ROADMAP.md, "
+                         "queue 1); run `python -m colormipsearch_tpu "
+                         "gradientScores`")
+    if not args.matchesDir:
+        raise SystemExit("gradientScores reads and rewrites the per-mask "
+                         "match files of -md/--matchesDir")
+
+
+def run(args: argparse.Namespace) -> int:
+    _refuse(args)
+    device = resolve_device(args.device)
+    t_start = time.time()
+    reader = JSONNeuronMatchesReader(args.matchesDir)
+    ptags = {}
+    for spec in args.masks_processing_tags or []:
+        stage, _, tag = spec.partition("=")
+        if tag:
+            ptags.setdefault(stage, set()).add(tag)
+    mask_selector = DataSourceParam(
+        mip_ids=args.masks_mip_ids or [],
+        tags=set(args.masks_tags or []),
+        processing_tags=ptags)
+    selector = DataSourceParam(mip_ids=args.masks_mip_ids or [])
+    mask_locations = reader.list_match_locations([selector])
+    LOG.info("found %d masks with matches; scoring on %s",
+             len(mask_locations), device)
+
+    array_store = None
+    if args.array_cache:
+        from ..imageproc.store import PackedArrayStore
+        array_store = PackedArrayStore(args.array_cache)
+    cache = MIPsCache(args.cacheSize, array_store=array_store)
+    scores_filter = ScoresFilter()
+    if args.pctPositivePixels:
+        scores_filter.add("matchingRatio", args.pctPositivePixels / 100.0)
+    # the reference loads the ROI mask once per mask; it is one file
+    roi_mask = (load_image(args.queryROIMaskName)
+                if args.queryROIMaskName else None)
+
+    updated: List[CDMatchEntity] = []
+    planes_cache = PlaneCache(device)
+    # one writer, batched flushes across masks; pending lists always hold
+    # a mask's FULL match list, so the grouped per-mask rewrite never
+    # loses rows
+    writer = JSONNeuronMatchesWriter(args.matchesDir)
+    update_fields = ["gradientAreaGap", "highExpressionArea",
+                     "normalizedScore"]
+    pending_updates: List[CDMatchEntity] = []
+
+    def flush_updates(force: bool = False):
+        if not pending_updates:
+            return
+        if force or (args.write_batch_size > 0
+                     and len(pending_updates) >= args.write_batch_size):
+            writer.write_updates(pending_updates, update_fields)
+            pending_updates.clear()
+
+    for mip_id in mask_locations:
+        sel = DataSourceParam(mip_ids=[mip_id],
+                              tags=mask_selector.tags,
+                              processing_tags=mask_selector.processing_tags)
+        matches = reader.read_matches_by_mask(
+            sel,
+            scores_filter=None if scores_filter.empty else scores_filter)
+        if not matches:
+            continue
+        if args.cancel_previous_gradient_scores:
+            for m in matches:
+                m.reset_gradient_scores()
+        selected = select_best_matches(matches, args.nBestLines,
+                                       args.nBestSamplesPerLine,
+                                       args.nBestMatchesPerSample)
+        scored_for_mask: List[CDMatchEntity] = []
+        # a single mip id may map to multiple mask entities
+        # (NormalizeGradientScoresCmd.java:270-273)
+        for mask_matches in group_matches_by_mask(selected).values():
+            mask = mask_matches[0].mask_image
+            mask_img = cache.load_mip(
+                mask, ComputeFileType.InputColorDepthImage).image
+            if mask_img is None:
+                LOG.warning("no CDM for mask %s", mip_id)
+                continue
+            excluded = excluded_regions_for(args, mask_img.height,
+                                            mask_img.width)
+            qplanes = _build_qplanes(mask_img, excluded, roi_mask,
+                                     args.border, device)
+            qplanes_m = None
+            if roi_mask is not None and args.mirrorMask:
+                # the reference mirrors the query but NOT the ROI, so the
+                # mirrored orientation needs its own plane set
+                qplanes_m = _to_device(build_mirrored_query_shape_planes(
+                    mask_img, excluded, roi_mask, args.border), device)
+            scored_for_mask.extend(score_mask_partitions(
+                mask_matches, qplanes, cache, args, excluded,
+                planes_cache, qplanes_m))
+        # normalization runs over the selected+scored matches only
+        # (CalculateGradientScoresCmd.java:213-247)
+        normalize_match_scores(scored_for_mask)
+        updated.extend(scored_for_mask)
+        tag = args.processing_tag or "gradientScore"
+        for m in scored_for_mask:
+            if m.mask_image is not None:
+                m.mask_image.add_processed_tag(ProcessingType.GradientScore, tag)
+            if m.matched_image is not None:
+                m.matched_image.add_processed_tag(ProcessingType.GradientScore, tag)
+        # queue the mask's FULL match list, the scored subset carrying
+        # its updates (whole-group rewrite of the per-mask file)
+        pending_updates.extend(matches)
+        flush_updates()
+    flush_updates(force=True)
+    LOG.info("updated %d matches in %.1fs (target planes: %d cached, "
+             "%d built on the host; decode %.2fs, plane builds %.2fs)",
+             len(updated), time.time() - t_start, len(planes_cache),
+             planes_cache.host_builds, planes_cache.seconds["decode"],
+             planes_cache.seconds["planes"])
+    return 0
+
+
+# ---- query planes ----------------------------------------------------------
+
+def _to_device(qp: QueryShapePlanes, device) -> QueryShapePlanes:
+    """Host-built query planes on `device`, with their active-rows vector."""
+    row_any = qp.q_nonzero.any(axis=1) | qp.high_expr.astype(bool).any(axis=1)
+    return QueryShapePlanes(
+        q_nonzero=torch.from_numpy(qp.q_nonzero).to(device),
+        q_slice=torch.from_numpy(qp.q_slice.astype(np.int16)).to(device),
+        q_mask=torch.from_numpy(qp.q_mask.astype(bool)).to(device),
+        high_expr=torch.from_numpy(qp.high_expr.astype(bool)).to(device),
+        height=qp.height, width=qp.width, row_any=row_any)
+
+
+def _build_qplanes(mask_img, excluded, roi_mask, border: int, device):
+    """Per-mask query shape planes on the device; the host path for
+    ROI-mask runs and non-RGB masks, as the reference's."""
+    if roi_mask is None and mask_img.kind == ImageKind.RGB:
+        return shape_device.build_query_planes(mask_img.pixels, excluded,
+                                               border, device=device)
+    return _to_device(build_query_shape_planes(mask_img, excluded, roi_mask,
+                                               border), device)
+
+
+# ---- target planes ---------------------------------------------------------
+
+def _planes_nbytes(planes) -> int:
+    if planes is None:
+        return 0  # a target with missing files
+    return sum(t.numel() * t.element_size()
+               for t in (planes.t_above, planes.grad, planes.z_nonzero,
+                         planes.z_slice))
+
+
+class PlaneCache:
+    """Target planes resident on `device`, keyed by target, in a byte-
+    and entry-bounded LRU. Under low host memory it halves (more
+    recomputation, never an OOM; AbstractCmd.java:52-62 analogue). A
+    target whose files are missing is cached as None.
+
+    `seconds` accumulates the host seconds of the cold path: "decode"
+    (thread-pooled image decode) and "planes" (upload and device build;
+    with `sync` set, the build's device work too). `host_builds` counts
+    targets whose planes were built on the host (non-RGB images)."""
+
+    def __init__(self, device, max_bytes: int = PLANES_CACHE_BYTES,
+                 max_entries: int = PLANES_CACHE_ENTRIES):
+        self.device = torch.device(device)
+        self.max_bytes = max_bytes
+        self.max_entries = max_entries
+        self.sync = False
+        self.host_builds = 0
+        self.seconds = {"decode": 0.0, "planes": 0.0}
+        self._planes: OrderedDict = OrderedDict()
+        self._nbytes = 0
+        self._lock = threading.RLock()
+
+    def __len__(self) -> int:
+        return len(self._planes)
+
+    def __contains__(self, key) -> bool:
+        with self._lock:
+            return key in self._planes
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the cached planes."""
+        return self._nbytes
+
+    def get(self, key):
+        """The planes of `key` (None if missing), refreshed as most
+        recently used."""
+        with self._lock:
+            planes = self._planes.get(key)
+            if key in self._planes:
+                self._planes.move_to_end(key)
+            return planes
+
+    def insert(self, key, planes) -> None:
+        with self._lock:
+            old = self._planes.pop(key, None)
+            self._nbytes -= _planes_nbytes(old)
+            size = _planes_nbytes(planes)
+            while self._planes and (len(self._planes) >= self.max_entries
+                                    or self._nbytes + size > self.max_bytes):
+                _, evicted = self._planes.popitem(last=False)
+                self._nbytes -= _planes_nbytes(evicted)
+            self._planes[key] = planes
+            self._nbytes += size
+        from ..utils.memguard import shared_guard
+        shared_guard().relieve(self._evict_half, "plane-cache")
+
+    def _evict_half(self) -> int:
+        with self._lock:
+            n = len(self._planes) // 2
+            for _ in range(n):
+                _, evicted = self._planes.popitem(last=False)
+                self._nbytes -= _planes_nbytes(evicted)
+        return n
+
+
+def _decode_raw(target, cache: MIPsCache, args):
+    """Decode a target's raw frames (thread-pool work). Returns
+    (cdm u8 [H,W,3], (grad_arr, grad_is_rgb), zgap u8 [H,W,3] | None)
+    or None when required files are missing, or the string "host" when
+    the images need the host path (non-RGB CDM/zgap)."""
+    cdm = cache.load_mip(target, ComputeFileType.InputColorDepthImage).image
+    grad = cache.load_mip(target, ComputeFileType.GradientImage).image
+    zgap = cache.load_mip(target, ComputeFileType.ZGapImage).image
+    if cdm is None or grad is None or \
+            (zgap is None and not args.computeZGapOnTheFly):
+        return None
+    if cdm.kind != ImageKind.RGB or \
+            (zgap is not None and zgap.kind != ImageKind.RGB):
+        return "host"
+    if grad.kind == ImageKind.RGB:
+        grad_raw = (grad.pixels, True)
+    else:
+        grad_raw = (grad.pixels.astype(np.uint16), False)
+    zgap_px = zgap.pixels if zgap is not None else None
+    return (cdm.pixels, grad_raw, zgap_px)
+
+
+def _planes_host(target, cache: MIPsCache, args, excluded, device):
+    """A target's planes built on the host (non-RGB images), uploaded."""
+    cdm = cache.load_mip(target, ComputeFileType.InputColorDepthImage).image
+    grad = cache.load_mip(target, ComputeFileType.GradientImage).image
+    zgap = cache.load_mip(target, ComputeFileType.ZGapImage).image
+    p = build_target_shape_planes(cdm, grad, zgap, args.maskThreshold,
+                                  excluded)
+    return TargetShapePlanes(
+        t_above=torch.from_numpy(p.t_above).to(device),
+        grad=torch.from_numpy(p.grad.view(np.int16)).to(device),
+        z_nonzero=torch.from_numpy(p.z_nonzero).to(device),
+        z_slice=torch.from_numpy(p.z_slice.astype(np.int16)).to(device))
+
+
+def _build_planes_device(raws, args, excluded, device):
+    """Batched device plane build: one build per group of same-(shape,
+    grad kind, zgap mode) raw frames. Returns [TargetShapePlanes] in
+    input order, each target's planes in tensors of their own (a view of
+    the batch would keep the whole batch alive in the cache)."""
+    results = [None] * len(raws)
+    groups: dict = {}
+    for i, (cdm, (_, grad_is_rgb), zgap_px) in enumerate(raws):
+        mode = "file" if zgap_px is not None else "otf"
+        groups.setdefault((cdm.shape, grad_is_rgb, mode), []).append(i)
+    for (_, grad_is_rgb, mode), idxs in groups.items():
+        planes = shape_device.build_target_planes(
+            np.stack([raws[i][0] for i in idxs]),
+            np.stack([raws[i][1][0] for i in idxs]),
+            np.stack([raws[i][2] for i in idxs]) if mode == "file" else None,
+            excluded, thr=int(args.maskThreshold), zgap_mode=mode,
+            grad_is_rgb=grad_is_rgb, device=device)
+        for j, i in enumerate(idxs):
+            results[i] = TargetShapePlanes(*(p[j].clone() for p in planes))
+    return results
+
+
+def _prefetch_planes(targets, cache, args, excluded,
+                     planes_cache: PlaneCache) -> None:
+    """Build every missing target's planes: thread-pooled decode, then
+    one device build per group of raw frames."""
+    seen = set()
+    missing = []
+    for t in targets:
+        key = t.entity_id or t.mip_id
+        if key not in planes_cache and key not in seen:
+            seen.add(key)
+            missing.append((key, t))
+    if not missing:
+        return
+    device = planes_cache.device
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=args.planes_threads
+                            or os.cpu_count() or 2) as pool:
+        raws = list(pool.map(lambda kt: _decode_raw(kt[1], cache, args),
+                             missing))
+    t1 = time.perf_counter()
+    planes_cache.seconds["decode"] += t1 - t0
+    device_keys, device_raws = [], []
+    for (key, t), raw in zip(missing, raws):
+        if raw is None:
+            planes_cache.insert(key, None)
+        elif isinstance(raw, str):  # "host": non-RGB edge case
+            planes_cache.host_builds += 1
+            planes_cache.insert(key, _planes_host(t, cache, args, excluded,
+                                                  device))
+        else:
+            device_keys.append(key)
+            device_raws.append(raw)
+    if device_raws:
+        built = _build_planes_device(device_raws, args, excluded, device)
+        for key, planes in zip(device_keys, built):
+            planes_cache.insert(key, planes)
+    if planes_cache.sync and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    planes_cache.seconds["planes"] += time.perf_counter() - t1
+
+
+# ---- scoring ---------------------------------------------------------------
+
+def score_mask_partitions(mask_matches, qplanes, cache, args, excluded,
+                          planes_cache: PlaneCache, qplanes_m=None):
+    """Score one mask's matches in targetsPerBatch partitions. Used by the
+    CLI run loop and by chip_smoke.py at size."""
+    scored_all = []
+    for part in partition_collection(mask_matches, args.targetsPerBatch):
+        scored_all.extend(_score_batch(part, qplanes, cache, args,
+                                       excluded, planes_cache, qplanes_m))
+    return scored_all
+
+
+def _score_batch(part, qplanes, cache: MIPsCache, args, excluded,
+                 planes_cache: PlaneCache, qplanes_m=None):
+    """Batched shape scoring for one mask's matches. qplanes_m carries
+    the mirrored-orientation plane set for the ROI-mask case."""
+    tplanes = []
+    scored_matches = []
+    want_shape = (qplanes.height, qplanes.width)
+    _prefetch_planes([m.matched_image for m in part if m.matched_image],
+                     cache, args, excluded, planes_cache)
+    for m in part:
+        target = m.matched_image
+        planes = None
+        if target is not None:
+            key = target.entity_id or target.mip_id
+            if key not in planes_cache:  # evicted since the prefetch
+                _prefetch_planes([target], cache, args, excluded,
+                                 planes_cache)
+            planes = planes_cache.get(key)
+        if planes is None:
+            # no negative score possible
+            # (Shape2DMatchColorDepthSearchAlgorithm.java:155-158)
+            m.gradient_area_gap = -1
+            m.high_expression_area = -1
+            continue
+        if tuple(planes.grad.shape) != want_shape:
+            # size mismatch vs the mask frame: skip rather than fail the
+            # whole batch (per-pair failure isolation)
+            LOG.warning("target %s planes %s mismatch mask frame %s — "
+                        "skipped", target.mip_id, tuple(planes.grad.shape),
+                        want_shape)
+            m.gradient_area_gap = -1
+            m.high_expression_area = -1
+            continue
+        tplanes.append(planes)
+        scored_matches.append(m)
+    if not tplanes:
+        return []
+
+    # crop to the query's active row band: outside it every gap /
+    # high-expression term is zero (QueryShapePlanes.active_row_range).
+    # The mirror pass only flips columns, so the crop is mirror-safe.
+    r0, r1 = qplanes.active_row_range()
+    if qplanes_m is None:
+        out = shape_score_stacked(qplanes.q_nonzero, qplanes.q_slice,
+                                  qplanes.q_mask, qplanes.high_expr,
+                                  [t.t_above for t in tplanes],
+                                  [t.grad for t in tplanes],
+                                  [t.z_nonzero for t in tplanes],
+                                  [t.z_slice for t in tplanes],
+                                  r0=r0, r1=r1, mirror=args.mirrorMask)
+        gaps, high, _, _ = finish_shape_scores(*out, mirror=args.mirrorMask)
+    else:
+        # ROI-mask path: two identity-orientation passes, the second with
+        # mirrored-query planes and flipped z planes; the crop covers
+        # the active rows of both orientations
+        m0, m1 = qplanes_m.active_row_range()
+        r0, r1 = min(r0, m0), max(r1, m1)
+
+        def stack(name):
+            return torch.stack([getattr(t, name)[r0:r1] for t in tplanes])
+
+        grad, znz, zsl, tab = (stack(n) for n in ("grad", "z_nonzero",
+                                                  "z_slice", "t_above"))
+
+        def one_pass(qp, znz_, zsl_):
+            out = shape_score_rows(qp.q_nonzero[r0:r1], qp.q_slice[r0:r1],
+                                   qp.q_mask[r0:r1], qp.high_expr[r0:r1],
+                                   grad, znz_, zsl_, tab, mirror=False)
+            return finish_shape_scores(*out, mirror=False)
+
+        g_i, h_i, s_i, _ = one_pass(qplanes, znz, zsl)
+        g_m, h_m, s_m, _ = one_pass(qplanes_m, znz.flip(2), zsl.flip(2))
+        use_m = s_m < s_i
+        gaps = np.where(use_m, g_m, g_i)
+        high = np.where(use_m, h_m, h_i)
+    for i, m in enumerate(scored_matches):
+        m.gradient_area_gap = int(gaps[i])
+        m.high_expression_area = int(high[i])
+        m.bidirectional_area_gap = None
+    return scored_matches

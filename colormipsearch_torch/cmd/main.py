@@ -1,9 +1,10 @@
 """CLI dispatcher: `python -m colormipsearch_torch <command> ...`.
 
-Counterpart of `colormipsearch_tpu/cmd/main.py`. colorDepthSearch runs on
-this package. The reference's other commands are not ported yet; each is
-registered under its own name and refuses with a pointer to the JAX
-package, which runs it (`python -m colormipsearch_tpu <command>`).
+Counterpart of `colormipsearch_tpu/cmd/main.py`. colorDepthSearch and
+gradientScores run on this package. The reference's other commands are
+not ported yet; each is registered under its own name and refuses with a
+pointer to the JAX package, which runs it
+(`python -m colormipsearch_tpu <command>`).
 """
 
 from __future__ import annotations
@@ -14,9 +15,8 @@ import sys
 from typing import List, Optional
 
 # the reference's commands that are not ported yet (ROADMAP.md, queue 1):
-# gradientScores holds device code; the others are host commands over the
-# store layer and the export formats
-NOT_PORTED = ("gradientScores", "normalizeGradientScores",
+# host commands over the store layer and the export formats
+NOT_PORTED = ("normalizeGradientScores",
               "mormalizeGradientScores", "createColorDepthSearchDataInput",
               "importPPPResults", "exportData", "tag", "copyToMipsStore",
               "validateDBData", "deleteCDMatches")
@@ -29,13 +29,14 @@ def _refused(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from . import colordepthsearch_cmd
+    from . import colordepthsearch_cmd, gradientscores_cmd
     parser = argparse.ArgumentParser(
         prog="colormipsearch-torch",
         description="color depth MIP search tools (PyTorch/CUDA port)")
     parser.add_argument("-v", "--verbose", action="store_true")
     subparsers = parser.add_subparsers(dest="command")
     colordepthsearch_cmd.add_parser(subparsers)
+    gradientscores_cmd.add_parser(subparsers)
     for name in NOT_PORTED:
         p = subparsers.add_parser(
             name, help="not ported yet: runs on colormipsearch_tpu only")

@@ -1,10 +1,13 @@
 """Storage-agnostic data I/O interfaces.
 
 Copy of the parts of `colormipsearch_tpu/dataio/base.py` that the
-colorDepthSearch command uses: the input selector DataSourceParam
-(dataio/DataSourceParam.java + dao/NeuronSelector.java) and the reader
-and writer interfaces of its JSON backend (dataio/CDMIPsReader.java,
-dataio/NeuronMatchesWriter.java).
+colorDepthSearch and gradientScores commands use: the input selector
+DataSourceParam (dataio/DataSourceParam.java + dao/NeuronSelector.java),
+ScoresFilter (datarequests/ScoresFilter.java:8-41), SortCriteria, and
+the reader and writer interfaces of their JSON backend
+(dataio/CDMIPsReader.java, dataio/NeuronMatchesReader.java,
+dataio/NeuronMatchesWriter.java). The field-update handlers and the
+by-target reads serve the store layer and the other commands.
 """
 
 from __future__ import annotations
@@ -96,6 +99,68 @@ class DataSourceParam:
         return list(items[start:])
 
 
+@dataclass
+class ScoresFilter:
+    """Minimum-score selectors; a field name may be an OR of fields
+    joined with '|' (datarequests/ScoresFilter.java:8-41, used e.g. as
+    "gradientAreaGap|bidirectionalAreaGap" at
+    NormalizeGradientScoresCmd.java:288)."""
+    selectors: List[tuple] = field(default_factory=list)  # (fieldName, minScore)
+
+    def add(self, field_name: str, min_score: float) -> "ScoresFilter":
+        self.selectors.append((field_name, min_score))
+        return self
+
+    @property
+    def empty(self) -> bool:
+        return not self.selectors
+
+    _FIELD_GETTERS = {
+        "matchingPixels": lambda m: m.matching_pixels,
+        "matchingRatio": lambda m: m.matching_pixels_ratio,
+        "matchingPixelsRatio": lambda m: m.matching_pixels_ratio,
+        "gradientAreaGap": lambda m: m.gradient_area_gap,
+        "bidirectionalAreaGap": lambda m: m.bidirectional_area_gap,
+        "highExpressionArea": lambda m: m.high_expression_area,
+        "normalizedScore": lambda m: m.normalized_score,
+    }
+
+    def matches(self, m: CDMatchEntity) -> bool:
+        for field_name, min_score in self.selectors:
+            fields = [f for f in field_name.split("|") if f]
+            if min_score == -1:
+                # -1 is the reference's sentinel: NONE of the fields may
+                # have a score, i.e. each is absent or -1
+                # (NeuronSelectionHelper.addNeuronsMatchScoresFilters,
+                # dao/mongo/NeuronSelectionHelper.java:146-157)
+                for f in fields:
+                    getter = self._FIELD_GETTERS.get(f)
+                    if getter is None:
+                        continue
+                    v = getter(m)
+                    if v is not None and v != -1:
+                        return False
+                continue
+            ok = False
+            for f in fields:
+                getter = self._FIELD_GETTERS.get(f)
+                if getter is None:
+                    continue
+                v = getter(m)
+                if v is not None and v >= min_score:
+                    ok = True
+                    break
+            if not ok:
+                return False
+        return True
+
+
+@dataclass
+class SortCriteria:
+    field_name: str = "matchingPixels"
+    ascending: bool = False
+
+
 class CDMIPsReader(abc.ABC):
     """dataio/CDMIPsReader.java."""
 
@@ -104,9 +169,30 @@ class CDMIPsReader(abc.ABC):
         ...
 
 
+class NeuronMatchesReader(abc.ABC):
+    """dataio/NeuronMatchesReader.java."""
+
+    @abc.abstractmethod
+    def list_match_locations(self, params: List[DataSourceParam]) -> List[str]:
+        ...
+
+    @abc.abstractmethod
+    def read_matches_by_mask(self, mask_selector: DataSourceParam,
+                             target_selector: Optional[DataSourceParam] = None,
+                             scores_filter: Optional[ScoresFilter] = None,
+                             sort: Optional[SortCriteria] = None
+                             ) -> List[CDMatchEntity]:
+        ...
+
+
 class NeuronMatchesWriter(abc.ABC):
     """dataio/NeuronMatchesWriter.java."""
 
     @abc.abstractmethod
     def write(self, matches: List[CDMatchEntity]) -> int:
+        ...
+
+    @abc.abstractmethod
+    def write_updates(self, matches: List[CDMatchEntity],
+                      fields: List[str]) -> int:
         ...

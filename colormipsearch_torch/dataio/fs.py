@@ -1,7 +1,8 @@
 """Filesystem (JSON) persistence backend of the colorDepthSearch command.
 
 Copy of the readers and writers of `colormipsearch_tpu/dataio/fs.py` that
-the command uses (counterparts of colormipsearch-persist dataio/fs/*.java).
+the colorDepthSearch and gradientScores commands use (counterparts of
+colormipsearch-persist dataio/fs/*.java).
 File formats are wire-compatible with the reference:
 
 - MIP lists: a flat JSON array of class-discriminated neuron entities
@@ -26,7 +27,8 @@ from typing import Callable, Dict, List, Optional
 from ..model.entities import (CDMatchEntity, CDSSessionEntity, NeuronEntity,
                               entity_from_dict)
 from ..model.enums import ComputeFileType
-from .base import CDMIPsReader, DataSourceParam, NeuronMatchesWriter
+from .base import (CDMIPsReader, DataSourceParam, NeuronMatchesReader,
+                   NeuronMatchesWriter, ScoresFilter, SortCriteria)
 
 _MASK_SIDE_COMPUTE_FILES = (ComputeFileType.InputColorDepthImage,
                             ComputeFileType.GradientImage,
@@ -110,6 +112,82 @@ class JSONNeuronMatchesWriter(NeuronMatchesWriter):
         if self.per_targets_dir:
             n += self._write_groups(matches, self.per_targets_dir, by_target=True)
         return n
+
+    def write_updates(self, matches: List[CDMatchEntity],
+                      fields: List[str]) -> int:
+        """FS backend rewrites whole per-mask files
+        (JSONNeuronMatchesWriter.writeUpdates, :57-59)."""
+        if self.per_masks_dir:
+            return self._write_groups(matches, self.per_masks_dir, by_target=False)
+        return 0
+
+
+class JSONNeuronMatchesReader(NeuronMatchesReader):
+    """Read grouped match files (JSONNeuronMatchesReader.java), expanding
+    each result back into a full match (expandResultsByMask)."""
+
+    def __init__(self, per_masks_dir: str):
+        self.per_masks_dir = per_masks_dir
+
+    def list_match_locations(self, params: List[DataSourceParam]) -> List[str]:
+        if not os.path.isdir(self.per_masks_dir):
+            return []
+        names = sorted(os.path.splitext(f)[0]
+                       for f in os.listdir(self.per_masks_dir)
+                       if f.endswith(".json"))
+        out = []
+        for p in params:
+            if p.mip_ids:
+                out.extend(n for n in names if n in set(p.mip_ids))
+            else:
+                out.extend(names)
+        return sorted(set(out)) if params else names
+
+    def _read_group_file(self, path: str) -> List[CDMatchEntity]:
+        with open(path) as f:
+            doc = json.load(f)
+        mask_dict = doc.get("inputImage") or {}
+        matches = []
+        for md in doc.get("results", []):
+            m = CDMatchEntity.from_dict(md)
+            mask = entity_from_dict(mask_dict)
+            # restore mask-side compute files from matchComputeFiles
+            for cft, mk in _MATCH_COMPUTE_KEYS.items():
+                fd = m.match_compute_files.get(mk)
+                if fd is not None:
+                    mask.compute_files[cft] = fd
+            m.mask_image = mask
+            m.match_compute_files = {}
+            matches.append(m)
+        return matches
+
+    def read_matches_by_mask(self, mask_selector: DataSourceParam,
+                             target_selector: Optional[DataSourceParam] = None,
+                             scores_filter: Optional[ScoresFilter] = None,
+                             sort: Optional[SortCriteria] = None
+                             ) -> List[CDMatchEntity]:
+        matches: List[CDMatchEntity] = []
+        for mip_id in self.list_match_locations([mask_selector]):
+            path = os.path.join(self.per_masks_dir, f"{mip_id}.json")
+            if os.path.exists(path):
+                matches.extend(self._read_group_file(path))
+        if mask_selector is not None:
+            matches = [m for m in matches
+                       if m.mask_image is None
+                       or mask_selector.matches_entity(m.mask_image)]
+        if target_selector is not None:
+            matches = [m for m in matches
+                       if m.matched_image is None
+                       or target_selector.matches_entity(m.matched_image)]
+        if scores_filter is not None and not scores_filter.empty:
+            matches = [m for m in matches if scores_filter.matches(m)]
+        if sort is not None:
+            getter = ScoresFilter._FIELD_GETTERS.get(sort.field_name)
+            if getter:
+                matches.sort(key=lambda m: (getter(m) is None,
+                                            getter(m) or 0),
+                             reverse=not sort.ascending)
+        return matches
 
 
 class JSONCDSSessionWriter:

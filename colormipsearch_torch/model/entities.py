@@ -1,9 +1,8 @@
 """Domain entities: neurons, matches, sessions.
 
 Copy of `colormipsearch_tpu/model/entities.py` without the PPP match
-entity, the gradient-score helpers of CDMatchEntity and the ref-id
-helpers of AbstractMatchEntity, which the colorDepthSearch path does not
-use. Counterparts of the reference model
+entity and `AbstractMatchEntity.matched_ref`, which the colorDepthSearch
+and gradientScores paths do not use. Counterparts of the reference model
 layer (model/AbstractNeuronEntity.java:25-50, EMNeuronEntity.java,
 LMNeuronEntity.java:17-28, AbstractMatchEntity.java:22-30,
 CDMatchEntity.java:12-170, CDSSessionEntity.java). JSON round-trips use
@@ -44,6 +43,10 @@ class NeuronEntity:
     validation_errors: Set[str] = field(default_factory=set)
 
     JSON_CLASS = ""
+
+    @property
+    def neuron_id(self) -> Optional[str]:
+        return self.published_name
 
     def compute_file(self, ftype: ComputeFileType) -> Optional[FileData]:
         return self.compute_files.get(ftype)
@@ -154,6 +157,10 @@ class LMNeuronEntity(NeuronEntity):
 
     JSON_CLASS = _LM_CLASS
 
+    @property
+    def neuron_id(self) -> Optional[str]:
+        return self.slide_code
+
     def to_dict(self) -> Dict[str, Any]:
         d = self._base_dict()
         for k, v in (("internalLineName", self.internal_line_name),
@@ -204,6 +211,11 @@ class AbstractMatchEntity:
     match_files: Dict[FileType, str] = field(default_factory=dict)
     tags: Set[str] = field(default_factory=set)
 
+    def mask_ref(self) -> Optional[int]:
+        if self.mask_image_ref_id is not None:
+            return self.mask_image_ref_id
+        return self.mask_image.entity_id if self.mask_image else None
+
 
 @dataclass
 class CDMatchEntity(AbstractMatchEntity):
@@ -218,6 +230,29 @@ class CDMatchEntity(AbstractMatchEntity):
     errors: Optional[str] = None
 
     JSON_CLASS = _CDMATCH_CLASS
+
+    @property
+    def grad_score(self) -> int:
+        """getGradScore (CDMatchEntity.java:76-86)."""
+        from ..cds.scores import calculate_2d_shape_score
+        if not self.has_grad_score:
+            return -1
+        if self.bidirectional_area_gap is not None and self.bidirectional_area_gap >= 0:
+            return self.bidirectional_area_gap
+        return calculate_2d_shape_score(self.gradient_area_gap, self.high_expression_area)
+
+    @property
+    def has_grad_score(self) -> bool:
+        if self.bidirectional_area_gap is not None and self.bidirectional_area_gap >= 0:
+            return True
+        return (self.gradient_area_gap is not None and self.gradient_area_gap >= 0
+                and self.high_expression_area is not None and self.high_expression_area >= 0)
+
+    def reset_gradient_scores(self) -> None:
+        self.gradient_area_gap = None
+        self.high_expression_area = None
+        self.bidirectional_area_gap = None
+        self.normalized_score = None
 
     def to_dict(self, include_images: bool = True) -> Dict[str, Any]:
         d: Dict[str, Any] = {"class": self.JSON_CLASS}

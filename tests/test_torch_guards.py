@@ -141,19 +141,23 @@ def test_one_library_per_source(monkeypatch, tmp_path):
 
 
 def test_cli_dispatch_table():
-    """colorDepthSearch runs on the port; gradientScores and the eight host
+    """colorDepthSearch and gradientScores run on the port; the eight host
     commands of the reference are registered and refuse with a pointer to
     the JAX package."""
     sub = next(a for a in build_parser()._actions
                if isinstance(a.choices, dict))
-    refused = {"gradientScores", "normalizeGradientScores",
+    refused = {"normalizeGradientScores",
                "createColorDepthSearchDataInput", "importPPPResults",
                "exportData", "tag", "copyToMipsStore", "validateDBData",
                "deleteCDMatches"}
-    assert set(sub.choices) >= refused | {"colorDepthSearch"}
-    from colormipsearch_torch.cmd import colordepthsearch_cmd
+    ported = {"colorDepthSearch", "gradientScores"}
+    assert set(sub.choices) >= refused | ported
+    from colormipsearch_torch.cmd import (colordepthsearch_cmd,
+                                          gradientscores_cmd)
     assert sub.choices["colorDepthSearch"].get_default("func") is \
         colordepthsearch_cmd.run
+    assert sub.choices["gradientScores"].get_default("func") is \
+        gradientscores_cmd.run
     for name in sorted(refused):
         with pytest.raises(SystemExit) as e:
             main([name, "--some-option", "x"])

@@ -1,7 +1,7 @@
 """The port's host copies (colormipsearch_torch.cds.{pixel_kernel,
 ratio_bounds, pixel_active, prescreen, oracle, exact_ratio} and the host
-modules of the colorDepthSearch command) must equal the JAX package's
-functions exactly on the same inputs."""
+modules of the colorDepthSearch and gradientScores commands) must equal
+the JAX package's functions exactly on the same inputs."""
 
 import os
 
@@ -384,7 +384,289 @@ def _case_mips_cache(tmp_path, fixtures_dir):
     assert sizes[:3] == sizes[3:] and min(sizes) < 3
 
 
+# ---- the copies of the host modules the gradientScores command uses -------
+
+_EM = "org.janelia.colormipsearch.model.EMNeuronEntity"
+_LM = "org.janelia.colormipsearch.model.LMNeuronEntity"
+_MATCH = "org.janelia.colormipsearch.model.CDMatchEntity"
+
+
+def _synthetic_match_docs(seed, n=60):
+    """Match dicts over 3 masks, 5 published lines and 3 samples each,
+    with tied pixel scores and every kind of shape-score field: absent,
+    -1, 0 and positive."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(n):
+        mask = int(rng.integers(1, 4))
+        line, sample = int(rng.integers(0, 5)), int(rng.integers(0, 3))
+        d = {"class": _MATCH, "mirrored": bool(rng.integers(0, 2)),
+             "maskImage": {"class": _EM, "id": str(mask),
+                           "mipId": f"em-{mask}", "publishedName": f"b{mask}"},
+             "image": {"class": _LM, "id": str(1000 + i), "mipId": f"lm-{i}",
+                       "publishedName": f"line{line}",
+                       "slideCode": f"line{line}-s{sample}"},
+             "matchingPixels": int(rng.integers(0, 40)),
+             "matchingPixelsRatio": float(np.float32(rng.random()))}
+        kind = int(rng.integers(0, 4))
+        if kind == 1:
+            d["gradientAreaGap"], d["highExpressionArea"] = -1, -1
+        elif kind >= 2:
+            d["gradientAreaGap"] = int(rng.integers(0, 5000)) * (kind - 2)
+            d["highExpressionArea"] = int(rng.integers(0, 3000))
+        if rng.random() < 0.1:
+            d["bidirectionalAreaGap"] = int(rng.integers(-1, 900))
+        if rng.random() < 0.3:
+            d["maskImageRefId"] = str(mask + 10)
+        docs.append(d)
+    return docs
+
+
+def _both_matches(seed):
+    from colormipsearch_tpu.model import CDMatchEntity as Want
+    from colormipsearch_torch.model import CDMatchEntity as Got
+    docs = _synthetic_match_docs(seed)
+    return ([Got.from_dict(d) for d in docs],
+            [Want.from_dict(d) for d in docs])
+
+
+def _ids(matches):
+    return [(m.mask_ref(), m.matched_image.mip_id) for m in matches]
+
+
+def _case_match_score_helpers(tmp_path, fixtures_dir):
+    got, want = _both_matches(1)
+    for g, w in zip(got, want):
+        assert (g.mask_ref(), g.grad_score, g.has_grad_score) == \
+            (w.mask_ref(), w.grad_score, w.has_grad_score)
+        for side in ("mask_image", "matched_image"):
+            assert getattr(g, side).neuron_id == getattr(w, side).neuron_id
+        g.reset_gradient_scores()
+        w.reset_gradient_scores()
+        assert g.to_dict() == w.to_dict()
+
+
+def _case_scores_filter(tmp_path, fixtures_dir):
+    from colormipsearch_tpu.dataio import ScoresFilter as Want
+    from colormipsearch_torch.dataio import ScoresFilter as Got
+    got, want = _both_matches(2)
+    for selectors in ([], [("matchingRatio", 0.5)],
+                      [("gradientAreaGap|bidirectionalAreaGap", -1)],
+                      [("gradientAreaGap", 1), ("highExpressionArea", 100)],
+                      [("nosuchfield", 0)]):
+        fg, fw = Got(), Want()
+        for name, v in selectors:
+            fg.add(name, v)
+            fw.add(name, v)
+        assert fg.empty == fw.empty
+        assert [fg.matches(m) for m in got] == [fw.matches(m) for m in want]
+
+
+def _case_matches_reader(tmp_path, fixtures_dir):
+    """Per-mask files written by each package and read back by each
+    reader, with selectors, filters and sorts; write_updates rewrites the
+    same files."""
+    from colormipsearch_tpu import dataio as want_io
+    from colormipsearch_torch import dataio as got_io
+    got, want = _both_matches(3)
+    for io_, matches, out in ((got_io, got, "got"), (want_io, want, "want")):
+        io_.JSONNeuronMatchesWriter(str(tmp_path / out)).write(matches)
+    assert _tree(tmp_path / "got") == _tree(tmp_path / "want")
+    rg = got_io.JSONNeuronMatchesReader(str(tmp_path / "got"))
+    rw = want_io.JSONNeuronMatchesReader(str(tmp_path / "want"))
+    for mip_ids in ([], ["em-2"], ["em-9"]):
+        assert rg.list_match_locations([got_io.DataSourceParam(
+            mip_ids=mip_ids)]) == rw.list_match_locations(
+            [want_io.DataSourceParam(mip_ids=mip_ids)])
+    for sel, flt, sort in ((["em-1"], None, None),
+                           ([], ("matchingPixels", 10), None),
+                           ([], None, ("matchingPixels", True)),
+                           (["em-3"], ("matchingRatio", 0.2),
+                            ("gradientAreaGap", False))):
+        args = []
+        for io_ in (got_io, want_io):
+            f = io_.ScoresFilter().add(*flt) if flt else None
+            s = io_.SortCriteria(*sort) if sort else None
+            args.append((io_.DataSourceParam(mip_ids=sel), None, f, s))
+        a = rg.read_matches_by_mask(*args[0])
+        b = rw.read_matches_by_mask(*args[1])
+        assert [m.to_dict() for m in a] == [m.to_dict() for m in b]
+    a = rg.read_matches_by_mask(got_io.DataSourceParam())
+    b = rw.read_matches_by_mask(want_io.DataSourceParam())
+    for m in a + b:
+        m.gradient_area_gap = 7
+    for io_, matches, out in ((got_io, a, "got"), (want_io, b, "want")):
+        assert io_.JSONNeuronMatchesWriter(str(tmp_path / out)).write_updates(
+            matches, ["gradientAreaGap"]) == 3
+    assert _tree(tmp_path / "got") == _tree(tmp_path / "want")
+
+
+def _case_select_best_matches(tmp_path, fixtures_dir):
+    from colormipsearch_tpu import results as want_r
+    from colormipsearch_torch import results as got_r
+    got, want = _both_matches(4)
+    for top in ((-1, -1, -1), (1, -1, -1), (2, 1, 1), (3, 2, 2), (0, 0, 0)):
+        a = got_r.select_best_matches(list(got), *top)
+        b = want_r.select_best_matches(list(want), *top)
+        assert _ids(a) == _ids(b)
+        ga, gb = got_r.group_matches_by_mask(a), want_r.group_matches_by_mask(b)
+        assert list(ga) == list(gb)
+        assert [_ids(v) for v in ga.values()] == [_ids(v) for v in gb.values()]
+
+
+def _case_scores(tmp_path, fixtures_dir):
+    from colormipsearch_tpu.cds import scores as want
+    from colormipsearch_torch.cds import scores as got
+    values = (-1, 0, 1, 2, 3, 17, 439, 100_000)
+    for a in values + (None,):
+        for b in values + (None,):
+            assert got.calculate_2d_shape_score(a, b) == \
+                want.calculate_2d_shape_score(a, b)
+            if a is not None and b is not None:
+                assert got.ShapeMatchScore(a, b).score == \
+                    want.ShapeMatchScore(a, b).score
+    for p in values:
+        for s in values:
+            for mp in (0, 1, 439):
+                for ms in (-1, 0, 5, 100_000):
+                    assert got.calculate_normalized_score(p, s, mp, ms) == \
+                        want.calculate_normalized_score(p, s, mp, ms)
+
+
+def _case_normalize(tmp_path, fixtures_dir):
+    from colormipsearch_tpu.results import normalize_match_scores as want
+    from colormipsearch_torch.results import normalize_match_scores as got
+    for seed in (5, 6):
+        a, b = _both_matches(seed)
+        got(a)
+        want(b)
+        assert [m.normalized_score for m in a] == \
+            [m.normalized_score for m in b]
+
+
+def _case_colors(tmp_path, fixtures_dir):
+    from colormipsearch_tpu.imageproc import colors as want
+    from colormipsearch_tpu.imageproc.io import Image as WImage
+    from colormipsearch_tpu.imageproc.io import ImageKind as WKind
+    from colormipsearch_torch.imageproc import colors as got
+    from colormipsearch_torch.imageproc.io import Image as GImage
+    from colormipsearch_torch.imageproc.io import ImageKind as GKind
+    rng = np.random.default_rng(8)
+    rgb = _random_rgb(rng, (30, 50), 0.3)
+    excluded = rng.random((30, 50)) < 0.2
+    for fn, args in (("rgb_to_gray_no_gamma", (rgb,)),
+                     ("rgb_to_gray_no_gamma", (rgb, 65535.0)),
+                     ("gray_to_signal", (rgb[..., 0].astype(np.int32), 20)),
+                     ("mask_rgb", (rgb, 20)),
+                     ("clear_region_rgb", (rgb, excluded)),
+                     ("mirror_x", (rgb,))):
+        np.testing.assert_array_equal(getattr(got, fn)(*args),
+                                      getattr(want, fn)(*args))
+    gray8 = rgb[..., 1]
+    gray16 = rng.integers(0, 65536, (30, 50)).astype(np.uint16)
+    for kind, px in (("RGB", rgb), ("GRAY8", gray8), ("GRAY16", gray16)):
+        np.testing.assert_array_equal(
+            got.to_gray16_no_gamma(GImage(GKind[kind], px)),
+            want.to_gray16_no_gamma(WImage(WKind[kind], px)))
+
+
+def _case_filters(tmp_path, fixtures_dir):
+    from colormipsearch_tpu.imageproc import filters as want
+    from colormipsearch_torch.imageproc import filters as got
+    for r in (1.0, 1.5, 1.7, 2.5, 2.8, 3.0, 10.0, 20.0, 60.0):
+        np.testing.assert_array_equal(got.make_line_radii(r),
+                                      want.make_line_radii(r))
+    rng = np.random.default_rng(9)
+    rgb = _random_rgb(rng, (80, 130), 0.95)
+    rgb[0, 0] = rgb[-1, -1] = 255
+    for r in (2.5, 10.0, 60.0):
+        np.testing.assert_array_equal(got.max_filter_rgb(rgb, r),
+                                      want.max_filter_rgb(rgb, r))
+        np.testing.assert_array_equal(got.max_filter_plane(rgb[..., 0], r),
+                                      want.max_filter_plane(rgb[..., 0], r))
+
+
+def _case_lut(tmp_path, fixtures_dir):
+    from colormipsearch_tpu.cds import lut as want
+    from colormipsearch_torch.cds import lut as got
+    np.testing.assert_array_equal(got.slice_number_table(),
+                                  want.slice_number_table())
+    rng = np.random.default_rng(10)
+    rgb = rng.integers(0, 256, size=(40, 90, 3), dtype=np.uint8)
+    rgb[0, :, 0] = rgb[0, :, 1]
+    rgb[1] = 0
+    np.testing.assert_array_equal(got.slice_plane(rgb), want.slice_plane(rgb))
+    a = rng.integers(0, 257, (40, 90))
+    b = rng.integers(0, 257, (40, 90))
+    a[0], b[1] = 0, 0
+    np.testing.assert_array_equal(got.slice_gap(a, b), want.slice_gap(a, b))
+
+
+def _case_shape_oracle(tmp_path, fixtures_dir):
+    """Host planes of a crop of the golden fixtures: query planes with and
+    without an ROI, a border and label regions, the mirrored ROI planes,
+    and target planes from z-gap files and on the fly."""
+    from colormipsearch_tpu.cds import shape_oracle as want
+    from colormipsearch_tpu.imageproc.io import Image as WImage
+    from colormipsearch_torch.cds import shape_oracle as got
+    from colormipsearch_torch.imageproc.io import Image as GImage
+    from colormipsearch_torch.imageproc.io import load_image as gload
+    bjd = ("BJD_127B01_AE_01-20171124_64_H6-40x-Brain-JRC2018_Unisex_20x_HR-"
+           "2483089192251293794-CH2-01_CDM")
+    crop = (slice(150, 350), slice(300, 700))
+
+    def both(path):
+        img = gload(str(path))
+        px = np.ascontiguousarray(img.pixels[crop])
+        return GImage(img.kind, px), WImage(want.ImageKind(img.kind.value), px)
+
+    qg, qw = both(fixtures_dir / "ems" / "12191_JRC2018U.tif")
+    tg, tw = both(fixtures_dir / "lms" / f"{bjd}.tif")
+    gg, gw = both(fixtures_dir / "grad" / f"{bjd}.png")
+    zg, zw = both(fixtures_dir / "zgap" / f"{bjd}.tif")
+    rng = np.random.default_rng(12)
+    excluded = rng.random(qg.shape) < 0.05
+    roi = np.full(qg.shape + (3,), 255, np.uint8)
+    roi[:, roi.shape[1] // 2:] = 0
+    roi_g, roi_w = (GImage(qg.kind, roi),
+                    WImage(qw.kind, roi))
+
+    def same_query(a, b):
+        for name in ("q_nonzero", "q_slice", "q_mask", "high_expr"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+        (r0, r1), (w0, w1) = a.active_row_range(), b.active_row_range()
+        assert w0 <= r0 and r1 <= w1 and r0 % 8 == 0
+
+    for exc in (None, excluded):
+        for roi_pair in ((None, None), (roi_g, roi_w)):
+            for border in (0, 4):
+                same_query(
+                    got.build_query_shape_planes(qg, exc, roi_pair[0], border),
+                    want.build_query_shape_planes(qw, exc, roi_pair[1],
+                                                  border))
+        same_query(got.build_mirrored_query_shape_planes(qg, exc, roi_g, 4),
+                   want.build_mirrored_query_shape_planes(qw, exc, roi_w, 4))
+        for zpair in ((zg, zw), (None, None)):
+            a = got.build_target_shape_planes(tg, gg, zpair[0], 20, exc)
+            b = want.build_target_shape_planes(tw, gw, zpair[1], 20, exc)
+            for name in ("t_above", "grad", "z_nonzero", "z_slice"):
+                np.testing.assert_array_equal(getattr(a, name),
+                                              getattr(b, name))
+        np.testing.assert_array_equal(got.compute_zgap_image(tg, 20, exc),
+                                      want.compute_zgap_image(tw, 20, exc))
+
+
 HOST_COPY_CASES = {
+    "model.CDMatchEntity.grad_score": _case_match_score_helpers,
+    "dataio.base.ScoresFilter": _case_scores_filter,
+    "dataio.fs.JSONNeuronMatchesReader": _case_matches_reader,
+    "results.select_best_matches": _case_select_best_matches,
+    "cds.scores": _case_scores,
+    "results.normalize_match_scores": _case_normalize,
+    "imageproc.colors": _case_colors,
+    "imageproc.filters": _case_filters,
+    "cds.lut": _case_lut,
+    "cds.shape_oracle": _case_shape_oracle,
     "cds.oracle.shift_ring_offsets": _case_shift_ring_offsets,
     "cds.exact_ratio.c9_split": _case_c9_split,
     "cmd.args": _case_cmd_args,

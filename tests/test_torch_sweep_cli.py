@@ -194,8 +194,10 @@ def test_cli_refusals_name_roadmap(workspace, tmp_path, argv, needle):
 
 
 def test_gradient_scores_refused():
+    """gradientScores runs on the port; its store option is refused before
+    any work, with a pointer to ROADMAP.md."""
     with pytest.raises(SystemExit) as e:
-        main(["gradientScores", "-md", "somewhere"])
+        main(["gradientScores", "-md", "somewhere", "--db", "x.db"])
     assert "ROADMAP.md" in str(e.value)
 
 

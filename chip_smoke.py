@@ -57,7 +57,28 @@ exact predicates, and the op microbench:
    bounds, their calls per round, peak device memory and its host-path
    plane builds (must be 0); mask 0's scores must equal a `--device cpu`
    run of the same batch. Phase 6's numbers are one JSON line before the
-   kernels line.
+   kernels line;
+7. the dense engine and the scale-out layer: (a) the dense engine
+   (`cds/pixel_kernel.PixelMatchEngine`) on the card equal to its CPU run
+   on the golden fixtures, 439 / 414 / 426; (b) the dense engine at the
+   full frame, 8 masks x 256 targets of phase 4's library, equal on every
+   pair to the two-phase path without a screen: its ms, peak memory and
+   its bound, counted from the evaluations as `kernel_work` counts them
+   for the word kernel over the same pairs; (c) `TwoPhaseSweep` over
+   [dev, dev] (and every card, where there are more) on both predicates,
+   equal to the one-card run on all 524,288 pairs of phase 4, pairs/s of
+   each in turns, and each round's kernel launches counted from 0 (one
+   per device slot and partition of the predicate's kernel, none of the
+   other's); (d) two processes on the card in a gloo group:
+   colorDepthSearch --jax-distributed with both engines (process 0 alone
+   writes the goldens), the --process-count 2 grid of both commands (the
+   goldens and 21365 / 33884 / 40696), and rank 0's gathered two-phase
+   grid over 256 masks x 512 targets on both predicates equal to phase
+   4's, each rank's own kernel launches checked the same way, pairs/s
+   beside one process's pipelined loop; (e) gradientScores'
+   `score_mask_partitions` over [dev, dev] at 128 x 566 x 1210 equal to
+   the one-device run. Phase 7's numbers are one JSON line
+   `{"scale_out": ...}` before the kernels line.
 
 `python3 chip_smoke.py --profile DIR` adds a torch.profiler round of the
 phase-4 ratio sweep: device busy share, the bound's and the exact
@@ -781,7 +802,10 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
                 screen.bounds_from_words(u_dev, wp)
         phase_profile(lambda stage: run(sweeps["ratio"], stage), bound_only,
                       profile_dir)
-    return timing
+    library = {"engines": engines, "words_engines": words_engines,
+               "screen": screen, "u_matrix": u_matrix, "thr": thr,
+               "parts": parts, "result": results["ratio"]}
+    return timing, library
 
 
 # ---- phase 5 ---------------------------------------------------------------
@@ -1115,6 +1139,444 @@ def phase_gradient_at_size(dev, ws, n_targets=128, batch=128):
     return report
 
 
+# ---- phase 7 ---------------------------------------------------------------
+
+def golden_library():
+    """The golden mask 12191 with its label regions and the three golden
+    LM frames."""
+    query = load_rgb(os.path.join(FIXTURES, "ems", "12191_JRC2018U.tif"))
+    targets = np.stack([load_rgb(os.path.join(FIXTURES, "lms", f"{n}.tif"))
+                        for n in LM_GOLDEN])
+    return query, targets, label_regions(*query.shape[:2])
+
+
+def phase_dense_fixtures(dev):
+    """(a) The dense engine on the card against its CPU run on the golden
+    fixtures: 439 / 414 / 426, the last mirrored."""
+    import torch
+    from colormipsearch_torch.cds.pixel_kernel import PixelMatchEngine
+    query, targets, excluded = golden_library()
+    eng = PixelMatchEngine(query, 20, True, 20, 1.0, 2, excluded)
+    t0 = time.perf_counter()
+    got = eng.score_batch(targets, dev)
+    card_s = time.perf_counter() - t0
+    want = eng.score_batch(targets, torch.device("cpu"))
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit("dense engine: the card's scores differ from the "
+                         "CPU's on the fixtures")
+    goldens = (got[0].tolist(), got[2].tolist())
+    log(f"[phase 7a] dense engine on the fixtures: card == CPU, scores "
+        f"{goldens[0]}, mirrored {goldens[1]} ({card_s:.2f}s on the card)")
+    if goldens != ([439, 414, 426], [False, False, True]):
+        raise SystemExit(f"dense engine goldens wrong: {goldens}")
+    return {"scores": goldens[0], "mirrored": goldens[1]}
+
+
+def phase_dense_at_size(dev, library, n_masks=8, n_targets=256):
+    """(b) The dense engine at the full frame, 8 masks x 256 targets of
+    phase 4's library, equal on every pair to the two-phase path without a
+    screen; its ms and peak memory, and its bound from the evaluations
+    the word kernel's launch over the same pairs needs (kernel_work)."""
+    import torch
+    from colormipsearch_torch.cds import multimask as mm
+    from colormipsearch_torch.cds.pixel_kernel import (DENSE_CHUNK_ELEMS,
+                                                       pack_targets,
+                                                       pixel_match_packed)
+    from colormipsearch_torch.parallel.twophase_sweep import TwoPhaseSweep
+    engines = library["engines"][:n_masks]
+    targets = np.concatenate(library["parts"])[:n_targets]
+    eng0 = engines[0]
+    q = torch.from_numpy(np.stack([e.planes.words for e in engines])).to(dev)
+    t_dev = torch.from_numpy(targets).to(dev)
+    (tp, tf), pack_ms = event_ms(lambda: pack_targets(t_dev, 20, 2))
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    runs = [event_ms(lambda: pixel_match_packed(q, tp, tf, eng0.shifts,
+                                                eng0.zt9, True))
+            for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    scores, mirrored = runs[0][0]
+    dense_ms = [ms for _, ms in runs]
+    want_s, want_m = TwoPhaseSweep(engines, [dev]).sweep(targets)
+    if not (np.array_equal(scores.cpu().numpy(), want_s)
+            and np.array_equal(mirrored.cpu().numpy(), want_m)):
+        raise SystemExit("dense engine != two-phase path without a screen "
+                         "at size")
+    # the bound: the word kernel's work over every pair (no screen), as
+    # kernel_work counts it from the launch's own table
+    words = eng0.pack_raw_words(targets, dev)
+    scorer = mm.MultiMaskScorer([e.with_predicate("words") for e in engines])
+    tab = scorer.build_table(np.ones((n_masks, n_targets), np.int32),
+                             mm.signal_ranges_from_words(words),
+                             mm.tile_live_from_words(words))
+    work = kernel_work(scorer, tab)
+    h, w = targets.shape[1:3]
+    out = {"masks": n_masks, "targets": n_targets, "frame": [h, w],
+           "pack_ms": round(pack_ms, 3),
+           "ms": [round(ms, 3) for ms in dense_ms],
+           "peak_device_gib": round(peak / 2**30, 3),
+           "chunk_elems": DENSE_CHUNK_ELEMS,
+           "dense_evaluations": n_masks * n_targets * h * w * 2
+           * len(eng0.shifts),
+           "needed_evaluations": work["evals_dir"],
+           "bound_ms": round(work["bound_ms"], 4),
+           "bound_by": work["bound_by"],
+           "share_of_bound": round(work["bound_ms"] / min(dense_ms), 6)}
+    log(f"[phase 7b] dense engine, {n_masks} masks x {n_targets} targets "
+        f"at {h}x{w}: == two-phase path without a screen on all "
+        f"{n_masks * n_targets} pairs; " + json.dumps(out))
+    return out
+
+
+def phase_two_shards(dev, library):
+    """(c) TwoPhaseSweep over [dev, dev] on phase 4's library, on each
+    predicate's kernel, equals the one-card run on every pair; pairs/s of
+    both, in turns (one, two, two, one); over every card too where the
+    machine has more than one. Each round's kernel launches are counted
+    from 0: the predicate's own kernel launches once per device slot and
+    partition, the other kernel never."""
+    import torch
+    from colormipsearch_torch.cds import multimask as mm
+    from colormipsearch_torch.parallel.twophase_sweep import TwoPhaseSweep
+    parts = library["parts"]
+    wrappers = {p: fns[0] for p, fns in mm.PREDICATE_KERNELS.items()}
+    layouts = {"one card": [dev], "two shards": [dev, dev]}
+    if torch.cuda.device_count() > 1:
+        layouts["every card"] = [torch.device("cuda", i) for i in
+                                 range(torch.cuda.device_count())]
+    engines = {"ratio": library["engines"], "words": library["words_engines"]}
+    pairs = len(library["engines"]) * sum(len(p) for p in parts)
+    order = ["one card", "two shards", "two shards", "one card"]
+    order += ["every card"] * 2 if "every card" in layouts else []
+    rates, launches = {}, {}
+    for pred, other in (("ratio", "words"), ("words", "ratio")):
+        sweeps = {k: TwoPhaseSweep(engines[pred], devs, library["screen"],
+                                   library["u_matrix"], library["thr"])
+                  for k, devs in layouts.items()}
+        walls = {k: [] for k in sweeps}
+        for name in order:
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            out = list(sweeps[name].sweep_parts(enumerate(parts)))
+            for d in layouts[name]:
+                torch.cuda.synchronize(d)
+            walls[name].append(time.perf_counter() - t0)
+            count = {p: fn.launches for p, fn in wrappers.items()}
+            want = len(layouts[name]) * len(parts)
+            launches[f"{pred}, {name}"] = count[pred]
+            if count[pred] != want or count[other] != 0:
+                raise SystemExit(f"TwoPhaseSweep over {name} ({pred}): "
+                                 f"launches {count}, expected {want} of "
+                                 f"{pred} and none of {other}")
+            got = (np.concatenate([s for _, s, _ in out], axis=1),
+                   np.concatenate([m for _, _, m in out], axis=1))
+            if not all(np.array_equal(a, b)
+                       for a, b in zip(got, library["result"])):
+                raise SystemExit(f"TwoPhaseSweep over {name} ({pred}) != "
+                                 f"the one-card run")
+        rates[pred] = {k: [round(pairs / w, 1) for w in ws]
+                       for k, ws in walls.items()}
+    log(f"[phase 7c] TwoPhaseSweep == the one-card run on all {pairs} pairs "
+        f"over " + ", ".join(layouts) + " on both predicates; kernel "
+        f"launches per round (one per device slot and partition, none of "
+        f"the other predicate's kernel): " + json.dumps(launches)
+        + "; pipelined rounds, pairs/s: " + json.dumps(rates))
+    return {"pairs": pairs, "launches": launches, "pairs_per_s": rates}
+
+
+def run_ranks(argvs, envs, timeout=600):
+    """One `python argv...` subprocess per entry, from the repo root, all
+    started together; each is killed at `timeout`. Fails unless every one
+    exits 0; returns [(exit code, output)]."""
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for argv, env in zip(argvs, envs)]
+    out = []
+    for p in procs:
+        try:
+            text, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            text, _ = p.communicate()
+        out.append((p.returncode, text))
+    for r, (rc, text) in enumerate(out):
+        if rc != 0:
+            raise SystemExit(f"process {r} of {len(out)} exited {rc}:\n"
+                             f"{text[-3000:]}")
+    return out
+
+
+def rank_envs(n=2, group=True):
+    """Environments of n processes: a gloo group on the loopback interface
+    (group), or the grid variables CMS_PROCESS_ID and CMS_PROCESS_COUNT."""
+    import socket
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    base = {k: v for k, v in os.environ.items() if not k.startswith(
+        ("CMS_COORDINATOR", "CMS_NUM_PROCESSES", "CMS_PROCESS_"))}
+    base.update(OMP_NUM_THREADS="4", GLOO_SOCKET_IFNAME="lo")
+    if group:
+        return [dict(base, CMS_COORDINATOR=f"127.0.0.1:{port}",
+                     CMS_NUM_PROCESSES=str(n), CMS_PROCESS_ID=str(r))
+                for r in range(n)]
+    return [dict(base, CMS_PROCESS_ID=str(r), CMS_PROCESS_COUNT=str(n))
+            for r in range(n)]
+
+
+def mask_results(path):
+    with open(path) as f:
+        return {r["image"]["mipId"]: r for r in json.load(f)["results"]}
+
+
+CDS_ARGS = ["--maskThreshold", "20", "--dataThreshold", "20",
+            "--pixColorFluctuation", "1", "--xyShift", "2", "--mirrorMask",
+            "--device", "cuda"]
+GRAD_ARGS = ["--maskThreshold", "20", "--mirrorMask",
+             "--computeZGapOnTheFly", "--device", "cuda"]
+CDS_GOLDENS = [("lm-0", 439, False), ("lm-1", 414, False), ("lm-2", 426, True)]
+
+# one rank of a two-process group: the two-phase sweep of its block of
+# every partition of phase 4's library (argv: masks, targets, partition
+# size, device), gathered (the CLI's --jax-distributed path), twice per
+# predicate, the ranks starting each round together; each rank prints
+# its own kernel launches per predicate (counted from 0 before the
+# predicate's rounds) and rank 0 writes the gathered grids and the
+# rounds' seconds to argv[5]
+GATHER_WORKER = """
+import json
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+import numpy as np
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from colormipsearch_torch.cds import multimask as mm
+from colormipsearch_torch.cds.pixel_active import ActiveTilePixelEngine
+from colormipsearch_torch.cds.prescreen import PairPrescreen
+from colormipsearch_torch.cmd.colordepthsearch_cmd import _gathered_parts
+from colormipsearch_torch.parallel import multihost as mh
+from colormipsearch_torch.parallel.twophase_sweep import TwoPhaseSweep
+
+n_masks, n_targets, part = (int(a) for a in sys.argv[1:4])
+device, out = torch.device(sys.argv[4]), sys.argv[5]
+assert mh.maybe_init_distributed()
+try:
+    masks, targets, h, w = cs.adversarial_library(n_masks, n_targets)
+    excluded = cs.label_regions(h, w)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        engines = list(pool.map(lambda m: ActiveTilePixelEngine(
+            m, 20, True, 20, 1.0, 2, excluded), masks))
+    screen = PairPrescreen(engines[0].zt9, 2, h, w)
+    u = np.stack([screen.query_features(e.planes.words) for e in engines])
+    thr = np.maximum(0.01 * np.array([e.tiles.query_size for e in engines]),
+                     0.5)
+    parts = [(i, targets[i:i + part]) for i in range(0, n_targets, part)]
+    wrappers = {p: fns[0] for p, fns in mm.PREDICATE_KERNELS.items()}
+    saved, launches = {}, {}
+    for pred in ("ratio", "words"):
+        sweep = TwoPhaseSweep([e.with_predicate(pred) for e in engines],
+                              [device], screen, u, thr)
+        for fn in wrappers.values():
+            fn.launches = 0
+        seconds = []
+        for _ in range(2):
+            mh.gather_objects(None)  # both ranks start the round together
+            t0 = time.perf_counter()
+            got = list(_gathered_parts(sweep, parts, {}))
+            seconds.append(time.perf_counter() - t0)
+        launches[pred] = {p: fn.launches for p, fn in wrappers.items()}
+        saved[f"{pred}_scores"] = np.concatenate([s for _, s, _ in got], 1)
+        saved[f"{pred}_mirrored"] = np.concatenate([m for _, _, m in got], 1)
+        saved[f"{pred}_seconds"] = np.array(seconds)
+    if mh.process_index() == 0:
+        np.savez(out, **saved)
+    print("LAUNCHES " + json.dumps({"rank": mh.process_index(),
+                                    "rounds": 2, "parts": len(parts),
+                                    **launches}), flush=True)
+finally:
+    mh.shutdown_distributed()
+"""
+
+
+def phase_two_processes(ws, dev, library, n_masks=256):
+    """(d) Two processes on the card: colorDepthSearch --jax-distributed
+    with both engines (process 0 alone writes: the goldens); the grid of
+    both commands (--process-count 2: the union of colorDepthSearch's two
+    -od holds the goldens, gradientScores' shared -md holds
+    21365/33884/40696); and rank 0's gathered two-phase grid over
+    n_masks x 512 targets of phase 4's library on both predicates, equal
+    to the one-process run's, each rank's own kernel launches (its
+    predicate's kernel once per partition and round, the other's never),
+    and the pairs/s of its rounds beside those of one process running the
+    CLI's pipelined partition loop (before and after)."""
+    import shutil
+
+    import torch
+    from colormipsearch_torch.parallel.twophase_sweep import TwoPhaseSweep
+    cds = ["-m", "colormipsearch_torch", "colorDepthSearch",
+           "-m", os.path.join(ws, "masks.json"),
+           "-i", os.path.join(ws, "targets.json"), *CDS_ARGS]
+    report = {}
+    for engine in ("pallas", "dense"):
+        od = os.path.join(ws, f"mp_{engine}")
+        t0 = time.perf_counter()
+        runs = run_ranks([cds + ["--engine", engine, "--jax-distributed",
+                                 "-od", od]] * 2, rank_envs())
+        res = mask_results(os.path.join(od, "masks", "em-12191.json"))
+        got = [(k, res[k]["matchingPixels"], res[k]["mirrored"])
+               for k in sorted(res)]
+        sessions = [n for n in os.listdir(od) if n.startswith("cdsSession")]
+        key = f"distributed_{engine}_s"
+        report[key] = round(time.perf_counter() - t0, 2)
+        log(f"[phase 7d] colorDepthSearch --jax-distributed --engine "
+            f"{engine}, two processes: process 0's goldens {got}, "
+            f"{len(sessions)} session file ({report[key]}s)")
+        if got != CDS_GOLDENS or len(sessions) != 1 \
+                or "results written by process 0" not in runs[1][1]:
+            raise SystemExit(f"--jax-distributed --engine {engine}: {got}, "
+                             f"sessions {sessions}")
+    # the grid: one -od per colorDepthSearch process, then gradientScores
+    # over one -md holding the union
+    t0 = time.perf_counter()
+    ods = [os.path.join(ws, f"grid{r}") for r in range(2)]
+    run_ranks([cds + ["-od", od] for od in ods], rank_envs(group=False))
+    union = {}
+    for od in ods:
+        union.update(mask_results(os.path.join(od, "masks",
+                                               "em-12191.json")))
+    got = [(k, union[k]["matchingPixels"], union[k]["mirrored"])
+           for k in sorted(union)]
+    log(f"[phase 7d] colorDepthSearch grid of two processes: the union of "
+        f"their files {got}")
+    if got != CDS_GOLDENS:
+        raise SystemExit(f"colorDepthSearch grid: {got}")
+    grad_md = os.path.join(ws, "grid_md")
+    shutil.copytree(os.path.join(ods[0], "masks"), grad_md)
+    path = os.path.join(grad_md, "em-12191.json")
+    with open(path) as f:
+        doc = json.load(f)
+    doc["results"] = list(union.values())
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    runs = run_ranks([["-m", "colormipsearch_torch", "gradientScores", "-md",
+                       grad_md, *GRAD_ARGS]] * 2, rank_envs(group=False))
+    res = mask_results(path)
+    gaps = [(k, res[k]["gradientAreaGap"]) for k in sorted(res)]
+    owned = [("owns 1 masks" in t, "owns 0 masks" in t) for _, t in runs]
+    report["grid_s"] = round(time.perf_counter() - t0, 2)
+    log(f"[phase 7d] gradientScores grid of two processes over one -md: "
+        f"{gaps}; (owns 1, owns 0) {owned} ({report['grid_s']}s for both "
+        f"grids)")
+    if gaps != [("lm-0", 21365), ("lm-1", 33884), ("lm-2", 40696)] \
+            or owned != [(True, False), (False, True)]:
+        raise SystemExit(f"gradientScores grid: {gaps}, {owned}")
+    # rank 0's gathered grid at size on both predicates, against one
+    # process's pipelined partition loop (the CLI's, sweep_parts)
+    parts = library["parts"]
+    one = TwoPhaseSweep(library["engines"][:n_masks], [dev],
+                        library["screen"], library["u_matrix"][:n_masks],
+                        library["thr"][:n_masks])
+    pairs = n_masks * sum(len(p) for p in parts)
+
+    def one_process_rate():
+        t0 = time.perf_counter()
+        list(one.sweep_parts(enumerate(parts)))
+        torch.cuda.synchronize(dev)
+        return round(pairs / (time.perf_counter() - t0), 1)
+
+    rates = {"one_process_ratio": [one_process_rate()]}
+    out = os.path.join(ws, "gathered.npz")
+    t0 = time.perf_counter()
+    runs = run_ranks([["-c", GATHER_WORKER, str(n_masks),
+                       str(sum(len(p) for p in parts)), str(len(parts[0])),
+                       str(dev), out]] * 2, rank_envs())
+    report["gathered_s"] = round(time.perf_counter() - t0, 2)
+    rates["one_process_ratio"].append(one_process_rate())
+    got = np.load(out)
+    scores, mirrored = library["result"]
+    same = {pred: (np.array_equal(got[f"{pred}_scores"], scores[:n_masks])
+                   and np.array_equal(got[f"{pred}_mirrored"],
+                                      mirrored[:n_masks]))
+            for pred in ("ratio", "words")}
+    # each rank's own launches: one per partition and round of its
+    # predicate's kernel, none of the other's
+    launches = []
+    for r, (_, text) in enumerate(runs):
+        line = [x for x in text.splitlines() if x.startswith("LAUNCHES ")]
+        rank = json.loads(line[-1][len("LAUNCHES "):]) if line else {}
+        launches.append(rank)
+        want = rank.get("rounds", 0) * rank.get("parts", 0)
+        for pred, other in (("ratio", "words"), ("words", "ratio")):
+            count = rank.get(pred, {})
+            if rank.get("rank") != r or want == 0 \
+                    or count.get(pred) != want or count.get(other) != 0:
+                raise SystemExit(f"process {r}'s kernel launches: {rank}")
+    for pred in ("ratio", "words"):
+        rates[f"two_processes_{pred}"] = [
+            round(pairs / x, 1) for x in got[f"{pred}_seconds"]]
+    report["gathered_pairs"] = int(got["ratio_scores"].size)
+    report["launches_per_rank"] = launches
+    report["pairs_per_s"] = rates
+    log(f"[phase 7d] two processes, each sweeping half of every partition: "
+        f"rank 0's gathered {got['ratio_scores'].shape} grid == the "
+        f"one-process run: {same} ({report['gathered_s']}s with start-up "
+        f"and engine prep); each rank's kernel launches: "
+        + json.dumps(launches) + "; pairs/s of the pipelined partition "
+        "loop: " + json.dumps(rates))
+    if not all(same.values()):
+        raise SystemExit("the gathered two-process grid differs from the "
+                         "one-process run")
+    return report
+
+
+def phase_gradient_slots(dev, ws, n_targets=128):
+    """(e) gradientScores' score_mask_partitions over [dev, dev] (plane
+    builds split between the two slots, each batch scored per slot) at
+    128 targets of 566 x 1210 equals the one-device run."""
+    from colormipsearch_torch.cmd import gradientscores_cmd as gc
+    from colormipsearch_torch.imageproc.io import image_from_array
+    from colormipsearch_torch.mips import MIPsCache
+    from colormipsearch_torch.model import CDMatchEntity, EMNeuronEntity
+    query = load_rgb(os.path.join(FIXTURES, "ems", "12191_JRC2018U.tif"))
+    excluded = label_regions(*query.shape[:2])
+    targets = target_library(ws, n_targets, True)
+    args = argparse.Namespace(maskThreshold=20, mirrorMask=True,
+                              computeZGapOnTheFly=False,
+                              targetsPerBatch=128, planes_threads=0)
+    out, seconds = {}, {}
+    for name, devs in (("one", [dev]), ("two", [dev, dev])):
+        em = EMNeuronEntity(entity_id=1, mip_id="em-0")
+        matches = []
+        for t in targets:
+            m = CDMatchEntity()
+            m.mask_image, m.matched_image = em, t
+            matches.append(m)
+        planes_cache = gc.PlaneCache(devs)
+        t0 = time.perf_counter()
+        qplanes = gc._build_qplanes(image_from_array(query), excluded, None,
+                                    0, dev)
+        scored = gc.score_mask_partitions(matches, qplanes, MIPsCache(4096),
+                                          args, excluded, planes_cache)
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        out[name] = [(m.gradient_area_gap, m.high_expression_area)
+                     for m in scored]
+        slots = sorted({planes_cache.slot(t.entity_id) for t in targets})
+        if slots != list(range(len(devs))) or len(scored) != n_targets:
+            raise SystemExit(f"gradient over {name}: slots {slots}, "
+                             f"{len(scored)} scored")
+    log(f"[phase 7e] gradientScores over [dev, dev] == the one-device run "
+        f"on {n_targets} targets: {out['one'] == out['two']} (cold mask: "
+        f"{seconds['one']}s one slot, {seconds['two']}s two)")
+    if out["one"] != out["two"]:
+        raise SystemExit("gradientScores over two slots differs")
+    return {"targets": n_targets, "cold_s": seconds}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -1141,17 +1603,26 @@ def main():
     with tempfile.TemporaryDirectory() as ws:
         phase_cli(ws, "1")
         phase_cli(ws, "0")
-        timing = phase_at_size(checks, dev, opts.profile)
+        timing, library = phase_at_size(checks, dev, opts.profile)
         timing["op_chain"] = phase_microbench(dev)
         t6 = time.perf_counter()
         phase_planes(dev)
         phase_gradient_cli(ws)
         gradient = phase_gradient_at_size(dev, ws)
         log(f"[phase 6] gradientScores in {time.perf_counter() - t6:.1f}s")
+        t7 = time.perf_counter()
+        scale_out = {"dense_fixtures": phase_dense_fixtures(dev),
+                     "dense_at_size": phase_dense_at_size(dev, library),
+                     "two_shards": phase_two_shards(dev, library),
+                     "two_processes": phase_two_processes(ws, dev, library),
+                     "gradient_two_slots": phase_gradient_slots(dev, ws)}
+        log(f"[phase 7] the dense engine and the scale-out layer in "
+            f"{time.perf_counter() - t7:.1f}s")
     for name, check in checks.items():
         timing[name]["max_abs_err"] = check.max_abs_err
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"gradient": gradient}))
+    print(json.dumps({"scale_out": scale_out}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: timing[name][k] for k in (

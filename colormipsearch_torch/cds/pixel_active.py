@@ -46,8 +46,8 @@ import torch
 from ..native.mipops import sparse_pack_block
 from .exact_ratio import c9_split
 from .oracle import shift_ring_offsets
-from .pixel_kernel import (PAIR_K9, QueryPlanes, pack_planes,
-                           prepare_query_planes, z_tolerance_to_zt9)
+from .pixel_kernel import (PAIR_K9, QueryPlanes, prepare_query_planes,
+                           target_words, z_tolerance_to_zt9)
 from .ratio_bounds import query_ratio_planes
 
 TILE_H = 8
@@ -384,12 +384,7 @@ class ActiveTilePixelEngine:
     def _pack_block(self, t_block_u8: np.ndarray, device) -> torch.Tensor:
         """Dense pack of a [T, H, W, 3] uint8 block on `device`."""
         t = torch.from_numpy(np.ascontiguousarray(t_block_u8)).to(device)
-        r = t[..., 0].to(torch.int32)
-        g = t[..., 1].to(torch.int32)
-        b = t[..., 2].to(torch.int32)
-        thr = self.target_threshold
-        above = (r > thr) | (g > thr) | (b > thr)
-        return pack_planes(r, g, b, above, torch)
+        return target_words(t, self.target_threshold)
 
     def _pack_block_sparse(self, t_block_u8: np.ndarray, device
                            ) -> Optional[torch.Tensor]:
@@ -483,6 +478,11 @@ class ActiveTilePixelEngine:
 
     def score_packed(self, packed, survivors=None):
         return self.score_packed_deferred(packed, survivors)()
+
+    def score_batch(self, targets_u8: np.ndarray, device):
+        """targets_u8: [T, H, W, 3] uint8, scored on `device`. Returns
+        (scores, ratios, mirrored)."""
+        return self.score_packed(self.prepare_targets(targets_u8, device))
 
 
 def pad_for_predicate(words: torch.Tensor, predicate: str

@@ -65,6 +65,14 @@ def add_cds_params(p: argparse.ArgumentParser) -> None:
                    help="queries scored per device step (TPU batching)")
 
 
+def check_grid(args) -> None:
+    """--process-id must name one of --process-count grid processes (when
+    the grid is on: a count > 0 and an id >= 0)."""
+    if args.process_count > 0 and args.process_id >= args.process_count:
+        raise SystemExit(f"--process-id {args.process_id} is not below "
+                         f"--process-count {args.process_count}")
+
+
 def excluded_regions_for(args, height: int, width: int):
     """Label-region mask (getRegionGeneratorForTextLabels,
     cmd/AbstractColorDepthMatchArgs.java:101-119)."""

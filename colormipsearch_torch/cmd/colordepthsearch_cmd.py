@@ -4,23 +4,43 @@ Counterpart of `colormipsearch_tpu/cmd/colordepthsearch_cmd.py`. The host
 logic (reading and filtering MIPs, decoding target partitions, the
 session entity, match building and writing) is copied from it, over the
 port's own copies of the host modules (`model`, `dataio`, `mips`,
-`persist`, `results`, `imageproc`); the device work is the port's
-two-phase path (`parallel/twophase_sweep.TwoPhaseSweep`) on the
-`--device` given. Inputs and results are JSON files.
+`persist`, `results`, `imageproc`). Inputs and results are JSON files.
+The device work runs on `--device`: "cuda" is every visible card (as the
+JAX package drives every local device), "cuda:N" one card, "cpu" the
+CPU. Two engines:
+- `--engine auto` / `pallas`: the two-phase path
+  (`parallel/twophase_sweep.TwoPhaseSweep`: prescreen bound, then the
+  exact CUDA kernels), targets split over the devices;
+- `--engine dense`: every pixel of every pair through the dense engine
+  (`cds/pixel_kernel.py`), mask batches of `--maskBatchSize` swept over a
+  ("mask", "target") mesh of the devices (`parallel/sweep.py`).
+
+Scale-out, as the JAX package:
+- `--process-id/--process-count` (defaults from CMS_PROCESS_ID and
+  CMS_PROCESS_COUNT): the reference's job-array grid; each process sweeps
+  its block of the mask x target grid
+  (`parallel/distributed.block_for_process`) and writes whole per-mask
+  files, so each grid process needs its own `-od`;
+- `--jax-distributed` (the JAX package's flag name, so its launch
+  scripts run unchanged): the processes join a torch.distributed group
+  with the gloo backend (CMS_COORDINATOR=host:port, CMS_NUM_PROCESSES,
+  CMS_PROCESS_ID; `parallel/multihost.py`). The two-phase path sweeps
+  each process's block of every partition (`device_blocks`) and gathers
+  the scores; the dense path sweeps a mesh over every process's devices.
+  Process 0 alone writes. A group that does not form within its timeout
+  ends the run with an error.
 
 The exact predicate follows the JAX package's own switch,
 `CMS_RATIO_PRED` (read once per run, default "1"): "1" runs the ratio
 kernel, any other value (the reference's "0") the packed-word kernel.
-Both give the same scores. Besides it, only the image cache's budget
-knobs of the reference are read (`CMS_IMAGE_CACHE_MB`, `CMS_LOW_MEM_PCT`;
-`mips/loader.py`, `utils/memguard.py`).
+Both give the same scores. Besides it and the scale-out variables above,
+only the image cache's budget knobs of the reference are read
+(`CMS_IMAGE_CACHE_MB`, `CMS_LOW_MEM_PCT`; `mips/loader.py`,
+`utils/memguard.py`).
 
-Refused here, before any work, each with a pointer to ROADMAP.md:
-`--engine dense` (the dense engine is a later port), `--jax-distributed`
-(multi-host is a later port), and `--db`, `--mips-storage db`,
-`--update-matches` and `--write-batch-size` (the store layer is a later
-port). The multi-process grid options of the reference
-(--process-id/--process-count) are not offered yet.
+Refused here, before any work, each with a pointer to ROADMAP.md: `--db`,
+`--mips-storage db`, `--update-matches` and `--write-batch-size` (the
+store layer is a later port).
 """
 
 from __future__ import annotations
@@ -35,16 +55,18 @@ from typing import List
 
 import numpy as np
 
-from ..cds.pixel_kernel import z_tolerance_to_zt9
+from ..cds.oracle import shift_ring_offsets
+from ..cds.pixel_kernel import (pack_targets, prepare_query_planes,
+                                z_tolerance_to_zt9)
 from ..dataio import (DataSourceParam, JSONCDMIPsReader,
                       JSONCDSSessionWriter, JSONNeuronMatchesWriter)
-from ..device import resolve_device
+from ..device import resolve_devices
 from ..mips import MIPsCache
 from ..model import (CDMatchEntity, CDSSessionEntity, ComputeFileType,
                      ProcessingType)
 from ..persist import TimebasedIdGenerator
 from ..results import partition_collection
-from .args import (ListArg, add_cds_params, add_common_args,
+from .args import (ListArg, add_cds_params, add_common_args, check_grid,
                    excluded_regions_for)
 
 LOG = logging.getLogger(__name__)
@@ -102,19 +124,33 @@ def add_parser(subparsers) -> None:
                         "layer, which is not ported")
     p.add_argument("--db", default=None,
                    help="refused: the SQLite/Mongo stores are not ported")
+    p.add_argument("--process-id", type=int,
+                   default=int(os.environ.get("CMS_PROCESS_ID", -1)),
+                   help="grid block index for multi-process sweeps; each "
+                        "grid process writes whole per-mask files, so "
+                        "give each its own -od")
+    p.add_argument("--process-count", type=int,
+                   default=int(os.environ.get("CMS_PROCESS_COUNT", 0)),
+                   help="total grid processes")
     p.add_argument("--jax-distributed", action="store_true",
-                   help="refused: multi-host runs are not ported yet")
+                   help="join a multi-process run over torch.distributed "
+                        "(gloo; CMS_COORDINATOR=host:port, "
+                        "CMS_NUM_PROCESSES, CMS_PROCESS_ID): each process "
+                        "scores its share of every partition and process "
+                        "0 writes the results")
     p.add_argument("--cdsConcurrency", type=int, default=0,
                    help="host decode-pool threads (0 = default 8)")
     p.add_argument("--engine", choices=("auto", "dense", "pallas"),
                    default="auto",
                    help="scoring engine: 'auto' and 'pallas' run the "
-                        "two-phase active-tile path; 'dense' is not ported")
+                        "two-phase active-tile path; 'dense' scores every "
+                        "pixel of every pair (the cross-check)")
     p.add_argument("--prescreen", choices=("on", "off"), default="on",
                    help="upper-bound screen before the exact kernel "
-                        "(results identical)")
+                        "(two-phase path only; results identical)")
     p.add_argument("--device", default="cuda",
-                   help="torch device for scoring: cuda, cuda:N or cpu")
+                   help="torch device(s) for scoring: cuda (every visible "
+                        "card), cuda:N or cpu")
     p.set_defaults(func=run)
 
 
@@ -212,14 +248,6 @@ def _load_target_images(targets, cache: MIPsCache, workers: int = 8):
 
 
 def _refuse(args) -> None:
-    if args.engine == "dense":
-        raise SystemExit("--engine dense is not ported to colormipsearch_torch "
-                         "yet (see ROADMAP.md, queue 1); use --engine auto "
-                         "or pallas, or the JAX package")
-    if args.jax_distributed:
-        raise SystemExit("--jax-distributed: multi-host runs are not ported "
-                         "to colormipsearch_torch yet (see ROADMAP.md, "
-                         "queue 1)")
     store = [flag for flag, given in (
         ("--db", args.db), ("--mips-storage db", args.mips_storage == "db"),
         ("--update-matches", args.update_matches),
@@ -230,15 +258,28 @@ def _refuse(args) -> None:
                          "ROADMAP.md, queue 1); use JSON files (-m, -i, -od), "
                          "or run `python -m colormipsearch_tpu "
                          "colorDepthSearch`")
+    check_grid(args)
 
 
 def run(args: argparse.Namespace) -> int:
+    from ..parallel.multihost import (maybe_init_distributed,
+                                      shutdown_distributed)
+    _refuse(args)
+    devices = resolve_devices(args.device)
+    multi = bool(args.jax_distributed) and maybe_init_distributed()
+    try:
+        return _search(args, devices, multi)
+    finally:
+        if multi:
+            shutdown_distributed()
+
+
+def _search(args: argparse.Namespace, devices, multi: bool) -> int:
     from ..cds.pixel_active import ActiveTilePixelEngine
     from ..cds.prescreen import PairPrescreen
+    from ..parallel.multihost import process_index
     from ..parallel.twophase_sweep import TwoPhaseSweep
 
-    _refuse(args)
-    device = resolve_device(args.device)
     t_start = time.time()
     masks = _read_mips(args, args.masks, args.masks_index,
                        args.masks_length, "masks")
@@ -247,10 +288,24 @@ def run(args: argparse.Namespace) -> int:
     masks = _filter_by_processing_tags(
         masks, args.masks_processing_tags,
         args.excluded_masks_processing_tags)
+    if args.process_count > 0 and args.process_id >= 0:
+        # deterministic grid block, restartable per process id
+        # (the LSF job-array mapping, submitCDSJob.sh:58-66)
+        from ..parallel.distributed import block_for_process
+        blk = block_for_process(len(masks), len(targets),
+                                args.process_id, args.process_count)
+        masks = masks[blk.mask_offset:blk.mask_offset + blk.mask_length]
+        targets = targets[blk.target_offset:
+                          blk.target_offset + blk.target_length]
+        LOG.info("process %d/%d owns block %s", args.process_id,
+                 args.process_count, blk)
     LOG.info("read %d masks, %d targets", len(masks), len(targets))
     if not masks or not targets:
         LOG.warning("nothing to search")
         return 0
+    # one writer per multi-process run, as the reference's collecting
+    # process (SparkColorMIPSearchProcessor.java:73)
+    writes = bool(args.output_dir) and (not multi or process_index() == 0)
 
     idgen = TimebasedIdGenerator()
     session_id = idgen.generate_id()
@@ -264,7 +319,7 @@ def run(args: argparse.Namespace) -> int:
     zt9 = z_tolerance_to_zt9(args.pixColorFluctuation)
 
     # persist session params for provenance
-    if args.output_dir:
+    if writes:
         session = CDSSessionEntity(
             entity_id=session_id, username=getpass.getuser(),
             params={"mirrorMask": args.mirrorMask,
@@ -280,14 +335,20 @@ def run(args: argparse.Namespace) -> int:
     all_matches: List[CDMatchEntity] = []
     target_parts = partition_collection(targets, args.processingPartitionSize)
     ratio_threshold = (args.pctPositivePixels or 0.0) / 100.0
+    dense = args.engine == "dense"
     # the reference's switch (pixel_pallas.py:278): ratio only for "1"
     ratio_pred = os.environ.get("CMS_RATIO_PRED", "1")
     predicate = "ratio" if ratio_pred == "1" else "words"
-    LOG.info("scoring on %s (two-phase active-tile path, %s predicate; "
-             "CMS_RATIO_PRED=%s)", device, predicate, ratio_pred)
+    if dense:
+        LOG.info("scoring on %s (dense engine)", devices)
+    else:
+        LOG.info("scoring on %s (two-phase active-tile path, %s predicate; "
+                 "CMS_RATIO_PRED=%s)", devices, predicate, ratio_pred)
 
     # query tables once per mask, over a host thread pool (decode, tile
-    # packing and ratio-plane tables are GIL-releasing numpy/PIL work)
+    # packing and ratio-plane tables are GIL-releasing numpy/PIL work):
+    # packed query planes for the dense engine, an engine for the
+    # two-phase path
     def prep_one(mask):
         mip = cache.load_mip(mask, ComputeFileType.InputColorDepthImage)
         if mip.image is None:
@@ -295,6 +356,9 @@ def run(args: argparse.Namespace) -> int:
             return None
         excluded = excluded_regions_for(args, mip.image.height,
                                         mip.image.width)
+        if dense:
+            return (mask, prepare_query_planes(mip.image, args.maskThreshold,
+                                               excluded))
         return (mask, ActiveTilePixelEngine(
             mip.image, args.maskThreshold, args.mirrorMask,
             args.dataThreshold, args.pixColorFluctuation, args.xyShift,
@@ -307,19 +371,8 @@ def run(args: argparse.Namespace) -> int:
              time.perf_counter() - t_prep)
     if not prepared:
         return 0
-
-    screen = u_matrix = thresholds = None
-    if args.prescreen == "on":
-        first = prepared[0][1]
-        screen = PairPrescreen(zt9, args.xyShift, first.tiles.height,
-                               first.tiles.width)
-        u_matrix = np.stack([screen.query_features(eng.planes.words)
-                             for _, eng in prepared])
-        thresholds = np.array(
-            [max(ratio_threshold * eng.tiles.query_size, 0.5)
-             for _, eng in prepared])
-    sweep = TwoPhaseSweep([eng for _, eng in prepared], [device], screen,
-                          u_matrix, thresholds)
+    query_sizes = [qp.query_size if dense else qp.tiles.query_size
+                   for _, qp in prepared]
 
     stage_totals = {"decode": 0.0, "matches": 0.0}
     # decode prefetch: partition i+1 decodes on a host thread while the
@@ -361,13 +414,32 @@ def run(args: argparse.Namespace) -> int:
             if t_imgs:
                 yield t_entities, np.stack(t_imgs)
 
-    try:
+    if dense:
+        scored = _dense_parts(args, decoded_parts(), prepared, devices, zt9,
+                              stage_totals)
+    else:
+        screen = u_matrix = thresholds = None
+        if args.prescreen == "on":
+            first = prepared[0][1]
+            screen = PairPrescreen(zt9, args.xyShift, first.tiles.height,
+                                   first.tiles.width)
+            u_matrix = np.stack([screen.query_features(eng.planes.words)
+                                 for _, eng in prepared])
+            thresholds = np.array(
+                [max(ratio_threshold * q, 0.5) for q in query_sizes])
+        sweep = TwoPhaseSweep([eng for _, eng in prepared], devices, screen,
+                              u_matrix, thresholds)
         # pipelined: partition p+1 is launched before p's matches are built
-        for t_entities, scores, mirrored in sweep.sweep_parts(
-                decoded_parts(), stage_totals):
+        # (and, over several processes, before p's rows are gathered)
+        scored = (_gathered_parts(sweep, decoded_parts(), stage_totals)
+                  if multi else sweep.sweep_parts(decoded_parts(),
+                                                  stage_totals))
+
+    try:
+        for t_entities, scores, mirrored in scored:
             t0 = time.perf_counter()
-            for bi, (mask, eng) in enumerate(prepared):
-                query_size = eng.tiles.query_size
+            for bi, (mask, _) in enumerate(prepared):
+                query_size = query_sizes[bi]
                 qsize = max(query_size, 1)
                 for ti, target in enumerate(t_entities):
                     pixels = int(scores[bi, ti]) if query_size else 0
@@ -394,14 +466,85 @@ def run(args: argparse.Namespace) -> int:
         prefetcher.shutdown(wait=True)
 
     n_groups = 0
-    if args.output_dir:
+    if writes:
         per_targets = (os.path.join(args.output_dir, args.perTargetSubdir)
                        if args.perTargetSubdir else None)
         n_groups = JSONNeuronMatchesWriter(
             os.path.join(args.output_dir, args.perMaskSubdir),
             per_targets).write(all_matches)
+    elif multi and args.output_dir:
+        LOG.info("process %d: results written by process 0",
+                 process_index())
     LOG.info("stage times: %s",
              {k: round(v, 2) for k, v in stage_totals.items()})
     LOG.info("found %d matches (%d masks) in %.1fs",
              len(all_matches), n_groups, time.time() - t_start)
     return 0
+
+
+def _gathered_parts(sweep, parts, stage_totals):
+    """(target entities, scores int64 [B, T], mirrored bool [B, T]) per
+    partition of a multi-process two-phase run: each process sweeps its
+    block of every partition's targets (device_blocks over processes)
+    through the one-process pipelined loop (`sweep_parts`), pads its rows
+    to the largest block, and every process gathers them."""
+    from ..parallel.multihost import (process_allgather, process_count,
+                                      process_index)
+    from ..parallel.twophase_sweep import device_blocks
+
+    def own_blocks():
+        for t_entities, t_stack in parts:
+            blocks = device_blocks(t_stack.shape[0], process_count())
+            off, ln = blocks[process_index()]
+            yield (t_entities, blocks), t_stack[off:off + ln]
+
+    bsz = len(sweep.engines)
+    for (t_entities, blocks), own_s, own_m in sweep.sweep_parts(
+            own_blocks(), stage_totals):
+        tsz = sum(n for _, n in blocks)
+        per = max(n for _, n in blocks)
+        s = np.zeros((bsz, per), np.int64)
+        m = np.zeros((bsz, per), np.int8)
+        s[:, :own_s.shape[1]], m[:, :own_m.shape[1]] = own_s, own_m
+        g_s, g_m = process_allgather((s, m))
+        scores = np.zeros((bsz, tsz), np.int64)
+        mirrored = np.zeros((bsz, tsz), bool)
+        for p, (o, n) in enumerate(blocks):
+            scores[:, o:o + n] = g_s[p][:, :n]
+            mirrored[:, o:o + n] = g_m[p][:, :n].astype(bool)
+        yield t_entities, scores, mirrored
+
+
+def _dense_parts(args, parts, prepared, devices, zt9: int, stage_totals):
+    """(target entities, scores [B, T], mirrored [B, T]) per partition of
+    the dense engine: targets packed once per partition, on the mesh's
+    devices, and the masks swept in batches of --maskBatchSize over a
+    ("mask", "target") mesh of every process's devices, one mask block.
+    Neither axis is padded (the JAX package pads both so that its jitted
+    sweep sees one shape): the last batch holds what is left, and the
+    targets split into balanced blocks (`multihost.distribute`)."""
+    from ..parallel.multihost import distribute, global_pair_mesh
+    from ..parallel.sweep import sharded_pixel_sweep
+    mesh = global_pair_mesh(devices, mask_shards=1)
+    shifts = shift_ring_offsets(args.xyShift)
+    pad = max(args.xyShift, 1)
+    for t_entities, t_stack in parts:
+        t0 = time.perf_counter()
+        planes = distribute(mesh, ("target", None, None, None),
+                            t_stack).map(lambda t: pack_targets(
+                                t, args.dataThreshold, pad))
+        t_padded = planes.map(lambda p: p[0])
+        t_flipped = planes.map(lambda p: p[1])
+        stage_totals["pack"] = stage_totals.get("pack", 0.0) \
+            + time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scores, mirrored = [], []
+        for block in partition_collection(prepared, args.maskBatchSize):
+            q_words = np.stack([qp.words for _, qp in block])
+            s, m, _ = sharded_pixel_sweep(mesh, q_words, t_padded, t_flipped,
+                                          shifts, zt9, args.mirrorMask)
+            scores.append(s)
+            mirrored.append(m)
+        stage_totals["score"] = stage_totals.get("score", 0.0) \
+            + time.perf_counter() - t0
+        yield t_entities, np.concatenate(scores), np.concatenate(mirrored)

@@ -6,8 +6,13 @@ read + filter matches -> select best lines/samples/matches -> per-mask
 query planes built once -> target planes built on the device in batches
 and kept in a byte-bounded LRU -> batched shape scoring -> per-mask
 normalization -> write updates + tags. Matches are the per-mask JSON
-files of colorDepthSearch (`-md`); everything on the device runs on the
-one `--device` given.
+files of colorDepthSearch (`-md`). The device work runs on `--device`:
+"cuda" is every visible card (the JAX package's `grad_devices`, every
+local device), "cuda:N" one card, "cpu" the CPU. Plane builds go
+round-robin over the devices, each target's planes stay in the plane
+cache on the device that built them, and each batch is scored per
+device, where its planes live (the ROI two-pass branch moves its planes
+to the first device).
 
 Target frames decode on a thread pool; their planes derive on the device
 from the raw u8 frames (`cds/shape_device.py`). The host plane builds of
@@ -15,15 +20,20 @@ from the raw u8 frames (`cds/shape_device.py`). The host plane builds of
 (query planes) and non-RGB images. The plane cache keeps its budget of
 4 GiB and 2048 entries, counted in the planes' real bytes.
 
-Refused here, before any work, each with a pointer to ROADMAP.md: `--db`
-(the store layer is a later port) and `--process-id/--process-count`
-(the multi-process grid belongs with multi-host). One card: the
-reference's spread over every local device waits for multi-host too.
+`--process-id/--process-count` (defaults from CMS_PROCESS_ID and
+CMS_PROCESS_COUNT) split the sorted mask list into contiguous blocks,
+one per process, as the reference's job arrays shard mask mipIds
+(submitGAJob.sh:50-60). Each process rewrites the per-mask files of its
+own masks, so the processes may share one `-md`.
+
+Refused here, before any work, with a pointer to ROADMAP.md: `--db` (the
+store layer is a later port).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import threading
@@ -44,13 +54,14 @@ from ..cds.shape_oracle import (QueryShapePlanes, TargetShapePlanes,
                                 build_target_shape_planes)
 from ..dataio import (DataSourceParam, JSONNeuronMatchesReader,
                       JSONNeuronMatchesWriter, ScoresFilter)
-from ..device import resolve_device
+from ..device import resolve_devices
 from ..imageproc.io import ImageKind, load_image
 from ..mips import MIPsCache
 from ..model import CDMatchEntity, ComputeFileType, ProcessingType
 from ..results import (group_matches_by_mask, normalize_match_scores,
                        partition_collection, select_best_matches)
-from .args import add_cds_params, add_common_args, excluded_regions_for
+from .args import (add_cds_params, add_common_args, check_grid,
+                   excluded_regions_for)
 
 LOG = logging.getLogger(__name__)
 
@@ -97,13 +108,16 @@ def add_parser(subparsers) -> None:
                    help="flush score updates once this many matches are "
                         "pending (0 = one flush at the end; "
                         "CalculateGradientScoresCmd.java:602-614)")
-    p.add_argument("--process-id", type=int, default=-1,
-                   help="refused: the multi-process grid is not ported")
-    p.add_argument("--process-count", type=int, default=0,
-                   help="refused: the multi-process grid is not ported")
+    p.add_argument("--process-id", type=int,
+                   default=int(os.environ.get("CMS_PROCESS_ID", -1)),
+                   help="grid block index for multi-process runs: this "
+                        "process rescores its block of the sorted masks")
+    p.add_argument("--process-count", type=int,
+                   default=int(os.environ.get("CMS_PROCESS_COUNT", 0)),
+                   help="total grid processes")
     p.add_argument("--device", default="cuda",
-                   help="torch device for planes and scoring: cuda, "
-                        "cuda:N or cpu")
+                   help="torch device(s) for planes and scoring: cuda "
+                        "(every visible card), cuda:N or cpu")
     p.set_defaults(func=run)
 
 
@@ -113,20 +127,15 @@ def _refuse(args) -> None:
                          "colormipsearch_torch yet (see ROADMAP.md, queue "
                          "1); use the per-mask JSON files (-md), or run "
                          "`python -m colormipsearch_tpu gradientScores`")
-    if args.process_id != -1 or args.process_count != 0:
-        raise SystemExit("--process-id/--process-count: the multi-process "
-                         "grid is not ported to colormipsearch_torch yet "
-                         "(it belongs with multi-host, see ROADMAP.md, "
-                         "queue 1); run `python -m colormipsearch_tpu "
-                         "gradientScores`")
     if not args.matchesDir:
         raise SystemExit("gradientScores reads and rewrites the per-mask "
                          "match files of -md/--matchesDir")
+    check_grid(args)
 
 
 def run(args: argparse.Namespace) -> int:
     _refuse(args)
-    device = resolve_device(args.device)
+    devices = resolve_devices(args.device)
     t_start = time.time()
     reader = JSONNeuronMatchesReader(args.matchesDir)
     ptags = {}
@@ -141,7 +150,17 @@ def run(args: argparse.Namespace) -> int:
     selector = DataSourceParam(mip_ids=args.masks_mip_ids or [])
     mask_locations = reader.list_match_locations([selector])
     LOG.info("found %d masks with matches; scoring on %s",
-             len(mask_locations), device)
+             len(mask_locations), devices)
+    if args.process_count > 0 and args.process_id >= 0:
+        # deterministic, restartable block of the sorted mask list, the
+        # same in every process (the reference's job arrays shard mask
+        # mipIds, submitGAJob.sh:50-60)
+        from ..parallel.twophase_sweep import device_blocks
+        off, ln = device_blocks(len(mask_locations),
+                                args.process_count)[args.process_id]
+        mask_locations = mask_locations[off:off + ln]
+        LOG.info("process %d/%d owns %d masks (offset %d)",
+                 args.process_id, args.process_count, ln, off)
 
     array_store = None
     if args.array_cache:
@@ -156,7 +175,7 @@ def run(args: argparse.Namespace) -> int:
                 if args.queryROIMaskName else None)
 
     updated: List[CDMatchEntity] = []
-    planes_cache = PlaneCache(device)
+    planes_cache = PlaneCache(devices)
     # one writer, batched flushes across masks; pending lists always hold
     # a mask's FULL match list, so the grouped per-mask rewrite never
     # loses rows
@@ -201,13 +220,13 @@ def run(args: argparse.Namespace) -> int:
             excluded = excluded_regions_for(args, mask_img.height,
                                             mask_img.width)
             qplanes = _build_qplanes(mask_img, excluded, roi_mask,
-                                     args.border, device)
+                                     args.border, devices[0])
             qplanes_m = None
             if roi_mask is not None and args.mirrorMask:
                 # the reference mirrors the query but NOT the ROI, so the
                 # mirrored orientation needs its own plane set
                 qplanes_m = _to_device(build_mirrored_query_shape_planes(
-                    mask_img, excluded, roi_mask, args.border), device)
+                    mask_img, excluded, roi_mask, args.border), devices[0])
             scored_for_mask.extend(score_mask_partitions(
                 mask_matches, qplanes, cache, args, excluded,
                 planes_cache, qplanes_m))
@@ -268,26 +287,34 @@ def _planes_nbytes(planes) -> int:
 
 
 class PlaneCache:
-    """Target planes resident on `device`, keyed by target, in a byte-
-    and entry-bounded LRU. Under low host memory it halves (more
-    recomputation, never an OOM; AbstractCmd.java:52-62 analogue). A
-    target whose files are missing is cached as None.
+    """Target planes resident on the devices that built them, keyed by
+    target, in a byte- and entry-bounded LRU. Under low host memory it
+    halves (more recomputation, never an OOM; AbstractCmd.java:52-62
+    analogue). A target whose files are missing is cached as None.
 
-    `seconds` accumulates the host seconds of the cold path: "decode"
-    (thread-pooled image decode) and "planes" (upload and device build;
-    with `sync` set, the build's device work too). `host_builds` counts
-    targets whose planes were built on the host (non-RGB images)."""
+    devices: a device or a list of them; plane builds take them in turn
+    (`next_slot`), and `slot(key)` is the index of the device that holds
+    a target's planes. An entry may repeat: the slots still split the
+    work. `seconds` accumulates the host seconds of the cold path:
+    "decode" (thread-pooled image decode) and "planes" (upload and device
+    build; with `sync` set, the build's device work too). `host_builds`
+    counts targets whose planes were built on the host (non-RGB
+    images)."""
 
-    def __init__(self, device, max_bytes: int = PLANES_CACHE_BYTES,
+    def __init__(self, devices, max_bytes: int = PLANES_CACHE_BYTES,
                  max_entries: int = PLANES_CACHE_ENTRIES):
-        self.device = torch.device(device)
+        if isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        self.devices = [torch.device(d) for d in devices]
         self.max_bytes = max_bytes
         self.max_entries = max_entries
         self.sync = False
         self.host_builds = 0
         self.seconds = {"decode": 0.0, "planes": 0.0}
-        self._planes: OrderedDict = OrderedDict()
+        self._planes: OrderedDict = OrderedDict()  # key -> (planes, slot)
         self._nbytes = 0
+        self._next = 0
+        self._query = (None, {})  # the last mask's query planes per device
         self._lock = threading.RLock()
 
     def __len__(self) -> int:
@@ -302,25 +329,37 @@ class PlaneCache:
         """Bytes of the cached planes."""
         return self._nbytes
 
+    def next_slot(self) -> int:
+        """The device slot of the next plane build (round-robin)."""
+        slot = self._next
+        self._next = (self._next + 1) % len(self.devices)
+        return slot
+
     def get(self, key):
         """The planes of `key` (None if missing), refreshed as most
         recently used."""
         with self._lock:
-            planes = self._planes.get(key)
-            if key in self._planes:
-                self._planes.move_to_end(key)
-            return planes
+            got = self._planes.get(key)
+            if got is None:
+                return None
+            self._planes.move_to_end(key)
+            return got[0]
 
-    def insert(self, key, planes) -> None:
+    def slot(self, key) -> int:
+        """Index into `devices` of the device holding key's planes."""
+        with self._lock:
+            return self._planes[key][1]
+
+    def insert(self, key, planes, slot: int = 0) -> None:
         with self._lock:
             old = self._planes.pop(key, None)
-            self._nbytes -= _planes_nbytes(old)
+            self._nbytes -= _planes_nbytes(old and old[0])
             size = _planes_nbytes(planes)
             while self._planes and (len(self._planes) >= self.max_entries
                                     or self._nbytes + size > self.max_bytes):
                 _, evicted = self._planes.popitem(last=False)
-                self._nbytes -= _planes_nbytes(evicted)
-            self._planes[key] = planes
+                self._nbytes -= _planes_nbytes(evicted[0])
+            self._planes[key] = (planes, slot)
             self._nbytes += size
         from ..utils.memguard import shared_guard
         shared_guard().relieve(self._evict_half, "plane-cache")
@@ -330,8 +369,26 @@ class PlaneCache:
             n = len(self._planes) // 2
             for _ in range(n):
                 _, evicted = self._planes.popitem(last=False)
-                self._nbytes -= _planes_nbytes(evicted)
+                self._nbytes -= _planes_nbytes(evicted[0])
         return n
+
+    def query_on(self, qplanes: QueryShapePlanes, device) -> QueryShapePlanes:
+        """A mask's query planes on `device`, copied device to device once
+        per mask (the last mask's copies are kept)."""
+        device = torch.device(device)
+        if qplanes.q_nonzero.device == device:
+            return qplanes
+        src, copies = self._query
+        if src is not qplanes:
+            copies = {}
+            self._query = (qplanes, copies)
+        got = copies.get(device)
+        if got is None:
+            got = dataclasses.replace(qplanes, **{
+                n: getattr(qplanes, n).to(device)
+                for n in ("q_nonzero", "q_slice", "q_mask", "high_expr")})
+            copies[device] = got
+        return got
 
 
 def _decode_raw(target, cache: MIPsCache, args):
@@ -370,32 +427,43 @@ def _planes_host(target, cache: MIPsCache, args, excluded, device):
         z_slice=torch.from_numpy(p.z_slice.astype(np.int16)).to(device))
 
 
-def _build_planes_device(raws, args, excluded, device):
-    """Batched device plane build: one build per group of same-(shape,
-    grad kind, zgap mode) raw frames. Returns [TargetShapePlanes] in
-    input order, each target's planes in tensors of their own (a view of
-    the batch would keep the whole batch alive in the cache)."""
+def _build_planes_device(raws, args, excluded, planes_cache: PlaneCache):
+    """Batched device plane builds: each group of same-(shape, grad kind,
+    zgap mode) raw frames is split into one block per device slot, built
+    on the slot's device. Returns [(TargetShapePlanes, slot)] in input
+    order, each target's planes in tensors of their own (a view of the
+    batch would keep the whole batch alive in the cache)."""
+    from ..parallel.twophase_sweep import device_blocks
     results = [None] * len(raws)
     groups: dict = {}
     for i, (cdm, (_, grad_is_rgb), zgap_px) in enumerate(raws):
         mode = "file" if zgap_px is not None else "otf"
         groups.setdefault((cdm.shape, grad_is_rgb, mode), []).append(i)
+    n_slots = len(planes_cache.devices)
     for (_, grad_is_rgb, mode), idxs in groups.items():
-        planes = shape_device.build_target_planes(
-            np.stack([raws[i][0] for i in idxs]),
-            np.stack([raws[i][1][0] for i in idxs]),
-            np.stack([raws[i][2] for i in idxs]) if mode == "file" else None,
-            excluded, thr=int(args.maskThreshold), zgap_mode=mode,
-            grad_is_rgb=grad_is_rgb, device=device)
-        for j, i in enumerate(idxs):
-            results[i] = TargetShapePlanes(*(p[j].clone() for p in planes))
+        first = planes_cache.next_slot()
+        for d, (off, ln) in enumerate(device_blocks(len(idxs), n_slots)):
+            if ln == 0:
+                continue
+            slot = (first + d) % n_slots
+            block = idxs[off:off + ln]
+            planes = shape_device.build_target_planes(
+                np.stack([raws[i][0] for i in block]),
+                np.stack([raws[i][1][0] for i in block]),
+                np.stack([raws[i][2] for i in block]) if mode == "file"
+                else None, excluded, thr=int(args.maskThreshold),
+                zgap_mode=mode, grad_is_rgb=grad_is_rgb,
+                device=planes_cache.devices[slot])
+            for j, i in enumerate(block):
+                results[i] = (TargetShapePlanes(*(p[j].clone()
+                                                  for p in planes)), slot)
     return results
 
 
 def _prefetch_planes(targets, cache, args, excluded,
                      planes_cache: PlaneCache) -> None:
     """Build every missing target's planes: thread-pooled decode, then
-    one device build per group of raw frames."""
+    one device build per group of raw frames and device."""
     seen = set()
     missing = []
     for t in targets:
@@ -405,7 +473,6 @@ def _prefetch_planes(targets, cache, args, excluded,
             missing.append((key, t))
     if not missing:
         return
-    device = planes_cache.device
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=args.planes_threads
                             or os.cpu_count() or 2) as pool:
@@ -419,17 +486,21 @@ def _prefetch_planes(targets, cache, args, excluded,
             planes_cache.insert(key, None)
         elif isinstance(raw, str):  # "host": non-RGB edge case
             planes_cache.host_builds += 1
-            planes_cache.insert(key, _planes_host(t, cache, args, excluded,
-                                                  device))
+            slot = planes_cache.next_slot()
+            planes_cache.insert(key, _planes_host(
+                t, cache, args, excluded, planes_cache.devices[slot]), slot)
         else:
             device_keys.append(key)
             device_raws.append(raw)
     if device_raws:
-        built = _build_planes_device(device_raws, args, excluded, device)
-        for key, planes in zip(device_keys, built):
-            planes_cache.insert(key, planes)
-    if planes_cache.sync and device.type == "cuda":
-        torch.cuda.synchronize(device)
+        built = _build_planes_device(device_raws, args, excluded,
+                                     planes_cache)
+        for key, (planes, slot) in zip(device_keys, built):
+            planes_cache.insert(key, planes, slot)
+    if planes_cache.sync:
+        for device in set(planes_cache.devices):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
     planes_cache.seconds["planes"] += time.perf_counter() - t1
 
 
@@ -448,9 +519,12 @@ def score_mask_partitions(mask_matches, qplanes, cache, args, excluded,
 
 def _score_batch(part, qplanes, cache: MIPsCache, args, excluded,
                  planes_cache: PlaneCache, qplanes_m=None):
-    """Batched shape scoring for one mask's matches. qplanes_m carries
-    the mirrored-orientation plane set for the ROI-mask case."""
+    """Batched shape scoring for one mask's matches: one scorer call per
+    device slot over the targets whose planes it holds, all queued before
+    any result is read. qplanes_m carries the mirrored-orientation plane
+    set for the ROI-mask case, which runs on the first device."""
     tplanes = []
+    slots = []
     scored_matches = []
     want_shape = (qplanes.height, qplanes.width)
     _prefetch_planes([m.matched_image for m in part if m.matched_image],
@@ -480,6 +554,7 @@ def _score_batch(part, qplanes, cache: MIPsCache, args, excluded,
             m.high_expression_area = -1
             continue
         tplanes.append(planes)
+        slots.append(planes_cache.slot(key))
         scored_matches.append(m)
     if not tplanes:
         return []
@@ -489,23 +564,42 @@ def _score_batch(part, qplanes, cache: MIPsCache, args, excluded,
     # The mirror pass only flips columns, so the crop is mirror-safe.
     r0, r1 = qplanes.active_row_range()
     if qplanes_m is None:
-        out = shape_score_stacked(qplanes.q_nonzero, qplanes.q_slice,
-                                  qplanes.q_mask, qplanes.high_expr,
-                                  [t.t_above for t in tplanes],
-                                  [t.grad for t in tplanes],
-                                  [t.z_nonzero for t in tplanes],
-                                  [t.z_slice for t in tplanes],
-                                  r0=r0, r1=r1, mirror=args.mirrorMask)
-        gaps, high, _, _ = finish_shape_scores(*out, mirror=args.mirrorMask)
+        by_slot: dict = {}
+        for i, slot in enumerate(slots):
+            by_slot.setdefault(slot, []).append(i)
+        queued = []
+        for slot, idxs in by_slot.items():
+            q = planes_cache.query_on(qplanes, planes_cache.devices[slot])
+            sel = [tplanes[i] for i in idxs]
+            queued.append((idxs, shape_score_stacked(
+                q.q_nonzero, q.q_slice, q.q_mask, q.high_expr,
+                [t.t_above for t in sel], [t.grad for t in sel],
+                [t.z_nonzero for t in sel], [t.z_slice for t in sel],
+                r0=r0, r1=r1, mirror=args.mirrorMask)))
+        gaps = np.zeros(len(tplanes), dtype=np.int64)
+        high = np.zeros(len(tplanes), dtype=np.int64)
+        for idxs, out in queued:
+            gaps[idxs], high[idxs], _, _ = finish_shape_scores(
+                *out, mirror=args.mirrorMask)
     else:
         # ROI-mask path: two identity-orientation passes, the second with
         # mirrored-query planes and flipped z planes; the crop covers
         # the active rows of both orientations
         m0, m1 = qplanes_m.active_row_range()
         r0, r1 = min(r0, m0), max(r1, m1)
+        dev0 = qplanes.q_nonzero.device
 
         def stack(name):
-            return torch.stack([getattr(t, name)[r0:r1] for t in tplanes])
+            """The cropped planes stacked on the first device: one stack
+            and one copy per device they live on, in target order."""
+            by_dev: dict = {}
+            for i, t in enumerate(tplanes):
+                by_dev.setdefault(getattr(t, name).device, []).append(i)
+            order = [i for idxs in by_dev.values() for i in idxs]
+            moved = torch.cat([torch.stack(
+                [getattr(tplanes[i], name)[r0:r1] for i in idxs]).to(dev0)
+                for idxs in by_dev.values()])
+            return moved[torch.from_numpy(np.argsort(order)).to(dev0)]
 
         grad, znz, zsl, tab = (stack(n) for n in ("grad", "z_nonzero",
                                                   "z_slice", "t_above"))

@@ -4,10 +4,14 @@ Counterpart of the JAX package's platform pin (`cmd/main.py`
 CMS_PLATFORM and `pallas_sweep.TwoPhaseSweep(devices=None)` picking
 `jax.local_devices()`): here the device always comes from the caller —
 a `--device` CLI argument or a `device=` parameter. Nothing is guessed
-and nothing falls back to the CPU.
+and nothing falls back to the CPU. `resolve_devices` is the commands'
+reading of `--device`: "cuda" is every visible card, as the JAX package
+drives every local device.
 """
 
 from __future__ import annotations
+
+from typing import List
 
 import torch
 
@@ -31,3 +35,14 @@ def resolve_device(spec) -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {spec!r}: use cuda[:N] or cpu")
     return dev
+
+
+def resolve_devices(spec) -> List[torch.device]:
+    """The devices a command runs on: "cuda" is every visible card,
+    "cuda:N" that one card, "cpu" the CPU. Raises as resolve_device when
+    a card is asked for and not there."""
+    dev = resolve_device(spec)
+    if dev.type == "cuda" and torch.device(spec).index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]

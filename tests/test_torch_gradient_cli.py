@@ -148,15 +148,30 @@ def test_same_files_as_jax(cds_masks, scored_masks, tmp_path, options):
         assert res["lm-0"]["gradientAreaGap"] != 21365
 
 
-@pytest.mark.parametrize("flag", [["--db", "x.db"], ["--process-id", "0"],
-                                  ["--process-count", "2"]])
-def test_refused_options(cds_masks, flag):
-    with pytest.raises(SystemExit) as e:
-        main(["gradientScores", "-md", str(cds_masks), *GRAD_ARGS, *flag,
-              "--device", "cpu"])
-    msg = str(e.value)
-    assert "python -m colormipsearch_tpu gradientScores" in msg
-    assert "ROADMAP.md" in msg
+@pytest.mark.parametrize("flag", [["--db", "x.db"],
+                                  ["--process-id", "0", "--process-count",
+                                   "2"],
+                                  ["--process-id", "1", "--process-count",
+                                   "2"]])
+def test_refused_options(cds_masks, scored_masks, tmp_path, flag):
+    """--db refuses with a pointer to ROADMAP.md and the JAX package. The
+    grid options run: of two processes, process 0 owns the one mask and
+    rescores it as the one-process run does, process 1 owns none."""
+    if flag[0] == "--db":
+        with pytest.raises(SystemExit) as e:
+            main(["gradientScores", "-md", str(cds_masks), *GRAD_ARGS,
+                  *flag, "--device", "cpu"])
+        msg = str(e.value)
+        assert "python -m colormipsearch_tpu gradientScores" in msg
+        assert "ROADMAP.md" in msg
+        return
+    masks = _copy(cds_masks, tmp_path / "masks")
+    assert main(["gradientScores", "-md", masks, *GRAD_ARGS, *flag,
+                 "--device", "cpu"]) == 0
+    if flag[1] == "0":
+        assert _results(masks) == _results(scored_masks)
+    else:
+        assert _results(masks) == _results(str(cds_masks))
 
 
 def test_default_device_is_cuda(cds_masks, monkeypatch):

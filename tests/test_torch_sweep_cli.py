@@ -177,6 +177,11 @@ def test_cli_goldens_match_reference(workspace, tmp_path, prescreen):
     assert _without_session(got) == _without_session(want)
 
 
+# the options of the first two cases were refused until the port had the
+# dense engine and the multi-process layer: they now run
+RUN_NOW = {"--engine dense", "multi-host"}
+
+
 @pytest.mark.parametrize("argv,needle", [
     (["--engine", "dense"], "--engine dense"),
     (["--jax-distributed"], "multi-host"),
@@ -186,11 +191,28 @@ def test_cli_goldens_match_reference(workspace, tmp_path, prescreen):
     (["--write-batch-size", "100"], "--write-batch-size"),
 ])
 def test_cli_refusals_name_roadmap(workspace, tmp_path, argv, needle):
-    with pytest.raises(SystemExit) as e:
-        main(_search_args(str(workspace), str(tmp_path / "o"), "--device",
-                          "cpu", *argv))
-    assert needle in str(e.value) and "ROADMAP.md" in str(e.value)
-    assert not (tmp_path / "o").exists()  # refused before any work
+    """The store options refuse before any work, with a pointer to
+    ROADMAP.md. --engine dense runs, and --jax-distributed in one process
+    (no CMS_COORDINATOR: no group to join) runs as one process; both give
+    the reference CLI's files."""
+    out = tmp_path / "o"
+    args = _search_args(str(workspace), str(out), "--device", "cpu", *argv)
+    if needle not in RUN_NOW:
+        with pytest.raises(SystemExit) as e:
+            main(args)
+        assert needle in str(e.value) and "ROADMAP.md" in str(e.value)
+        assert not out.exists()  # refused before any work
+        return
+    assert main(args + ["--maskBatchSize", "1"]) == 0
+    ref_out = tmp_path / "ref"
+    assert ref_main(_search_args(str(workspace), str(ref_out))) == 0
+    files = []
+    for d in (out, ref_out):
+        with open(d / "masks" / "em-12191.json") as f:
+            files.append(_without_session(json.load(f)))
+    assert files[0] == files[1]
+    assert [r["matchingPixels"] for r in files[0]["results"]] == \
+        [439, 426, 414]
 
 
 def test_gradient_scores_refused():

@@ -78,7 +78,28 @@ exact predicates, and the op microbench:
    beside one process's pipelined loop; (e) gradientScores'
    `score_mask_partitions` over [dev, dev] at 128 x 566 x 1210 equal to
    the one-device run. Phase 7's numbers are one JSON line
-   `{"scale_out": ...}` before the kernels line.
+   `{"scale_out": ...}` before the kernels line;
+8. the production pipeline (colorDepthSearch -> gradientScores ->
+   normalizeGradientScores -> exportData over one SQLite store, with the
+   arguments of `colormipsearch_torch/scripts/run_full_precompute.sh`):
+   (a) the four commands through the CLI's entry points on
+   `--device cuda` on phase 3's workspace: stored pixel scores 439 / 414
+   / 426 (lm-2 mirrored), gaps 21365 / 33884 / 40696, exported
+   normalizedScore 100.0 / 97.04 / 94.31, K1 launched and K3a not
+   (counted from 0 just before the chain), and the exported files equal
+   to the same chain's on the CPU and on per-mask JSON files; (b) at
+   size, the port's script (one search block, two gradient processes on
+   the card and the store) over 256 of phase 4's masks (cut from 1024 to
+   keep the phase near 150 s) against 512 targets built from the three
+   fixtures with a gradient file (rolled and banded with their
+   gradients), written as TIFF/PNG files: every stored pixel
+   score equal to an in-memory `TwoPhaseSweep` on every pair, the golden
+   pairs' scores and gaps, one export file per mask with a match, and
+   one gradient process over a copy of the store giving the same rows.
+   Its numbers (each stage's seconds, the CLI's pairs/s with decode,
+   match building and the store write, rows stored, gradient matches/s,
+   peak device memory per process) are one JSON line
+   `{"pipeline": ...}` before the kernels line.
 
 `python3 chip_smoke.py --profile DIR` adds a torch.profiler round of the
 phase-4 ratio sweep: device busy share, the bound's and the exact
@@ -117,7 +138,7 @@ KERNELS = {
     "multimask_words": ("colormipsearch_torch/csrc/multimask_words.cu",
                         "colormipsearch_tpu/cds/multimask.py:260"),
     "op_chain": ("colormipsearch_torch/csrc/op_chain.cu",
-                 "scripts/op_microbench.py:37"),
+                 "scripts/op_microbench.py:38"),
 }
 
 
@@ -463,6 +484,24 @@ def phase_cli(ws, ratio_pred):
 
 # ---- phase 4 ---------------------------------------------------------------
 
+def roll_frame(px, i):
+    """The i-th deterministic roll of a frame (none for i == 0)."""
+    h, w = px.shape[:2]
+    return px if i == 0 else np.roll(
+        px, ((37 * i) % h, (151 * i) % w), axis=(0, 1))
+
+
+def band_frame(px, i, bh=160, step=53):
+    """The frame kept only in the i-th 160-row band (whole for i == 0)."""
+    if i == 0:
+        return px
+    h = px.shape[0]
+    b0 = (step * i) % (h - bh)
+    out = np.zeros_like(px)
+    out[b0:b0 + bh] = px[b0:b0 + bh]
+    return out
+
+
 def adversarial_library(n_masks, n_targets):
     """The adversarial two-phase library of the JAX package's bench
     (fixtures rolled by deterministic offsets, targets banded to one
@@ -473,22 +512,10 @@ def adversarial_library(n_masks, n_targets):
     em_px = [load_rgb(os.path.join(FIXTURES, "ems", n)) for n in ems]
     lm_px = [load_rgb(os.path.join(FIXTURES, "lms", n)) for n in lms]
     h, w = em_px[0].shape[:2]
-
-    def roll(px, i):
-        return px if i == 0 else np.roll(
-            px, ((37 * i) % h, (151 * i) % w), axis=(0, 1))
-
-    def band(px, i, bh=160, step=53):
-        if i == 0:
-            return px
-        b0 = (step * i) % (h - bh)
-        out = np.zeros_like(px)
-        out[b0:b0 + bh] = px[b0:b0 + bh]
-        return out
-
-    masks = [roll(em_px[i % len(em_px)], i // len(em_px))
+    masks = [roll_frame(em_px[i % len(em_px)], i // len(em_px))
              for i in range(n_masks)]
-    targets = np.stack([band(roll(lm_px[i % len(lm_px)], i // len(lm_px)), i)
+    targets = np.stack([band_frame(roll_frame(lm_px[i % len(lm_px)],
+                                              i // len(lm_px)), i)
                         for i in range(n_targets)])
     return masks, targets, h, w
 
@@ -1577,6 +1604,392 @@ def phase_gradient_slots(dev, ws, n_targets=128):
     return {"targets": n_targets, "cold_s": seconds}
 
 
+# ---- phase 8 ---------------------------------------------------------------
+
+PIPELINE_SCRIPT = os.path.join(REPO, "colormipsearch_torch", "scripts",
+                               "run_full_precompute.sh")
+# the stage arguments of run_full_precompute.sh
+PIPELINE_CDS = ["--maskThreshold", "20", "--dataThreshold", "20",
+                "--pixColorFluctuation", "1", "--xyShift", "2",
+                "--mirrorMask", "--pctPositivePixels", "1",
+                "--processingPartitionSize", "256"]
+PIPELINE_GRAD = ["--maskThreshold", "20", "--mirrorMask", "--nBestLines",
+                 "300", "--computeZGapOnTheFly"]
+GAP_GOLDENS = [("lm-0", 21365), ("lm-1", 33884), ("lm-2", 40696)]
+EXPORT_GOLDENS = [("lm-0", 100.0), ("lm-2", 97.04), ("lm-1", 94.31)]
+# phase 8b's entity ids: mask i and target t
+MASK_ID0, TARGET_ID0 = 1_000_000, 2_000_000
+
+
+def file_tree(root):
+    """{path relative to root: bytes} of every file under root."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def pipeline_chain(ws, out, device, backend):
+    """The four commands of run_full_precompute.sh, with its arguments, in
+    this process: over one SQLite store (backend "sqlite") or over
+    per-mask JSON files ("json"). Returns the exported files."""
+    from colormipsearch_torch.cmd.main import main
+    cache = ["--array-cache", os.path.join(out, "array-cache")]
+    if backend == "sqlite":
+        store = matches = ["--db", os.path.join(out, "nb.db")]
+    else:
+        store = ["-od", os.path.join(out, "cds")]
+        matches = ["-md", os.path.join(out, "cds", "masks")]
+    export = os.path.join(out, "export")
+    for argv in (["colorDepthSearch", "-m", os.path.join(ws, "masks.json"),
+                  "-i", os.path.join(ws, "targets.json"), *PIPELINE_CDS,
+                  *cache, *store, "--processing-tag", "cds-smoke",
+                  "--device", device],
+                 ["gradientScores", *matches, *PIPELINE_GRAD, *cache,
+                  "--device", device],
+                 ["normalizeGradientScores", *matches],
+                 ["exportData", "--exported-result-type", "EM_CD_MATCHES",
+                  *matches, "-od", export]):
+        rc = main(argv)
+        if rc != 0:
+            raise SystemExit(f"{argv[0]} ({device}, {backend}) exited {rc}")
+    return file_tree(export)
+
+
+def phase_pipeline_fixtures(ws):
+    """(a) The production pipeline on the golden fixtures through the
+    CLI's entry points on --device cuda, over one SQLite store: the
+    stored pixel scores and gaps, the exported normalized scores, K1
+    launched and K3a not (counted from 0 just before the chain); the same
+    chain on the CPU and on per-mask JSON files exports the same bytes."""
+    from colormipsearch_torch.cds import multimask as mm
+    from colormipsearch_torch.dataio import DataSourceParam
+    from colormipsearch_torch.dataio.db import (DBNeuronMatchesReader,
+                                                SqliteStore)
+    k1, k3a = (mm.PREDICATE_KERNELS[p][0] for p in ("ratio", "words"))
+    root = os.path.join(ws, "pipeline")
+    seconds = {}
+    t0 = time.perf_counter()
+    k1.launches = k3a.launches = 0
+    exported = pipeline_chain(ws, os.path.join(root, "cuda_sqlite"), "cuda",
+                              "sqlite")
+    launches = {"multimask_ratio": k1.launches,
+                "multimask_words": k3a.launches}
+    seconds["cuda_sqlite"] = round(time.perf_counter() - t0, 2)
+    store = SqliteStore(os.path.join(root, "cuda_sqlite", "nb.db"))
+    rows = {m.matched_image.mip_id: m
+            for m in DBNeuronMatchesReader(store).read_matches_by_mask(
+                DataSourceParam(mip_ids=["em-12191"]))}
+    store.close()
+    pixels = [(k, rows[k].matching_pixels, rows[k].mirrored)
+              for k in sorted(rows)]
+    gaps = [(k, rows[k].gradient_area_gap) for k in sorted(rows)]
+    scores = [(r["image"]["mipId"], round(r["normalizedScore"], 2))
+              for r in json.loads(exported["em-12191.json"])["results"]]
+    log(f"[phase 8a] the four commands over one SQLite store on the card: "
+        f"stored {pixels}, gaps {gaps}, exported normalizedScore {scores}; "
+        f"kernel launches {launches} ({seconds['cuda_sqlite']}s)")
+    if pixels != CDS_GOLDENS or gaps != GAP_GOLDENS \
+            or scores != EXPORT_GOLDENS or list(exported) != ["em-12191.json"]:
+        raise SystemExit("the pipeline's goldens are wrong")
+    if launches["multimask_ratio"] == 0 or launches["multimask_words"] != 0:
+        raise SystemExit(f"the pipeline did not run through K1 alone: "
+                         f"{launches}")
+    for device, backend in (("cpu", "sqlite"), ("cuda", "json")):
+        t0 = time.perf_counter()
+        got = pipeline_chain(ws, os.path.join(root, f"{device}_{backend}"),
+                             device, backend)
+        seconds[f"{device}_{backend}"] = round(time.perf_counter() - t0, 2)
+        log(f"[phase 8a] the chain on {device} over {backend}: exported "
+            f"files == the card's SQLite chain's: {got == exported} "
+            f"({seconds[f'{device}_{backend}']}s)")
+        if got != exported:
+            raise SystemExit(f"the {device} {backend} chain exported other "
+                             f"files")
+    return {"launches": launches, "seconds": seconds}
+
+
+def write_pipeline_library(root, n_masks, n_targets):
+    """Phase 4's masks, and targets built as phase 4's are but only from
+    the three LM fixtures that have a gradient file, each target's
+    gradient (and BJD's z-gap) rolled and banded with its CDM; index 0 of
+    each family kept whole, so the golden pairs stay in the grid. Written
+    once as packbits TIFF (CDMs, z-gap) and 16-bit PNG (gradients), with
+    masks.json and targets.json. Returns the target frames."""
+    from PIL import Image
+    ems = sorted(os.listdir(os.path.join(FIXTURES, "ems")))
+    em_px = [load_rgb(os.path.join(FIXTURES, "ems", n)) for n in ems]
+
+    def raw(*parts):
+        with Image.open(os.path.join(FIXTURES, *parts)) as img:
+            return np.array(img)
+
+    families = [{"cdm": load_rgb(os.path.join(FIXTURES, "lms",
+                                              f"{name}.tif")),
+                 "grad": raw("grad", f"{name}.png"),
+                 "zgap": (load_rgb(os.path.join(FIXTURES, "zgap",
+                                                f"{name}.tif"))
+                          if os.path.exists(os.path.join(
+                              FIXTURES, "zgap", f"{name}.tif")) else None)}
+                for name in LM_GOLDEN]
+    lib = os.path.join(root, "library")
+    os.makedirs(lib)
+
+    def save(path, px):
+        img = Image.fromarray(px)
+        if path.endswith(".png"):
+            img.save(path, compress_level=1)
+        else:
+            img.save(path, compression="packbits")
+        return path
+
+    def write_mask(i):
+        path = os.path.join(lib, f"em-{i:04d}.tif")
+        save(path, roll_frame(em_px[i % len(em_px)], i // len(em_px)))
+        return {"class": "org.janelia.colormipsearch.model.EMNeuronEntity",
+                "id": str(MASK_ID0 + i), "mipId": f"em-{i:04d}",
+                "alignmentSpace": "JRC2018_Unisex_20x_HR",
+                "libraryName": "flyem_smoke", "publishedName": f"body{i}",
+                "computeFiles": {"InputColorDepthImage": path}}
+
+    def target_frames(t):
+        k = t // len(families)
+        return {kind: px if px is None or k == 0
+                else band_frame(roll_frame(px, k), t)
+                for kind, px in families[t % len(families)].items()}
+
+    def write_target(t):
+        frames = target_frames(t)
+        files = {}
+        for kind, cft, ext in (("cdm", "InputColorDepthImage", "tif"),
+                               ("grad", "GradientImage", "png"),
+                               ("zgap", "ZGapImage", "tif")):
+            if frames[kind] is not None:
+                files[cft] = save(os.path.join(lib, f"lm-{t}_{kind}.{ext}"),
+                                  frames[kind])
+        return frames["cdm"], {
+            "class": "org.janelia.colormipsearch.model.LMNeuronEntity",
+            "id": str(TARGET_ID0 + t), "mipId": f"lm-{t}",
+            "alignmentSpace": "JRC2018_Unisex_20x_HR",
+            "libraryName": "flylight_smoke", "publishedName": f"line{t}",
+            "slideCode": f"sc-{t}", "anatomicalArea": "Brain",
+            "objective": "40x", "gender": "f", "computeFiles": files}
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        masks = list(pool.map(write_mask, range(n_masks)))
+        written = list(pool.map(write_target, range(n_targets)))
+    for fname, ents in (("masks.json", masks),
+                        ("targets.json", [e for _, e in written])):
+        with open(os.path.join(root, fname), "w") as f:
+            json.dump(ents, f)
+    return np.stack([px for px, _ in written])
+
+
+def run_logged(cmd, env, log_path, timeout):
+    """Run cmd from the repo root in a session of its own, its output
+    copied to log_path; the whole session is killed at `timeout`. Returns
+    (exit code, [(seconds since the start, line)])."""
+    import signal
+    import threading
+    p = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+
+    def kill():
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+    timer = threading.Timer(timeout, kill)
+    timer.start()
+    lines = []
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "w") as f:
+            for line in p.stdout:
+                lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+                f.write(line)
+        p.wait()
+    finally:
+        timer.cancel()
+        kill()  # nothing of the session outlives the call
+    return p.returncode, lines
+
+
+def stage_lines(lines):
+    """The script's output split at its "=== stage" headers: {stage:
+    (seconds from its header to the next one, [its lines])}."""
+    import re
+    marks = [(t, re.sub(r"^=== (\w+).*", r"\1", ln)) for t, ln in lines
+             if ln.startswith("=== ") or ln == "done"]
+    out = {}
+    for (t, name), (t_next, _) in zip(marks, marks[1:]):
+        out[name] = (round(t_next - t, 2),
+                     [ln for s, ln in lines if t <= s < t_next])
+    return out
+
+
+def log_numbers(pattern, lines):
+    """Each match of `pattern` (one group per number) in lines, as floats."""
+    import re
+    return [tuple(float(g) for g in m.groups()) for m in
+            (re.search(pattern, ln) for ln in lines) if m]
+
+
+def store_columns(db, columns):
+    """{(mask index, target index): (column values)} of every stored
+    match of phase 8b's store."""
+    import sqlite3
+    con = sqlite3.connect(db)
+    try:
+        rows = con.execute(f"SELECT mask_ref, matched_ref, {columns} FROM "
+                           f"cd_matches").fetchall()
+    finally:
+        con.close()
+    return {(r[0] - MASK_ID0, r[1] - TARGET_ID0): tuple(r[2:]) for r in rows}
+
+
+# phase 8b ran far over ~150 s at 1024 masks, held back by the serial
+# prescreen query features of the command (PERF.md, PR 6): cut to 256
+PIPELINE_CUT = "masks cut from 1024 to 256: phase 8b ran over ~150 s at 1024"
+
+
+def phase_pipeline_at_size(ws, dev, library, n_masks=256, n_targets=512,
+                           cut=PIPELINE_CUT):
+    """(b) The port's run_full_precompute.sh at size: phase 4's masks
+    against targets built from the gradient fixtures, one search block and
+    two gradient processes sharing the card and the SQLite store, as in
+    production. Every stored pixel score equals an in-memory TwoPhaseSweep
+    of the same library on every pair; the golden pairs keep 439 / 414 /
+    426 and 21365 / 33884 / 40696; every mask with a match has one export
+    file. One gradient process over a copy of the finished store (its
+    second gradient pass) gives the same rows, in its own time."""
+    import shutil
+    import torch
+    from colormipsearch_torch.parallel.twophase_sweep import TwoPhaseSweep
+    root = os.path.join(ws, "at_size")
+    os.makedirs(root)
+    report = {"masks": n_masks, "targets": n_targets, "frame": [566, 1210],
+              "cut": cut}
+    t0 = time.perf_counter()
+    targets = write_pipeline_library(root, n_masks, n_targets)
+    report["library_write_s"] = round(time.perf_counter() - t0, 2)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CMS_")}
+    env.update(CMS_PROCESS_COUNT="1", CMS_GA_PROCS="2")
+    t0 = time.perf_counter()
+    rc, lines = run_logged(["bash", PIPELINE_SCRIPT, root], env,
+                           os.path.join(root, "script.log"), timeout=600)
+    report["script_s"] = round(time.perf_counter() - t0, 2)
+    if rc != 0:
+        raise SystemExit(f"run_full_precompute.sh exited {rc}:\n" + "\n".join(
+            ln for _, ln in lines[-60:]))
+    stages = stage_lines(lines)
+    report["stage_s"] = {k: v[0] for k, v in stages.items()}
+    cds_lines, ga_lines = stages["colorDepthSearch"][1], \
+        stages["gradientScores"][1]
+    (found, _, cds_s), = log_numbers(
+        r"found (\d+) matches \((\d+) masks\) in ([\d.]+)s", cds_lines)
+    pairs = n_masks * n_targets
+    report["cds_pairs_per_s"] = round(pairs / report["stage_s"][
+        "colorDepthSearch"], 1)
+    report["cds_command_s"] = cds_s
+    report["cds_prep_s"] = log_numbers(
+        r"prepared (\d+) mask engines in ([\d.]+)s", cds_lines)[0][1]
+    report["cds_stage_times"] = next(
+        json.loads(ln.split("stage times: ", 1)[1].replace("'", '"'))
+        for ln in cds_lines if "stage times: " in ln)
+    updated = log_numbers(r"updated (\d+) matches in ([\d.]+)s", ga_lines)
+    report["gradient_matches"] = int(sum(n for n, _ in updated))
+    report["gradient_process_s"] = [s for _, s in updated]
+    report["gradient_matches_per_s"] = round(
+        report["gradient_matches"] / report["stage_s"]["gradientScores"], 1)
+    report["normalize_s"] = report["stage_s"]["normalizeGradientScores"]
+    report["normalize_command_s"] = log_numbers(
+        r"normalized \d+ matches in ([\d.]+)s",
+        stages["normalizeGradientScores"][1])[0][0]
+    report["export_s"] = report["stage_s"]["exportData"]
+    report["export_command_s"] = log_numbers(
+        r"exported \d+ matches .* in ([\d.]+)s", stages["exportData"][1])[0][0]
+    report["peak_device_gib"] = {
+        "colorDepthSearch": log_numbers(r"peak device memory ([\d.]+) GiB",
+                                        cds_lines)[0][0],
+        "gradientScores": [p for p, in log_numbers(
+            r"peak device memory ([\d.]+) GiB", ga_lines)]}
+    if len(updated) != 2 or len(report["peak_device_gib"][
+            "gradientScores"]) != 2:
+        raise SystemExit("the two gradient processes did not both finish")
+    db = os.path.join(root, "nb.db")
+    stored = store_columns(db, "matching_pixels, mirrored, "
+                               "gradient_area_gap, high_expression_area, "
+                               "normalized_score")
+    report["rows_stored"] = len(stored)
+    # the same library in memory through phase 4's engines
+    t0 = time.perf_counter()
+    sweep = TwoPhaseSweep(library["engines"][:n_masks], [dev],
+                          library["screen"], library["u_matrix"][:n_masks],
+                          library["thr"][:n_masks])
+    swept = list(sweep.sweep_parts(
+        (i, targets[i:i + 256]) for i in range(0, n_targets, 256)))
+    torch.cuda.synchronize(dev)
+    scores = np.concatenate([s for _, s, _ in swept], axis=1)
+    mirrored = np.concatenate([m for _, _, m in swept], axis=1)
+    report["reference_sweep_s"] = round(time.perf_counter() - t0, 2)
+    q = np.array([e.tiles.query_size for e in library["engines"][:n_masks]])
+    want = (scores > 0) & (scores / np.maximum(q, 1)[:, None] > 0.01)
+    got = {pair: (pix, bool(mir)) for pair, (pix, mir, *_) in stored.items()}
+    expected = {(int(i), int(t)): (int(scores[i, t]), bool(mirrored[i, t]))
+                for i, t in zip(*np.nonzero(want))}
+    golden = [(f"lm-{t}", *stored.get((0, t), (None,) * 3)[:3])
+              for t in range(3)]
+    exported = sorted(os.listdir(os.path.join(root, "export")))
+    with_rows = sorted({f"em-{i:04d}.json" for i, _ in stored})
+    log(f"[phase 8b] run_full_precompute.sh, {n_masks} masks x {n_targets} "
+        f"targets: {len(stored)} rows stored == an in-memory TwoPhaseSweep "
+        f"on every pair: {got == expected}; golden pairs (pixels, "
+        f"mirrored, gap) {golden}; {len(exported)} export files for "
+        f"{len(with_rows)} masks with a match")
+    if got != expected:
+        raise SystemExit(f"the stored pixel scores differ from the sweep's: "
+                         f"{len(got)} rows, {len(expected)} expected")
+    if golden != [(k, p, m, g) for (k, p, m), (_, g) in
+                  zip(CDS_GOLDENS, GAP_GOLDENS)]:
+        raise SystemExit(f"phase 8b's golden pairs: {golden}")
+    if exported != with_rows:
+        raise SystemExit("the export files do not match the masks with "
+                         "matches")
+    report["export_files"] = len(exported)
+    # one gradient process over a copy of the finished store
+    one = os.path.join(root, "one.db")
+    shutil.copy(db, one)
+    rc, lines = run_logged(
+        [sys.executable, "-m", "colormipsearch_torch", "gradientScores",
+         "--db", one, *PIPELINE_GRAD, "--array-cache",
+         os.path.join(root, "array-cache"), "--device", "cuda"], env,
+        os.path.join(root, "one_process.log"), timeout=600)
+    if rc != 0:
+        raise SystemExit(f"one gradient process exited {rc}:\n" + "\n".join(
+            ln for _, ln in lines[-40:]))
+    report["gradient_one_process_s"] = round(lines[-1][0], 2)
+    (n_one, s_one), = log_numbers(r"updated (\d+) matches in ([\d.]+)s",
+                                  [ln for _, ln in lines])
+    report["gradient_one_process_matches_per_s"] = round(
+        n_one / report["gradient_one_process_s"], 1)
+    same = store_columns(one, "matching_pixels, mirrored, "
+                              "gradient_area_gap, high_expression_area, "
+                              "normalized_score") == stored
+    log(f"[phase 8b] one gradient process over a copy of the store: rows == "
+        f"the two processes' with the normalize pass: {same}; "
+        f"{int(n_one)} matches in {report['gradient_one_process_s']}s "
+        f"beside two processes' {report['stage_s']['gradientScores']}s")
+    if not same or int(n_one) != report["gradient_matches"]:
+        raise SystemExit("one gradient process and two disagree")
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -1596,7 +2009,7 @@ def main():
         return 2
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
-    phase_card()
+    card = phase_card()
     checks = {name: Check(name) for name in
               ("multimask_ratio", "multimask_words")}
     phase_kernel_vs_plain(checks, dev)
@@ -1618,11 +2031,20 @@ def main():
                      "gradient_two_slots": phase_gradient_slots(dev, ws)}
         log(f"[phase 7] the dense engine and the scale-out layer in "
             f"{time.perf_counter() - t7:.1f}s")
+        t8 = time.perf_counter()
+        pipeline = {"fixtures": phase_pipeline_fixtures(ws)}
+        t8b = time.perf_counter()
+        pipeline["at_size"] = phase_pipeline_at_size(ws, dev, library)
+        pipeline["at_size"]["phase_s"] = round(time.perf_counter() - t8b, 2)
+        log(f"[phase 8] the production pipeline in "
+            f"{time.perf_counter() - t8:.1f}s")
     for name, check in checks.items():
         timing[name]["max_abs_err"] = check.max_abs_err
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f}s")
+    print(card)  # the card's name and power limit, again beside the results
     print(json.dumps({"gradient": gradient}))
     print(json.dumps({"scale_out": scale_out}))
+    print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: timing[name][k] for k in (

@@ -1,4 +1,4 @@
-"""colormipsearch_torch — colorDepthSearch and gradientScores on PyTorch/CUDA.
+"""colormipsearch_torch — the colormipsearch pipeline on PyTorch/CUDA.
 
 A port of `colormipsearch_tpu/` (JAX, Pallas on a TPU) to PyTorch with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a). The JAX package is
@@ -13,11 +13,14 @@ What is here:
 - `cds/shape_device.py`, `cds/shape_kernel.py`: the gradientScores
   shape planes and scorer as torch ops on the card;
 - `parallel/twophase_sweep.py`: the two-phase sweep over CUDA devices;
-- `cmd/`: the CLI. colorDepthSearch and gradientScores run here; the
-  reference's other commands refuse with a pointer to the JAX package;
-- `model/`, `dataio/`, `mips/`, `imageproc/`, `persist/`, `results/`,
-  `native/`, `utils/`: the port's own copies of the host modules the
-  commands need, each pinned to its reference by
+- `cmd/`: the CLI. The production pipeline runs here (colorDepthSearch,
+  gradientScores, normalizeGradientScores and exportData, over JSON
+  files or a SQLite/Mongo store; `scripts/run_full_precompute.sh`); the
+  reference's six other commands refuse with a pointer to the JAX
+  package;
+- `model/`, `dataio/`, `jacs/`, `mips/`, `imageproc/`, `persist/`,
+  `results/`, `native/`, `utils/`: the port's own copies of the host
+  modules the commands need, each pinned to its reference by
   `tests/test_torch_host_copies.py`.
 
 The package imports `torch` and never `jax`, nor any module of the JAX

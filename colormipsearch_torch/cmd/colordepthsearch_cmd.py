@@ -4,10 +4,15 @@ Counterpart of `colormipsearch_tpu/cmd/colordepthsearch_cmd.py`. The host
 logic (reading and filtering MIPs, decoding target partitions, the
 session entity, match building and writing) is copied from it, over the
 port's own copies of the host modules (`model`, `dataio`, `mips`,
-`persist`, `results`, `imageproc`). Inputs and results are JSON files.
-The device work runs on `--device`: "cuda" is every visible card (as the
-JAX package drives every local device), "cuda:N" one card, "cpu" the
-CPU. Two engines:
+`persist`, `results`, `imageproc`). Masks and targets come from JSON
+files, or with `--mips-storage db` from the `--db` store; results go to
+per-mask JSON files (`-od`) or, with `--db`, to the SQLite (or Mongo)
+store: the session row, the matches (pair-keyed upserts; with
+`--update-matches` only the pixel scores of existing pairs change) and
+every searched MIP stamped with the run's processing tag. The device
+work runs on `--device`: "cuda" is every visible card (as the JAX
+package drives every local device), "cuda:N" one card, "cpu" the CPU.
+Two engines:
 - `--engine auto` / `pallas`: the two-phase path
   (`parallel/twophase_sweep.TwoPhaseSweep`: prescreen bound, then the
   exact CUDA kernels), targets split over the devices;
@@ -38,17 +43,25 @@ only the image cache's budget knobs of the reference are read
 (`CMS_IMAGE_CACHE_MB`, `CMS_LOW_MEM_PCT`; `mips/loader.py`,
 `utils/memguard.py`).
 
-Refused here, before any work, each with a pointer to ROADMAP.md: `--db`,
-`--mips-storage db`, `--update-matches` and `--write-batch-size` (the
-store layer is a later port).
+`--write-batch-size N` flushes the matches to the store once N are
+pending. The partition loop is pipelined (partition p+1 is launched on
+the device before p is collected), so a flush writes only rows of
+collected partitions: a target's load error is recorded with the
+partition it belongs to. A run killed after a flush leaves exactly the
+flushed partitions' rows, and rerunning the same command converges to
+the store of one uninterrupted run. `CMS_TEST_KILL_AFTER_FLUSHES=N` (a
+test hook, as in the JAX package) SIGKILLs the process after its Nth
+flush.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import getpass
 import logging
 import os
+import signal
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List
@@ -59,8 +72,9 @@ from ..cds.oracle import shift_ring_offsets
 from ..cds.pixel_kernel import (pack_targets, prepare_query_planes,
                                 z_tolerance_to_zt9)
 from ..dataio import (DataSourceParam, JSONCDMIPsReader,
-                      JSONCDSSessionWriter, JSONNeuronMatchesWriter)
-from ..device import resolve_devices
+                      JSONCDSSessionWriter)
+from ..dataio.db import DBCDMIPsReader, DBCDMIPsWriter
+from ..device import peak_memory_gib, resolve_devices
 from ..mips import MIPsCache
 from ..model import (CDMatchEntity, CDSSessionEntity, ComputeFileType,
                      ProcessingType)
@@ -68,8 +82,26 @@ from ..persist import TimebasedIdGenerator
 from ..results import partition_collection
 from .args import (ListArg, add_cds_params, add_common_args, check_grid,
                    excluded_regions_for)
+from .backends import get_store, matches_writer
 
 LOG = logging.getLogger(__name__)
+
+_FLUSH_COUNT = 0
+
+
+def _test_kill_hook() -> None:
+    """Fault injection for the kill-and-resume tests: SIGKILL this
+    process after the Nth incremental flush when
+    CMS_TEST_KILL_AFTER_FLUSHES is set (an LSF array job dying
+    mid-partition; submitCDSBatch.sh:14-25, ColorDepthSearchCmd.java:
+    316-335)."""
+    n = os.environ.get("CMS_TEST_KILL_AFTER_FLUSHES")
+    if not n:
+        return
+    global _FLUSH_COUNT
+    _FLUSH_COUNT += 1
+    if _FLUSH_COUNT >= int(n):
+        os.kill(os.getpid(), signal.SIGKILL)
 
 
 def add_parser(subparsers) -> None:
@@ -78,12 +110,16 @@ def add_parser(subparsers) -> None:
     add_common_args(p)
     add_cds_params(p)
     p.add_argument("-m", "--masks", nargs="+", required=True,
-                   help="mask MIPs: JSON file(s) 'path:offset:length'")
+                   help="mask MIPs: JSON file(s) 'path:offset:length', or "
+                        "with --mips-storage db, library selector(s) "
+                        "'library:offset:length'")
     p.add_argument("-i", "--targets", "--images", nargs="+", required=True,
-                   help="target MIPs: JSON file(s) 'path:offset:length'")
+                   help="target MIPs: JSON file(s) or (--mips-storage db) "
+                        "library selector(s), 'name:offset:length'")
     p.add_argument("--mips-storage", choices=("file", "db"), default="file",
-                   help="where mask/target MIP entities come from; 'db' is "
-                        "refused: the store layer is not ported")
+                   help="where mask/target MIP entities come from: 'db' "
+                        "reads them from the --db store by library and "
+                        "selectors (DBCDMIPsReader.java:30-60)")
     p.add_argument("--masks-index", type=int, default=0)
     p.add_argument("--masks-length", type=int, default=-1)
     p.add_argument("--targets-index", type=int, default=0)
@@ -110,8 +146,10 @@ def add_parser(subparsers) -> None:
                    help="also write per-target grouped results")
     p.add_argument("--processing-tag", default=None)
     p.add_argument("--update-matches", action="store_true",
-                   help="refused: refreshing matches in a store needs the "
-                        "store layer, which is not ported")
+                   help="re-run mode: refresh pixel scores of existing "
+                        "(mask, target) matches without clobbering their "
+                        "gradient/normalized scores "
+                        "(ColorDepthSearchCmd.java:395-401)")
     p.add_argument("--masks-processing-tags", nargs="*", default=[],
                    metavar="STAGE=TAG",
                    help="only process masks already stamped with these "
@@ -120,10 +158,11 @@ def add_parser(subparsers) -> None:
                    metavar="STAGE=TAG",
                    help="skip masks already stamped with these tags")
     p.add_argument("--write-batch-size", type=int, default=0,
-                   help="refused when set: batched flushes go to the store "
-                        "layer, which is not ported")
+                   help="flush matches to the --db store every N "
+                        "matches (0 = at the end)")
     p.add_argument("--db", default=None,
-                   help="refused: the SQLite/Mongo stores are not ported")
+                   help="write matches to this SQLite store (or a "
+                        "mongodb:// URI) instead of JSON")
     p.add_argument("--process-id", type=int,
                    default=int(os.environ.get("CMS_PROCESS_ID", -1)),
                    help="grid block index for multi-process sweeps; each "
@@ -194,15 +233,24 @@ def _side_selector(args, side: str) -> DataSourceParam:
 
 
 def _read_mips(args, files: List[str], index: int, length: int, side: str):
-    """Read one side's MIP entities from JSON files, apply the side's
-    selectors and keep entities with an input CDM."""
+    """Read one side's MIP entities: JSON file lists, or store libraries
+    when --mips-storage db (DBCDMIPsReader.java:30-60). Both paths apply
+    the side's selectors and keep entities with an input CDM."""
     sel = _side_selector(args, side)
     entities = []
-    for f in files:
-        la = ListArg.parse(f)
-        param = DataSourceParam(offset=la.offset, size=la.length)
-        mips = JSONCDMIPsReader(la.input).read_mips(param)
-        entities.extend(e for e in mips if sel.matches_entity(e))
+    if args.mips_storage == "db":
+        reader = DBCDMIPsReader(get_store(args.db))
+        for f in files:
+            la = ListArg.parse(f)
+            entities.extend(reader.read_mips(dataclasses.replace(
+                sel, libraries=[la.input], offset=la.offset,
+                size=la.length)))
+    else:
+        for f in files:
+            la = ListArg.parse(f)
+            param = DataSourceParam(offset=la.offset, size=la.length)
+            mips = JSONCDMIPsReader(la.input).read_mips(param)
+            entities.extend(e for e in mips if sel.matches_entity(e))
     entities = [e for e in entities
                 if ComputeFileType.InputColorDepthImage in e.compute_files]
     param = DataSourceParam(offset=index, size=length)
@@ -247,24 +295,12 @@ def _load_target_images(targets, cache: MIPsCache, workers: int = 8):
     return loaded, entities, failed
 
 
-def _refuse(args) -> None:
-    store = [flag for flag, given in (
-        ("--db", args.db), ("--mips-storage db", args.mips_storage == "db"),
-        ("--update-matches", args.update_matches),
-        ("--write-batch-size", args.write_batch_size)) if given]
-    if store:
-        raise SystemExit(f"{', '.join(store)}: the SQLite/Mongo stores are "
-                         "not ported to colormipsearch_torch yet (see "
-                         "ROADMAP.md, queue 1); use JSON files (-m, -i, -od), "
-                         "or run `python -m colormipsearch_tpu "
-                         "colorDepthSearch`")
-    check_grid(args)
-
-
 def run(args: argparse.Namespace) -> int:
     from ..parallel.multihost import (maybe_init_distributed,
                                       shutdown_distributed)
-    _refuse(args)
+    if args.mips_storage == "db" and not args.db:
+        raise SystemExit("--mips-storage db requires --db")
+    check_grid(args)
     devices = resolve_devices(args.device)
     multi = bool(args.jax_distributed) and maybe_init_distributed()
     try:
@@ -305,7 +341,8 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
         return 0
     # one writer per multi-process run, as the reference's collecting
     # process (SparkColorMIPSearchProcessor.java:73)
-    writes = bool(args.output_dir) and (not multi or process_index() == 0)
+    writes = bool(args.output_dir or args.db) and \
+        (not multi or process_index() == 0)
 
     idgen = TimebasedIdGenerator()
     session_id = idgen.generate_id()
@@ -330,7 +367,10 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
                     "pctPositivePixels": args.pctPositivePixels},
             masks=[{"file": f} for f in args.masks],
             targets=[{"file": f} for f in args.targets])
-        JSONCDSSessionWriter(args.output_dir).create_session(session)
+        if args.db:
+            get_store(args.db).create_session(session)
+        else:
+            JSONCDSSessionWriter(args.output_dir).create_session(session)
 
     all_matches: List[CDMatchEntity] = []
     target_parts = partition_collection(targets, args.processingPartitionSize)
@@ -374,7 +414,7 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
     query_sizes = [qp.query_size if dense else qp.tiles.query_size
                    for _, qp in prepared]
 
-    stage_totals = {"decode": 0.0, "matches": 0.0}
+    stage_totals = {"decode": 0.0, "matches": 0.0, "write": 0.0}
     # decode prefetch: partition i+1 decodes on a host thread while the
     # device scores partition i
     prefetcher = ThreadPoolExecutor(max_workers=1)
@@ -396,10 +436,16 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
                 m.tags.add(run_tag)
                 all_matches.append(m)
 
+    unscored_failures = []  # load errors after the last decoded partition
+
     def decoded_parts():
-        """(target entities, stacked pixels) per partition that has any
-        decoded image; decoding runs one partition ahead."""
+        """((target entities, load errors), stacked pixels) per partition
+        that has any decoded image; decoding runs one partition ahead. A
+        partition's load errors (and those of image-less partitions
+        before it) travel with it, so that they are recorded when it is
+        collected."""
         pending = None
+        failed = []
         for pi, part in enumerate(target_parts):
             t0 = time.perf_counter()
             if pending is None:
@@ -409,10 +455,28 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
             if pi + 1 < len(target_parts):
                 pending = prefetcher.submit(decode, target_parts[pi + 1])
             stage_totals["decode"] += time.perf_counter() - t0
-            if t_failed:
-                record_pair_errors(t_failed)
+            failed.extend(t_failed)
             if t_imgs:
-                yield t_entities, np.stack(t_imgs)
+                yield (t_entities, failed), np.stack(t_imgs)
+                failed = []
+        unscored_failures.extend(failed)
+
+    # batched incremental flushes to the store (ColorDepthSearchCmd.java:
+    # 316-335 --write-batch-size; whole-mask JSON files are written at the
+    # end): only rows of collected partitions are ever in all_matches
+    flushed = 0
+
+    def maybe_flush():
+        nonlocal flushed
+        if writes and args.db and args.write_batch_size > 0 \
+                and len(all_matches) - flushed >= args.write_batch_size:
+            t0 = time.perf_counter()
+            matches_writer(args.db, None,
+                           update_scores_only=args.update_matches).write(
+                all_matches[flushed:])
+            stage_totals["write"] += time.perf_counter() - t0
+            flushed = len(all_matches)
+            _test_kill_hook()
 
     if dense:
         scored = _dense_parts(args, decoded_parts(), prepared, devices, zt9,
@@ -420,6 +484,7 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
     else:
         screen = u_matrix = thresholds = None
         if args.prescreen == "on":
+            t0 = time.perf_counter()
             first = prepared[0][1]
             screen = PairPrescreen(zt9, args.xyShift, first.tiles.height,
                                    first.tiles.width)
@@ -427,6 +492,7 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
                                  for _, eng in prepared])
             thresholds = np.array(
                 [max(ratio_threshold * q, 0.5) for q in query_sizes])
+            stage_totals["features"] = time.perf_counter() - t0
         sweep = TwoPhaseSweep([eng for _, eng in prepared], devices, screen,
                               u_matrix, thresholds)
         # pipelined: partition p+1 is launched before p's matches are built
@@ -436,8 +502,9 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
                                                   stage_totals))
 
     try:
-        for t_entities, scores, mirrored in scored:
+        for (t_entities, failed), scores, mirrored in scored:
             t0 = time.perf_counter()
+            record_pair_errors(failed)
             for bi, (mask, _) in enumerate(prepared):
                 query_size = query_sizes[bi]
                 qsize = max(query_size, 1)
@@ -462,28 +529,48 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
                                              run_tag)
                     all_matches.append(m)
             stage_totals["matches"] += time.perf_counter() - t0
+            maybe_flush()
     finally:
         prefetcher.shutdown(wait=True)
+    record_pair_errors(unscored_failures)
 
     n_groups = 0
+    t0 = time.perf_counter()
     if writes:
-        per_targets = (os.path.join(args.output_dir, args.perTargetSubdir)
-                       if args.perTargetSubdir else None)
-        n_groups = JSONNeuronMatchesWriter(
-            os.path.join(args.output_dir, args.perMaskSubdir),
-            per_targets).write(all_matches)
-    elif multi and args.output_dir:
+        per_masks = per_targets = None
+        if args.output_dir:
+            per_masks = os.path.join(args.output_dir, args.perMaskSubdir)
+            if args.perTargetSubdir:
+                per_targets = os.path.join(args.output_dir,
+                                           args.perTargetSubdir)
+        if flushed < len(all_matches) or not flushed:
+            n_groups = matches_writer(
+                args.db, per_masks, per_targets,
+                update_scores_only=args.update_matches).write(
+                all_matches[flushed:])
+        if args.db:
+            # stamp EVERY searched MIP with the run's processing tag,
+            # matched or not, so that restartable selection by "lacks tag
+            # X" sees the whole processed block (ColorDepthSearchCmd.java:
+            # 346-358)
+            DBCDMIPsWriter(get_store(args.db)).add_processing_tags(
+                masks + targets, ProcessingType.ColorDepthSearch, {run_tag})
+        stage_totals["write"] += time.perf_counter() - t0
+    elif multi and (args.output_dir or args.db):
         LOG.info("process %d: results written by process 0",
                  process_index())
     LOG.info("stage times: %s",
              {k: round(v, 2) for k, v in stage_totals.items()})
     LOG.info("found %d matches (%d masks) in %.1fs",
              len(all_matches), n_groups, time.time() - t_start)
+    peak = peak_memory_gib(devices)
+    if peak is not None:
+        LOG.info("peak device memory %.3f GiB", peak)
     return 0
 
 
 def _gathered_parts(sweep, parts, stage_totals):
-    """(target entities, scores int64 [B, T], mirrored bool [B, T]) per
+    """(key, scores int64 [B, T], mirrored bool [B, T]) per
     partition of a multi-process two-phase run: each process sweeps its
     block of every partition's targets (device_blocks over processes)
     through the one-process pipelined loop (`sweep_parts`), pads its rows
@@ -493,13 +580,13 @@ def _gathered_parts(sweep, parts, stage_totals):
     from ..parallel.twophase_sweep import device_blocks
 
     def own_blocks():
-        for t_entities, t_stack in parts:
+        for key, t_stack in parts:
             blocks = device_blocks(t_stack.shape[0], process_count())
             off, ln = blocks[process_index()]
-            yield (t_entities, blocks), t_stack[off:off + ln]
+            yield (key, blocks), t_stack[off:off + ln]
 
     bsz = len(sweep.engines)
-    for (t_entities, blocks), own_s, own_m in sweep.sweep_parts(
+    for (key, blocks), own_s, own_m in sweep.sweep_parts(
             own_blocks(), stage_totals):
         tsz = sum(n for _, n in blocks)
         per = max(n for _, n in blocks)
@@ -512,11 +599,11 @@ def _gathered_parts(sweep, parts, stage_totals):
         for p, (o, n) in enumerate(blocks):
             scores[:, o:o + n] = g_s[p][:, :n]
             mirrored[:, o:o + n] = g_m[p][:, :n].astype(bool)
-        yield t_entities, scores, mirrored
+        yield key, scores, mirrored
 
 
 def _dense_parts(args, parts, prepared, devices, zt9: int, stage_totals):
-    """(target entities, scores [B, T], mirrored [B, T]) per partition of
+    """(key, scores [B, T], mirrored [B, T]) per (key, targets) partition of
     the dense engine: targets packed once per partition, on the mesh's
     devices, and the masks swept in batches of --maskBatchSize over a
     ("mask", "target") mesh of every process's devices, one mask block.
@@ -528,7 +615,7 @@ def _dense_parts(args, parts, prepared, devices, zt9: int, stage_totals):
     mesh = global_pair_mesh(devices, mask_shards=1)
     shifts = shift_ring_offsets(args.xyShift)
     pad = max(args.xyShift, 1)
-    for t_entities, t_stack in parts:
+    for key, t_stack in parts:
         t0 = time.perf_counter()
         planes = distribute(mesh, ("target", None, None, None),
                             t_stack).map(lambda t: pack_targets(
@@ -547,4 +634,4 @@ def _dense_parts(args, parts, prepared, devices, zt9: int, stage_totals):
             mirrored.append(m)
         stage_totals["score"] = stage_totals.get("score", 0.0) \
             + time.perf_counter() - t0
-        yield t_entities, np.concatenate(scores), np.concatenate(mirrored)
+        yield key, np.concatenate(scores), np.concatenate(mirrored)

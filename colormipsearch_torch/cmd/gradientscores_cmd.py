@@ -6,7 +6,8 @@ read + filter matches -> select best lines/samples/matches -> per-mask
 query planes built once -> target planes built on the device in batches
 and kept in a byte-bounded LRU -> batched shape scoring -> per-mask
 normalization -> write updates + tags. Matches are the per-mask JSON
-files of colorDepthSearch (`-md`). The device work runs on `--device`:
+files of colorDepthSearch (`-md`) or the rows of its `--db` store, where
+only the scored fields of each match are updated. The device work runs on `--device`:
 "cuda" is every visible card (the JAX package's `grad_devices`, every
 local device), "cuda:N" one card, "cpu" the CPU. Plane builds go
 round-robin over the devices, each target's planes stay in the plane
@@ -23,11 +24,15 @@ from the raw u8 frames (`cds/shape_device.py`). The host plane builds of
 `--process-id/--process-count` (defaults from CMS_PROCESS_ID and
 CMS_PROCESS_COUNT) split the sorted mask list into contiguous blocks,
 one per process, as the reference's job arrays shard mask mipIds
-(submitGAJob.sh:50-60). Each process rewrites the per-mask files of its
-own masks, so the processes may share one `-md`.
+(submitGAJob.sh:50-60). Each process rewrites the per-mask files, or
+updates the store rows, of its own masks, so the processes may share one
+`-md` or one `--db` (the SQLite store's WAL journal and busy timeout let
+concurrent processes write one file).
 
-Refused here, before any work, with a pointer to ROADMAP.md: `--db` (the
-store layer is a later port).
+Score updates flush every `--write-batch-size` matches;
+`CMS_TEST_KILL_AFTER_GA_FLUSHES=N` (a test hook, as in the JAX package)
+SIGKILLs the process after its Nth flush. The updates are idempotent, so
+rerunning the command converges to the result of one uninterrupted run.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import argparse
 import dataclasses
 import logging
 import os
+import signal
 import threading
 import time
 from collections import OrderedDict
@@ -52,9 +58,8 @@ from ..cds.shape_oracle import (QueryShapePlanes, TargetShapePlanes,
                                 build_mirrored_query_shape_planes,
                                 build_query_shape_planes,
                                 build_target_shape_planes)
-from ..dataio import (DataSourceParam, JSONNeuronMatchesReader,
-                      JSONNeuronMatchesWriter, ScoresFilter)
-from ..device import resolve_devices
+from ..dataio import DataSourceParam, ScoresFilter
+from ..device import peak_memory_gib, resolve_devices
 from ..imageproc.io import ImageKind, load_image
 from ..mips import MIPsCache
 from ..model import CDMatchEntity, ComputeFileType, ProcessingType
@@ -62,11 +67,29 @@ from ..results import (group_matches_by_mask, normalize_match_scores,
                        partition_collection, select_best_matches)
 from .args import (add_cds_params, add_common_args, check_grid,
                    excluded_regions_for)
+from .backends import matches_reader, matches_writer
 
 LOG = logging.getLogger(__name__)
 
 PLANES_CACHE_BYTES = 4 << 30
 PLANES_CACHE_ENTRIES = 2048
+
+_FLUSH_COUNT = 0
+
+
+def _test_kill_hook() -> None:
+    """Fault injection for the kill-and-resume tests: SIGKILL after the
+    Nth batched score flush when CMS_TEST_KILL_AFTER_GA_FLUSHES is set (a
+    GA grid job dying mid-run; the reference resubmits the same
+    mask-block offsets, submitGAJob.sh:50-60,
+    CalculateGradientScoresCmd.java:602-614)."""
+    n = os.environ.get("CMS_TEST_KILL_AFTER_GA_FLUSHES")
+    if not n:
+        return
+    global _FLUSH_COUNT
+    _FLUSH_COUNT += 1
+    if _FLUSH_COUNT >= int(n):
+        os.kill(os.getpid(), signal.SIGKILL)
 
 
 def add_parser(subparsers) -> None:
@@ -77,7 +100,8 @@ def add_parser(subparsers) -> None:
     p.add_argument("-md", "--matchesDir", default=None,
                    help="per-mask matches dir (from colorDepthSearch)")
     p.add_argument("--db", default=None,
-                   help="refused: the SQLite/Mongo stores are not ported")
+                   help="read/write matches in this SQLite store (or a "
+                        "mongodb:// URI)")
     p.add_argument("--masks-mip-ids", nargs="*", default=None,
                    help="only process these mask MIP ids")
     p.add_argument("--nBestLines", type=int, default=-1)
@@ -121,23 +145,14 @@ def add_parser(subparsers) -> None:
     p.set_defaults(func=run)
 
 
-def _refuse(args) -> None:
-    if args.db:
-        raise SystemExit("--db: the SQLite/Mongo stores are not ported to "
-                         "colormipsearch_torch yet (see ROADMAP.md, queue "
-                         "1); use the per-mask JSON files (-md), or run "
-                         "`python -m colormipsearch_tpu gradientScores`")
-    if not args.matchesDir:
-        raise SystemExit("gradientScores reads and rewrites the per-mask "
-                         "match files of -md/--matchesDir")
-    check_grid(args)
-
-
 def run(args: argparse.Namespace) -> int:
-    _refuse(args)
+    if not args.matchesDir and not args.db:
+        raise SystemExit("gradientScores reads and rewrites the matches of "
+                         "-md/--matchesDir or of the --db store")
+    check_grid(args)
     devices = resolve_devices(args.device)
     t_start = time.time()
-    reader = JSONNeuronMatchesReader(args.matchesDir)
+    reader = matches_reader(args.db, args.matchesDir)
     ptags = {}
     for spec in args.masks_processing_tags or []:
         stage, _, tag = spec.partition("=")
@@ -178,8 +193,8 @@ def run(args: argparse.Namespace) -> int:
     planes_cache = PlaneCache(devices)
     # one writer, batched flushes across masks; pending lists always hold
     # a mask's FULL match list, so the grouped per-mask rewrite never
-    # loses rows
-    writer = JSONNeuronMatchesWriter(args.matchesDir)
+    # loses rows (field-level updates on the store)
+    writer = matches_writer(args.db, args.matchesDir)
     update_fields = ["gradientAreaGap", "highExpressionArea",
                      "normalizedScore"]
     pending_updates: List[CDMatchEntity] = []
@@ -191,6 +206,7 @@ def run(args: argparse.Namespace) -> int:
                      and len(pending_updates) >= args.write_batch_size):
             writer.write_updates(pending_updates, update_fields)
             pending_updates.clear()
+            _test_kill_hook()
 
     for mip_id in mask_locations:
         sel = DataSourceParam(mip_ids=[mip_id],
@@ -250,6 +266,9 @@ def run(args: argparse.Namespace) -> int:
              len(updated), time.time() - t_start, len(planes_cache),
              planes_cache.host_builds, planes_cache.seconds["decode"],
              planes_cache.seconds["planes"])
+    peak = peak_memory_gib(devices)
+    if peak is not None:
+        LOG.info("peak device memory %.3f GiB", peak)
     return 0
 
 

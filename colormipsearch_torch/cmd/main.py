@@ -1,10 +1,11 @@
 """CLI dispatcher: `python -m colormipsearch_torch <command> ...`.
 
-Counterpart of `colormipsearch_tpu/cmd/main.py`. colorDepthSearch and
-gradientScores run on this package. The reference's other commands are
-not ported yet; each is registered under its own name and refuses with a
-pointer to the JAX package, which runs it
-(`python -m colormipsearch_tpu <command>`).
+Counterpart of `colormipsearch_tpu/cmd/main.py`. The production
+pipeline runs on this package: colorDepthSearch, gradientScores,
+normalizeGradientScores (and its alias mormalizeGradientScores) and
+exportData. The reference's other commands are not ported yet; each is
+registered under its own name and refuses with a pointer to the JAX
+package, which runs it (`python -m colormipsearch_tpu <command>`).
 """
 
 from __future__ import annotations
@@ -15,11 +16,9 @@ import sys
 from typing import List, Optional
 
 # the reference's commands that are not ported yet (ROADMAP.md, queue 1):
-# host commands over the store layer and the export formats
-NOT_PORTED = ("normalizeGradientScores",
-              "mormalizeGradientScores", "createColorDepthSearchDataInput",
-              "importPPPResults", "exportData", "tag", "copyToMipsStore",
-              "validateDBData", "deleteCDMatches")
+# the host commands around the production pipeline
+NOT_PORTED = ("createColorDepthSearchDataInput", "importPPPResults", "tag",
+              "copyToMipsStore", "validateDBData", "deleteCDMatches")
 
 
 def _refused(args) -> int:
@@ -29,7 +28,8 @@ def _refused(args) -> int:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from . import colordepthsearch_cmd, gradientscores_cmd
+    from . import (colordepthsearch_cmd, exportdata_cmd, gradientscores_cmd,
+                   normalize_cmd)
     parser = argparse.ArgumentParser(
         prog="colormipsearch-torch",
         description="color depth MIP search tools (PyTorch/CUDA port)")
@@ -37,6 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     subparsers = parser.add_subparsers(dest="command")
     colordepthsearch_cmd.add_parser(subparsers)
     gradientscores_cmd.add_parser(subparsers)
+    normalize_cmd.add_parser(subparsers)
+    exportdata_cmd.add_parser(subparsers)
     for name in NOT_PORTED:
         p = subparsers.add_parser(
             name, help="not ported yet: runs on colormipsearch_tpu only")
@@ -55,7 +57,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not args.command:
         parser.print_help()
         return 1
-    return args.func(args)
+    from .backends import close_stores
+    try:
+        return args.func(args)
+    finally:
+        close_stores()
 
 
 if __name__ == "__main__":

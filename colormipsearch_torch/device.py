@@ -11,7 +11,7 @@ drives every local device.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -46,3 +46,12 @@ def resolve_devices(spec) -> List[torch.device]:
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [dev]
+
+
+def peak_memory_gib(devices) -> Optional[float]:
+    """The most memory any CUDA device of `devices` held at once in this
+    process (torch.cuda.max_memory_allocated), in GiB; None when none is
+    a CUDA device."""
+    peaks = [torch.cuda.max_memory_allocated(d) for d in devices
+             if torch.device(d).type == "cuda"]
+    return max(peaks) / 2**30 if peaks else None

@@ -2,6 +2,8 @@
 `colormipsearch_tpu/model/`)."""
 
 from .entities import (CDMatchEntity, CDSSessionEntity, EMNeuronEntity,
-                       LMNeuronEntity, NeuronEntity, entity_from_dict)
-from .enums import ComputeFileType, FileType, Gender, ProcessingType
+                       LMNeuronEntity, NeuronEntity, PPPMatchEntity,
+                       entity_from_dict)
+from .enums import (ComputeFileType, FileType, Gender, PPPScreenshotType,
+                    ProcessingType)
 from .filedata import FileData, FileDataType

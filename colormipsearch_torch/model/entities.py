@@ -1,17 +1,19 @@
 """Domain entities: neurons, matches, sessions.
 
-Copy of `colormipsearch_tpu/model/entities.py` without the PPP match
-entity and `AbstractMatchEntity.matched_ref`, which the colorDepthSearch
-and gradientScores paths do not use. Counterparts of the reference model
-layer (model/AbstractNeuronEntity.java:25-50, EMNeuronEntity.java,
-LMNeuronEntity.java:17-28, AbstractMatchEntity.java:22-30,
-CDMatchEntity.java:12-170, CDSSessionEntity.java). JSON round-trips use
+Copy of `colormipsearch_tpu/model/entities.py` without
+`NeuronEntity.has_compute_file`, which no ported command calls.
+
+Counterparts of the reference model layer (model/AbstractNeuronEntity
+.java:25-50, EMNeuronEntity.java, LMNeuronEntity.java:17-28,
+AbstractMatchEntity.java:22-30, CDMatchEntity.java:12-170,
+PPPMatchEntity.java:15-35, CDSSessionEntity.java). JSON round-trips use
 the reference's fs-store field names (class-discriminated entities) so
 the two toolsets can read each other's JSON results.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Set
 
@@ -21,6 +23,7 @@ from .filedata import FileData
 _EM_CLASS = "org.janelia.colormipsearch.model.EMNeuronEntity"
 _LM_CLASS = "org.janelia.colormipsearch.model.LMNeuronEntity"
 _CDMATCH_CLASS = "org.janelia.colormipsearch.model.CDMatchEntity"
+_PPPMATCH_CLASS = "org.janelia.colormipsearch.model.PPPMatchEntity"
 
 
 @dataclass
@@ -216,6 +219,11 @@ class AbstractMatchEntity:
             return self.mask_image_ref_id
         return self.mask_image.entity_id if self.mask_image else None
 
+    def matched_ref(self) -> Optional[int]:
+        if self.matched_image_ref_id is not None:
+            return self.matched_image_ref_id
+        return self.matched_image.entity_id if self.matched_image else None
+
 
 @dataclass
 class CDMatchEntity(AbstractMatchEntity):
@@ -316,6 +324,123 @@ class CDMatchEntity(AbstractMatchEntity):
         m.high_expression_area = d.get("highExpressionArea")
         m.errors = d.get("errors")
         m.tags = set(d.get("tags") or [])
+        return m
+
+
+_LM_REG_UNISEX_RE = re.compile(r"(.+)_REG_UNISEX_(.+)", re.IGNORECASE)
+_OBJECTIVE_RE = re.compile(r"\d+x", re.IGNORECASE)
+_DEFAULT_PPP_OBJECTIVE = "40x"
+
+
+@dataclass
+class PPPMatchEntity(AbstractMatchEntity):
+    """PatchPerPix match (PPPMatchEntity.java:15-35)."""
+    source_em_name: Optional[str] = None
+    source_em_library: Optional[str] = None
+    source_lm_name: Optional[str] = None
+    source_lm_library: Optional[str] = None
+    cov_score: Optional[float] = None
+    aggregate_coverage: Optional[float] = None
+    rank: Optional[float] = None
+    skeleton_matches: List[Dict[str, Any]] = field(default_factory=list)
+    # PPPScreenshotType name -> screenshot image name
+    # (PPPMatchEntity.sourceImageFiles, set at import by
+    # addSourceImageFile; the EXPORT-side match files come from the
+    # pppmURL published store, not from here)
+    source_image_files: Dict[str, str] = field(default_factory=dict)
+
+    JSON_CLASS = _PPPMATCH_CLASS
+
+    def add_source_image_file(self, image_name: str) -> None:
+        """PPPMatchEntity.addSourceImageFile:129-137 — classify the
+        screenshot by suffix; unknown suffixes are ignored."""
+        from .enums import PPPScreenshotType
+        t = PPPScreenshotType.find_screenshot_type(image_name)
+        if t is not None:
+            self.source_image_files[t.name] = image_name
+
+    @property
+    def has_source_image_files(self) -> bool:
+        """PPPMatchEntity.hasSourceImageFiles:139-141."""
+        return bool(self.source_image_files)
+
+    def extract_lm_sample_name(self) -> Optional[str]:
+        """Strip the `_REG_UNISEX_<objective>` registration suffix
+        (PPPMatchEntity.extractLMSampleName:189-196)."""
+        if not self.source_lm_name:
+            return self.source_lm_name
+        m = _LM_REG_UNISEX_RE.match(self.source_lm_name)
+        return m.group(1) if m else self.source_lm_name
+
+    def source_objective(self) -> str:
+        """Objective parsed from the LM name's registration suffix,
+        defaulting to 40x (PPPMatchEntity.updateLMSampleInfo:198-216)."""
+        if self.source_lm_name:
+            m = _LM_REG_UNISEX_RE.match(self.source_lm_name)
+            if m and _OBJECTIVE_RE.search(m.group(2)):
+                return m.group(2)
+        return _DEFAULT_PPP_OBJECTIVE
+
+    def matched_target_metadata(self) -> Dict[str, Any]:
+        """PPPMatchedTarget DTO scaffold (PPPMatchEntity.metadata()
+        :174-187 + dto/PPPMatchedTarget.java:28-48): pppmRank/pppmScore
+        with score = int(abs(coverageScore)); targetImage and match
+        files are filled by the exporter from sample + pppmURL data."""
+        d: Dict[str, Any] = {"type": "PPPMatch",
+                             "mirrored": bool(self.mirrored),
+                             "pppmRank": self.rank,
+                             "pppmScore": int(abs(self.cov_score))
+                             if self.cov_score is not None else 0}
+        return d
+
+    def to_dict(self, include_images: bool = True) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"class": self.JSON_CLASS}
+        if self.entity_id is not None:
+            d["id"] = str(self.entity_id)
+        if include_images and self.mask_image is not None:
+            d["maskImage"] = self.mask_image.to_dict()
+        if include_images and self.matched_image is not None:
+            d["image"] = self.matched_image.to_dict()
+        for k, v in (("sourceEmName", self.source_em_name),
+                     ("sourceEmLibrary", self.source_em_library),
+                     ("sourceLmName", self.source_lm_name),
+                     ("sourceLmLibrary", self.source_lm_library),
+                     ("coverageScore", self.cov_score),
+                     ("aggregateCoverage", self.aggregate_coverage),
+                     ("rank", self.rank)):
+            if v is not None:
+                d[k] = v
+        d["mirrored"] = self.mirrored
+        if self.skeleton_matches:
+            d["sourceSkeletonMatches"] = self.skeleton_matches
+        if self.source_image_files:
+            d["sourceImageFiles"] = dict(self.source_image_files)
+        if self.match_files:
+            d["files"] = {t.name: v for t, v in self.match_files.items()}
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "PPPMatchEntity":
+        m = cls()
+        m.entity_id = int(d["id"]) if d.get("id") else None
+        if d.get("maskImage"):
+            m.mask_image = entity_from_dict(d["maskImage"])
+        if d.get("image"):
+            m.matched_image = entity_from_dict(d["image"])
+        m.source_em_name = d.get("sourceEmName")
+        m.source_em_library = d.get("sourceEmLibrary")
+        m.source_lm_name = d.get("sourceLmName")
+        m.source_lm_library = d.get("sourceLmLibrary")
+        m.cov_score = d.get("coverageScore")
+        m.aggregate_coverage = d.get("aggregateCoverage")
+        m.rank = d.get("rank")
+        m.mirrored = bool(d.get("mirrored", False))
+        m.skeleton_matches = d.get("sourceSkeletonMatches") or []
+        m.source_image_files = dict(d.get("sourceImageFiles") or {})
+        for name, v in (d.get("files") or {}).items():
+            ft = FileType.from_name(name)
+            if ft:
+                m.match_files[ft] = v
         return m
 
 

@@ -1,8 +1,7 @@
 """Domain enums, mirroring the reference's model enums.
 
-Copy of `colormipsearch_tpu/model/enums.py` without the PPP screenshot
-kinds and PPP suffix lookups, which the colorDepthSearch path does not
-use:
+Copy of `colormipsearch_tpu/model/enums.py` without the FileType PPP
+suffix lookups, which only the PPP import (not ported) uses.
 
 - ComputeFileType: model/ComputeFileType.java:5-17
 - FileType: model/FileType.java:5-27
@@ -64,6 +63,43 @@ class FileType(enum.Enum):
             if v.name.lower() == name.lower():
                 return v
         return None
+
+
+class PPPScreenshotType(enum.Enum):
+    """PPP screenshot kinds and the export FileTypes they publish as
+    (model/PPPScreenshotType.java:5-40). A CH screenshot publishes both
+    the MIP and its thumbnail reference."""
+    RAW = (FileType.SignalMip, None)
+    MASKED_RAW = (FileType.SignalMipMasked, None)
+    SKEL = (FileType.SignalMipMaskedSkel, None)
+    CH = (FileType.CDMBest, FileType.CDMBestThumbnail)
+    CH_SKEL = (FileType.CDMSkel, None)
+
+    def __init__(self, file_type, thumbnail_file_type):
+        self.file_type = file_type
+        self.thumbnail_file_type = thumbnail_file_type
+
+    @property
+    def has_thumbnail(self) -> bool:
+        return self.thumbnail_file_type is not None
+
+    @classmethod
+    def find_screenshot_type(cls, image_name: str
+                             ) -> Optional["PPPScreenshotType"]:
+        """Match by the FileType's PPP file suffix
+        (PPPScreenshotType.findScreenshotType)."""
+        for t in cls:
+            if t.file_type.file_suffix and \
+                    image_name.endswith(t.file_type.file_suffix):
+                return t
+        return None
+
+    @classmethod
+    def from_name(cls, name: str) -> Optional["PPPScreenshotType"]:
+        try:
+            return cls[name]
+        except KeyError:
+            return None
 
 
 class ProcessingType(enum.Enum):

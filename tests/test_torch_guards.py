@@ -141,23 +141,25 @@ def test_one_library_per_source(monkeypatch, tmp_path):
 
 
 def test_cli_dispatch_table():
-    """colorDepthSearch and gradientScores run on the port; the eight host
-    commands of the reference are registered and refuse with a pointer to
-    the JAX package."""
+    """The production pipeline runs on the port: colorDepthSearch,
+    gradientScores, normalizeGradientScores (and its alias) and
+    exportData; the six other host commands of the reference are
+    registered and refuse with a pointer to the JAX package."""
     sub = next(a for a in build_parser()._actions
                if isinstance(a.choices, dict))
-    refused = {"normalizeGradientScores",
-               "createColorDepthSearchDataInput", "importPPPResults",
-               "exportData", "tag", "copyToMipsStore", "validateDBData",
-               "deleteCDMatches"}
-    ported = {"colorDepthSearch", "gradientScores"}
-    assert set(sub.choices) >= refused | ported
+    refused = {"createColorDepthSearchDataInput", "importPPPResults", "tag",
+               "copyToMipsStore", "validateDBData", "deleteCDMatches"}
     from colormipsearch_torch.cmd import (colordepthsearch_cmd,
-                                          gradientscores_cmd)
-    assert sub.choices["colorDepthSearch"].get_default("func") is \
-        colordepthsearch_cmd.run
-    assert sub.choices["gradientScores"].get_default("func") is \
-        gradientscores_cmd.run
+                                          exportdata_cmd, gradientscores_cmd,
+                                          normalize_cmd)
+    ported = {"colorDepthSearch": colordepthsearch_cmd.run,
+              "gradientScores": gradientscores_cmd.run,
+              "normalizeGradientScores": normalize_cmd.run,
+              "mormalizeGradientScores": normalize_cmd.run,
+              "exportData": exportdata_cmd.run}
+    assert set(sub.choices) == refused | set(ported)
+    for name, run in ported.items():
+        assert sub.choices[name].get_default("func") is run
     for name in sorted(refused):
         with pytest.raises(SystemExit) as e:
             main([name, "--some-option", "x"])

@@ -656,7 +656,247 @@ def _case_shape_oracle(tmp_path, fixtures_dir):
                                       want.compute_zgap_image(tw, 20, exc))
 
 
+# ---- the copies of the store layer and of the export's host modules -------
+
+def _case_field_updates(tmp_path, fixtures_dir):
+    """dataio.base's additions: the handlers, apply_field_updates and the
+    CDMIPsWriter interface."""
+    from colormipsearch_tpu.dataio import base as want
+    from colormipsearch_torch.dataio import base as got
+    for mod in (got, want):
+        assert mod.CDMIPsWriter.__abstractmethods__ == frozenset(
+            {"open", "write", "add_processing_tags", "close"})
+    docs = []
+    for mod in (got, want):
+        doc = {"tags": ["a"], "n": 1}
+        mod.apply_field_updates(doc, {"tags": mod.AppendField({"c", "b"}),
+                                      "n": mod.IncField(2),
+                                      "x": mod.SetOnCreateField(1)}, True)
+        mod.apply_field_updates(doc, {"tags": mod.RemoveField("a"),
+                                      "n": mod.UnsetField()}, False)
+        docs.append(doc)
+    assert docs[0] == docs[1] == {"tags": ["b", "c"], "x": 1}
+
+
+def _case_ppp_match_entity(tmp_path, fixtures_dir):
+    """PPPMatchEntity (its JSON form, its sample-name and objective
+    parses and its export metadata) and the PPP screenshot kinds."""
+    import test_ppp_export as ppp
+
+    from colormipsearch_tpu import model as want
+    from colormipsearch_torch import model as got
+    for m in ppp._build_matches():
+        d = m.to_dict()
+        g = got.PPPMatchEntity.from_dict(d)
+        assert g.to_dict() == want.PPPMatchEntity.from_dict(d).to_dict() == d
+        for fn in ("extract_lm_sample_name", "source_objective",
+                   "matched_target_metadata"):
+            assert getattr(g, fn)() == getattr(m, fn)()
+        assert g.has_source_image_files == m.has_source_image_files
+    assert [(t.name, t.file_type.name, t.has_thumbnail)
+            for t in got.PPPScreenshotType] == \
+        [(t.name, t.file_type.name, t.has_thumbnail)
+         for t in want.PPPScreenshotType]
+    for name in ("a_1_raw.png", "a_6_ch_skel.png", "a.tif", "x_5_ch.png"):
+        g = got.PPPScreenshotType.find_screenshot_type(name)
+        w = want.PPPScreenshotType.find_screenshot_type(name)
+        assert (g and g.name) == (w and w.name)
+
+
+def _case_sqlite_store(tmp_path, fixtures_dir):
+    """SqliteStore: the match fixtures written and read back by mask and
+    by target, as the reference's store does."""
+    from colormipsearch_tpu.dataio import db as want
+    from colormipsearch_torch.dataio import db as got
+    reads = []
+    for mod, io_name in ((got, "colormipsearch_torch"),
+                         (want, "colormipsearch_tpu")):
+        io = __import__(f"{io_name}.dataio", fromlist=["DataSourceParam"])
+        model = __import__(f"{io_name}.model", fromlist=["CDMatchEntity"])
+        store = mod.SqliteStore(str(tmp_path / f"{io_name}.db"))
+        mod.DBNeuronMatchesWriter(store).write(
+            [model.CDMatchEntity.from_dict(d)
+             for d in _match_dicts(fixtures_dir)])
+        reader = mod.DBNeuronMatchesReader(store)
+        masks = reader.list_match_locations([io.DataSourceParam()])
+        targets = reader.list_target_locations([io.DataSourceParam()])
+        by_mask = reader.read_matches_by_mask(io.DataSourceParam(
+            mip_ids=masks[:1]))
+        by_target = reader.read_matches_by_target(io.DataSourceParam(
+            mip_ids=targets[:1]))
+        reads.append((masks, targets,
+                      [(m.matched_image.mip_id, m.matching_pixels)
+                       for m in by_mask],
+                      [(m.mask_image.mip_id, m.matching_pixels)
+                       for m in by_target],
+                      store.distinct_neuron_values("library_name")))
+        store.close()
+    assert reads[0] == reads[1] and reads[0][2]
+
+
+def _case_mongo_pushdown(tmp_path, fixtures_dir):
+    """db_mongo's server-side selector and score-filter clauses."""
+    from colormipsearch_tpu.dataio import DataSourceParam as WParam
+    from colormipsearch_tpu.dataio import ScoresFilter as WFilter
+    from colormipsearch_tpu.dataio import db_mongo as want
+    from colormipsearch_torch.dataio import DataSourceParam as GParam
+    from colormipsearch_torch.dataio import ScoresFilter as GFilter
+    from colormipsearch_torch.dataio import db_mongo as got
+    params = [{}, {"alignment_space": "JRC2018_Unisex_20x_HR",
+                   "libraries": ["a", "b"], "mip_ids": ["m1"],
+                   "names": ["n"], "entity_ids": {3, 1},
+                   "source_ref_ids": {"s"}, "datasets": {"d2", "d1"},
+                   "tags": {"t"}, "excluded_tags": {"x"},
+                   "annotations": {"KC"}, "excluded_annotations": {"y"},
+                   "processing_tags": {"ColorDepthSearch": {"r1"}}}]
+    for p in params:
+        assert got.selector_pushdown_clauses("maskImage", GParam(**p)) == \
+            want.selector_pushdown_clauses("maskImage", WParam(**p))
+    for sel in ([], [("matchingRatio", 0.5)],
+                [("gradientAreaGap|bidirectionalAreaGap", -1)],
+                [("gradientAreaGap|bidirectionalAreaGap", 0),
+                 ("normalizedScore", 10)]):
+        fg, fw = GFilter(), WFilter()
+        for name, v in sel:
+            fg.add(name, v)
+            fw.add(name, v)
+        assert got.scores_pushdown_clauses(fg) == \
+            want.scores_pushdown_clauses(fw)
+
+
+def _case_backends(tmp_path, fixtures_dir):
+    """cmd.backends: the reader and writer of each backend, one store per
+    path until close_stores()."""
+    from colormipsearch_tpu.cmd import backends as want
+    from colormipsearch_torch.cmd import backends as got
+    md = str(tmp_path / "md")
+    for db in (None, str(tmp_path / "b.db")):
+        for fn in ("matches_reader", "matches_writer"):
+            assert type(getattr(got, fn)(db, md)).__name__ == \
+                type(getattr(want, fn)(db, md)).__name__
+    assert got.matches_writer(str(tmp_path / "b.db"), None,
+                              update_scores_only=True).update_scores_only
+    path = str(tmp_path / "c.db")
+    store = got.get_store(path)
+    assert got.get_store(path) is store
+    got.close_stores()
+    assert got._stores == {}
+    assert got.get_store(path) is not store
+    got.close_stores()
+
+
+def _case_jacs_client(tmp_path, fixtures_dir):
+    """jacs.client: the JACS records, the MIP cache with its ref
+    hydration (a stand-in client serves the fetches) and the library-name
+    mapping."""
+    import dataclasses
+    import json
+
+    from colormipsearch_tpu.jacs import client as want
+    from colormipsearch_torch.jacs import client as got
+    with open(fixtures_dir.parent / "export_golden" / "jacs_mips.json") as f:
+        docs = json.load(f)
+    docs = docs + [{"id": "m-ref", "emBodyRef": "EMBody#7"},
+                   {"id": "m-sample", "sampleRef": "Sample#9"}]
+    for d in docs:
+        g, w = got.ColorDepthMIP.from_dict(d), want.ColorDepthMIP.from_dict(d)
+        assert dataclasses.asdict(g) == dataclasses.asdict(w)
+        for fn in ("em_body_id", "em_dataset", "em_terms", "lm_line_name",
+                   "lm_slide_code", "lm_gender", "lm_release_names"):
+            assert getattr(g, fn)() == getattr(w, fn)()
+
+    def stand_in(mod):
+        class Client:
+            def retrieve_color_depth_mips_by_ids(self, ids):
+                return [mod.ColorDepthMIP.from_dict(d) for d in docs
+                        if d["id"] in ids]
+
+            def retrieve_em_bodies_by_refs(self, refs):
+                return [mod.CDMIPBody.from_dict(
+                    {"_id": r.split("#")[1], "datasetIdentifier": "ds"})
+                    for r in refs]
+
+            def retrieve_lm_samples_by_refs(self, refs):
+                return [mod.CDMIPSample.from_dict(
+                    {"_id": r.split("#")[1], "publishingName": "L"})
+                    for r in refs]
+        return Client()
+
+    cached = []
+    for mod in (got, want):
+        helper = mod.CachedDataHelper(stand_in(mod), read_batch_size=1)
+        helper.prefetch([d["id"] for d in docs] + ["absent"])
+        helper.set_library_name_mapping({"a": "A"})
+        cached.append(([dataclasses.asdict(helper.get(d["id"]))
+                        for d in docs], helper.get("absent"),
+                       helper.get_library_name("a"),
+                       helper.get_library_name("b")))
+    assert cached[0] == cached[1]
+    assert cached[0][0][-1]["sample"]["publishing_name"] == "L"
+    maps = []
+    for mod in (got, want):
+        real = mod.http_get_json
+        mod.http_get_json = lambda url, retries=3: {
+            "config": {"lib1": {"name": "Lib One"}, "lib2": None}}
+        try:
+            maps.append(mod.retrieve_library_name_mapping("http://cfg/"))
+        finally:
+            mod.http_get_json = real
+    assert maps[0] == maps[1] == {"lib1": "Lib One", "lib2": None}
+
+
+def _case_dataexport(tmp_path, fixtures_dir):
+    """cmd.dataexport: URL relativization, image-store mapping and the
+    published URL and LM-stack loaders."""
+    import json
+
+    from colormipsearch_tpu.cmd import dataexport as want
+    from colormipsearch_torch.cmd import dataexport as got
+    urls = ["https://s3.amazonaws.com/bucket/JRC2018/lib/a.png",
+            "/nrs/path/to/b.png", "c.png", None, "https://host/x"]
+    specs = ["CDM=2", "SignalMip=1,nonhttp"]
+    tg = got.URLTransformer(3, got.parse_file_type_indexes(specs))
+    tw = want.URLTransformer(3, want.parse_file_type_indexes(specs))
+    for ft in ("CDM", "SignalMip", "CDMThumbnail", None):
+        for u in urls:
+            assert tg.relativize_url(ft, u) == tw.relativize_url(ft, u)
+    store_specs = ["JRC2018_Unisex_20x_HR=brain",
+                   "JRC2018_Unisex_20x_HR:flyem=hemibrain"]
+    mg = got.parse_image_store_mapping("default", store_specs)
+    mw = want.parse_image_store_mapping("default", store_specs)
+    for space, lib in (("JRC2018_Unisex_20x_HR", "flyem"),
+                       ("JRC2018_Unisex_20x_HR", "other"), ("VNC", None),
+                       (None, None)):
+        assert mg.get_image_store(space, lib) == mw.get_image_store(space, lib)
+    for mod in (got, want):
+        with pytest.raises(ValueError):
+            mod.parse_file_type_indexes(["CDM"])
+    uploaded = {"cdm": "u1", "cdm_thumbnail": "u2", "skeletonswc": "u3",
+                "searchable_neurons": "u4"}
+    files = {"CDM": "old"}
+    for is_em in (True, False):
+        assert got.apply_published_urls(files, uploaded, is_em) == \
+            want.apply_published_urls(files, uploaded, is_em)
+    stacks = {"VisuallyLosslessStack": "v", "Gal4Expression": "g", "x": "y"}
+    assert got.apply_published_lm_stacks(files, stacks) == \
+        want.apply_published_lm_stacks(files, stacks)
+    path = tmp_path / "docs.json"
+    path.write_text(json.dumps([{"_id": 1, "uploaded": {"cdm": "a"}},
+                                {"id": "s1", "slideCode": "sc",
+                                 "files": {"Gal4Expression": "g"}},
+                                {"uploaded": {}}]))
+    for fn in ("load_published_urls", "load_published_lm_stacks"):
+        assert getattr(got, fn)(str(path)) == getattr(want, fn)(str(path))
+
+
 HOST_COPY_CASES = {
+    "dataio.base.apply_field_updates": _case_field_updates,
+    "model.PPPMatchEntity": _case_ppp_match_entity,
+    "dataio.db.SqliteStore": _case_sqlite_store,
+    "dataio.db_mongo": _case_mongo_pushdown,
+    "cmd.backends": _case_backends,
+    "jacs.client": _case_jacs_client,
+    "cmd.dataexport": _case_dataexport,
     "model.CDMatchEntity.grad_score": _case_match_score_helpers,
     "dataio.base.ScoresFilter": _case_scores_filter,
     "dataio.fs.JSONNeuronMatchesReader": _case_matches_reader,

@@ -177,9 +177,21 @@ def test_cli_goldens_match_reference(workspace, tmp_path, prescreen):
     assert _without_session(got) == _without_session(want)
 
 
-# the options of the first two cases were refused until the port had the
-# dense engine and the multi-process layer: they now run
-RUN_NOW = {"--engine dense", "multi-host"}
+# every option of these cases was refused until the port had it (the
+# dense engine, the multi-process layer, the store layer): they all run;
+# --mips-storage db refuses only without a --db store to read from
+
+
+def _store_rows(db):
+    from colormipsearch_torch.dataio import DataSourceParam
+    from colormipsearch_torch.dataio.db import (DBNeuronMatchesReader,
+                                                SqliteStore)
+    store = SqliteStore(db)
+    rows = DBNeuronMatchesReader(store).read_matches_by_mask(
+        DataSourceParam(mip_ids=["em-12191"]))
+    store.close()
+    return [(m.matched_image.mip_id, m.matching_pixels, m.mirrored,
+             sorted(m.tags)) for m in rows]
 
 
 @pytest.mark.parametrize("argv,needle", [
@@ -191,36 +203,61 @@ RUN_NOW = {"--engine dense", "multi-host"}
     (["--write-batch-size", "100"], "--write-batch-size"),
 ])
 def test_cli_refusals_name_roadmap(workspace, tmp_path, argv, needle):
-    """The store options refuse before any work, with a pointer to
-    ROADMAP.md. --engine dense runs, and --jax-distributed in one process
-    (no CMS_COORDINATOR: no group to join) runs as one process; both give
-    the reference CLI's files."""
+    """Each option runs and gives the reference CLI's results: --engine
+    dense, --jax-distributed in one process (no CMS_COORDINATOR: no group
+    to join), --update-matches and --write-batch-size write the reference's
+    files; --db stores its rows; --mips-storage db refuses without --db,
+    before any work, and with it reads the MIPs from the store by
+    library."""
+    ws = str(workspace)
     out = tmp_path / "o"
-    args = _search_args(str(workspace), str(out), "--device", "cpu", *argv)
-    if needle not in RUN_NOW:
-        with pytest.raises(SystemExit) as e:
+    db = str(tmp_path / "store.db")
+    args = _search_args(ws, str(out), "--device", "cpu",
+                        *[db if a == "store.db" else a for a in argv])
+    if needle == "--mips-storage db":
+        with pytest.raises(SystemExit, match="requires --db"):
             main(args)
-        assert needle in str(e.value) and "ROADMAP.md" in str(e.value)
         assert not out.exists()  # refused before any work
-        return
+        from colormipsearch_torch.dataio import (DataSourceParam,
+                                                 JSONCDMIPsReader)
+        from colormipsearch_torch.dataio.db import (DBCDMIPsWriter,
+                                                    SqliteStore)
+        store = SqliteStore(db)
+        for name in ("masks.json", "targets.json"):
+            DBCDMIPsWriter(store).write(JSONCDMIPsReader(os.path.join(
+                ws, name)).read_mips(DataSourceParam()))
+        store.close()
+        args = ["colorDepthSearch", "-m", "flyem_test", "-i",
+                "flylight_test", *_search_args(ws, str(out))[5:],
+                "--device", "cpu", "--mips-storage", "db", "--db", db]
     assert main(args + ["--maskBatchSize", "1"]) == 0
     ref_out = tmp_path / "ref"
-    assert ref_main(_search_args(str(workspace), str(ref_out))) == 0
-    files = []
-    for d in (out, ref_out):
-        with open(d / "masks" / "em-12191.json") as f:
-            files.append(_without_session(json.load(f)))
-    assert files[0] == files[1]
-    assert [r["matchingPixels"] for r in files[0]["results"]] == \
-        [439, 426, 414]
+    assert ref_main(_search_args(ws, str(ref_out))) == 0
+    with open(ref_out / "masks" / "em-12191.json") as f:
+        want = _without_session(json.load(f))
+    assert [r["matchingPixels"] for r in want["results"]] == [439, 426, 414]
+    if "--db" in args:
+        assert not out.exists()  # the store takes the results
+        assert _store_rows(db) == [
+            (r["image"]["mipId"], r["matchingPixels"], r["mirrored"],
+             ["golden"]) for r in want["results"]]
+        return
+    with open(out / "masks" / "em-12191.json") as f:
+        assert _without_session(json.load(f)) == want
 
 
-def test_gradient_scores_refused():
-    """gradientScores runs on the port; its store option is refused before
-    any work, with a pointer to ROADMAP.md."""
-    with pytest.raises(SystemExit) as e:
-        main(["gradientScores", "-md", "somewhere", "--db", "x.db"])
-    assert "ROADMAP.md" in str(e.value)
+def test_gradient_scores_refused(tmp_path):
+    """gradientScores refuses without matches to read (neither -md nor
+    --db); with --db it reads the store, not -md: an empty store leaves
+    the -md files untouched."""
+    with pytest.raises(SystemExit, match="--db"):
+        main(["gradientScores", "--device", "cpu"])
+    md = tmp_path / "masks"
+    md.mkdir()
+    (md / "em-1.json").write_text("{}")
+    assert main(["gradientScores", "-md", str(md), "--db",
+                 str(tmp_path / "x.db"), "--device", "cpu"]) == 0
+    assert (md / "em-1.json").read_text() == "{}"
 
 
 def test_sweep_parts_pipelines_partitions(library):

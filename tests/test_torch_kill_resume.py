@@ -146,3 +146,57 @@ def test_ga_grid_blocks_union_equals_single_run(stores):
     """Two gradientScores grid processes, started together on one store,
     produce the one-process result."""
     assert stores["ga_blocks"] == stores["ga_clean"]
+
+
+def test_flush_writes_only_collected_partitions(tmp_path, fixtures_dir,
+                                                monkeypatch):
+    """One target per partition: lm-0, then an unreadable file, then
+    lm-2. When lm-0's partition is flushed, the pipelined loop has
+    already decoded the next partitions (the unreadable one and lm-2);
+    the flush holds lm-0's rows alone, and the unreadable target's error
+    rows are written with lm-2's partition. A rerun converges to one
+    uninterrupted run."""
+    import json
+
+    from colormipsearch_torch.cmd import colordepthsearch_cmd as cds
+    from colormipsearch_torch.cmd.main import main
+    broken = tmp_path / "broken.tif"
+    broken.write_bytes(b"not an image")
+    lms = [fixtures_dir / "lms" / "VT033614_127B01_AE_01-20171124_64_H6-f-"
+           "CH2_01.tif", broken,
+           fixtures_dir / "lms" / "VT016795_115C08_AE_01-20200221_61_I2-m-"
+           "CH1_01.tif"]
+    em = {"class": "org.janelia.colormipsearch.model.EMNeuronEntity",
+          "id": "1001", "mipId": "em-0", "libraryName": "flyem_test",
+          "computeFiles": {"InputColorDepthImage": str(
+              fixtures_dir / "ems" / "12191_JRC2018U.tif")}}
+    targets = [{"class": "org.janelia.colormipsearch.model.LMNeuronEntity",
+                "id": str(2001 + i), "mipId": f"lm-{i}",
+                "libraryName": "flylight_test",
+                "computeFiles": {"InputColorDepthImage": str(path)}}
+               for i, path in enumerate(lms)]
+    for name, ents in (("masks.json", [em]), ("targets.json", targets)):
+        (tmp_path / name).write_text(json.dumps(ents))
+
+    def search(db):
+        return main(_search_cmd(tmp_path, db)[2:])
+
+    class Killed(Exception):
+        pass
+
+    def kill():
+        raise Killed
+
+    with monkeypatch.context() as m:
+        m.setattr(cds, "_test_kill_hook", kill)
+        with pytest.raises(Killed):
+            search(tmp_path / "crash.db")
+    partial = _canonical_store(tmp_path / "crash.db")["matches"]
+    assert [(d["image"]["mipId"], "errors" in d) for d in partial] == \
+        [("lm-0", False)]
+    assert search(tmp_path / "crash.db") == 0
+    assert search(tmp_path / "clean.db") == 0
+    clean = _canonical_store(tmp_path / "clean.db")["matches"]
+    assert sorted((d["image"]["mipId"], "errors" in d) for d in clean) == \
+        [("lm-0", False), ("lm-1", True), ("lm-2", False)]
+    assert _canonical_store(tmp_path / "crash.db")["matches"] == clean

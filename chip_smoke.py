@@ -1854,7 +1854,7 @@ def store_columns(db, columns):
 
 
 # phase 8b ran far over ~150 s at 1024 masks, held back by the serial
-# prescreen query features of the command (PERF.md, PR 6): cut to 256
+# prescreen query features of the command (PERF.md, section 5): cut to 256
 PIPELINE_CUT = "masks cut from 1024 to 256: phase 8b ran over ~150 s at 1024"
 
 

@@ -99,7 +99,32 @@ exact predicates, and the op microbench:
    Its numbers (each stage's seconds, the CLI's pairs/s with decode,
    match building and the store write, rows stored, gradient matches/s,
    peak device memory per process) are one JSON line
-   `{"pipeline": ...}` before the kernels line.
+   `{"pipeline": ...}` before the kernels line;
+9. the rest of the JAX package on the card: (a) the whole pipeline from
+   ingest to export through the CLI's entry points:
+   createColorDepthSearchDataInput writes the EM and LM libraries of the
+   fixtures (the LM one with its gradient and z-gap variants) as JSON
+   and into one SQLite store, copyToMipsStore copies the JSON lists into
+   a canonical store folder, then colorDepthSearch (--mips-storage db),
+   gradientScores and normalizeGradientScores on `--device cuda`,
+   importPPPResults (the two raw PPP fixtures, with screenshots), both
+   EM exports, tag, validateDBData and deleteCDMatches (a dry run, then
+   a run): the goldens of the fixture pairs from the ingested lists, the
+   PPP export's screenshot-backed match, K1 launched and K3a not
+   (counted from 0 just before the chain), and the exports, the
+   validation report and the rows deleted equal to the same chain's on
+   the CPU over a copy of the ingested store; (b) the tier-2 gate
+   (CMS_MM_TIER2=1) on phase 4's library: scores equal to the ungated
+   sweep on all 524,288 pairs on both predicates, partition 0's gated
+   table on K1 equal to its plain version and to the full table's
+   counts; live (row, tile) pairs, the bin-bit planes' ms, the query
+   bits' and the launch table's host seconds, K1's ms from either table
+   and pipelined pairs/s with and without the gate, in turns; (c) the
+   uncapped bound (CMS_PRESCREEN_CAP=0) and the target-feature bound on
+   partition 0, each equal to its CPU run on a slice, exact <= capped <=
+   uncapped <= feature on every pair, each bound's ms, survivor rate,
+   peak memory and bound. Its numbers are one JSON line `{"ingest": ...}`
+   before the kernels line.
 
 `python3 chip_smoke.py --profile DIR` adds a torch.profiler round of the
 phase-4 ratio sweep: device busy share, the bound's and the exact
@@ -113,6 +138,7 @@ or without a CUDA card, it exits with code 2 before printing any result.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -520,6 +546,16 @@ def adversarial_library(n_masks, n_targets):
     return masks, targets, h, w
 
 
+def swept(sweep, parts, dev, stage=None, sync=False):
+    """(scores, mirrored) of the CLI's partition loop over parts, to its
+    end on the card: partition p+1 is launched before p is collected."""
+    import torch
+    out = list(sweep.sweep_parts(enumerate(parts), stage, sync))
+    torch.cuda.synchronize(dev)
+    return (np.concatenate([s for _, s, _ in out], axis=1),
+            np.concatenate([m for _, _, m in out], axis=1))
+
+
 def device_kernel_ms(prof):
     """{kernel name: (device ms, launches)} of a torch.profiler run."""
     from torch.autograd import DeviceType
@@ -688,12 +724,7 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
     wrappers = {p: fns[0] for p, fns in mm.PREDICATE_KERNELS.items()}
 
     def run(sweep, stage, sync=False):
-        """The CLI's partition loop: partition p+1 is launched before p is
-        collected."""
-        out = list(sweep.sweep_parts(enumerate(parts), stage, sync))
-        torch.cuda.synchronize(dev)
-        return (np.concatenate([s for _, s, _ in out], axis=1),
-                np.concatenate([m for _, _, m in out], axis=1))
+        return swept(sweep, parts, dev, stage, sync)
 
     # stage round of each path: every stage synchronizes, so each stage's
     # seconds hold its device work; the main-path kernel launch counts are
@@ -831,7 +862,7 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
                       profile_dir)
     library = {"engines": engines, "words_engines": words_engines,
                "screen": screen, "u_matrix": u_matrix, "thr": thr,
-               "parts": parts, "result": results["ratio"]}
+               "parts": parts, "result": results["ratio"], "sweeps": sweeps}
     return timing, library
 
 
@@ -1990,6 +2021,435 @@ def phase_pipeline_at_size(ws, dev, library, n_masks=256, n_targets=512,
     return report
 
 
+
+# ---- phase 9 ---------------------------------------------------------------
+
+INGEST_LIBRARIES = {
+    "flyem_smoke": ["--cdm-location", os.path.join(FIXTURES, "ems")],
+    "flylight_smoke": ["--cdm-location", os.path.join(FIXTURES, "lms"),
+                       "--variant", "grad:" + os.path.join(FIXTURES, "grad"),
+                       "--variant", "zgap:" + os.path.join(FIXTURES, "zgap")],
+}
+# the two EM bodies of the PPP fixtures with their best LM match
+PPP_PAIRS = [("1599747200-PFNp_c-RT_18U",
+              "BJD_100A01_AE_01-20170929_62_B1_REG_UNISEX_40x"),
+             ("484130600-SMP145-RT_18U",
+              "BJD_105A09_AE_01-20180112_62_A2_REG_UNISEX_40x")]
+
+
+def run_cli(argv, want=0):
+    """One command through the port's CLI entry point, in this process."""
+    from colormipsearch_torch.cmd.main import main as cli
+    rc = cli([str(a) for a in argv])
+    if rc != want:
+        raise SystemExit(f"{argv[0]} exited {rc} (expected {want})")
+    return rc
+
+
+def ingest_lists(root):
+    """createColorDepthSearchDataInput for the EM library (the three EM
+    fixtures) and the LM library (the four LM fixtures with their
+    gradient and z-gap variants), as JSON lists and into one SQLite
+    store; then copyToMipsStore of the JSON lists into a canonical store
+    folder (--update-mips). Returns {library: entities} of the lists."""
+    db = os.path.join(root, "nb.db")
+    for lib, args in INGEST_LIBRARIES.items():
+        run_cli(["createColorDepthSearchDataInput", "--library", lib, *args,
+                 "-od", os.path.join(root, "mips")])
+        run_cli(["createColorDepthSearchDataInput", "--library", lib, *args,
+                 "--db", db])
+    lists = {}
+    for lib in INGEST_LIBRARIES:
+        mips = os.path.join(root, "mips", f"{lib}.json")
+        with open(mips) as f:
+            lists[lib] = json.load(f)
+        run_cli(["copyToMipsStore", "--mips-file", mips, "--target-folder",
+                 os.path.join(root, "store"), "--update-mips",
+                 "--lmIgnoreMissingSegmentation"])
+    return lists
+
+
+def ppp_inputs(root):
+    """The raw PPP result fixtures, screenshots of both EM bodies' best
+    match, and the published pppm URLs and LM samples of those two."""
+    import shutil
+    rd = os.path.join(root, "ppp", "00")
+    os.makedirs(rd)
+    fixtures = os.path.dirname(FIXTURES)
+    for name in sorted(os.listdir(fixtures)):
+        if name.startswith("cov_scores_"):
+            shutil.copy(os.path.join(fixtures, name), rd)
+    shots = os.path.join(root, "screenshots")
+    os.makedirs(shots)
+    for em, lm in PPP_PAIRS:
+        for sfx in ("_1_raw.png", "_5_ch.png"):
+            with open(os.path.join(shots, f"{em}-{lm}{sfx}"), "wb") as f:
+                f.write(b"png")
+    urls = os.path.join(root, "pppm_urls.json")
+    with open(urls, "w") as f:
+        json.dump([{"id": f"{em}-{lm}",
+                    "uploadedFiles": {
+                        "RAW": f"https://s3/ppp/{em}-{lm}_raw.png",
+                        "CH": f"https://s3/ppp/{em}-{lm}_ch.png"},
+                    "uploadedThumbnails": {
+                        "CH": f"https://s3/ppp/{em}-{lm}_ch.jpg"}}
+                   for em, lm in PPP_PAIRS], f)
+    samples = os.path.join(root, "samples.json")
+    with open(samples, "w") as f:
+        json.dump([{"_id": "101", "name": "BJD_100A01_AE_01-20170929_62_B1",
+                    "publishingName": "BJD_100A01",
+                    "slideCode": "20170929_62_B1", "gender": "f"},
+                   {"_id": "102", "name": "BJD_105A09_AE_01-20180112_62_A2",
+                    "publishingName": "BJD_105A09",
+                    "slideCode": "20180112_62_A2", "gender": "m"}], f)
+    return os.path.join(root, "ppp"), shots, urls, samples
+
+
+def store_rows(db):
+    """(neurons by entity id, CD matches) of a store."""
+    from colormipsearch_torch.dataio import DataSourceParam
+    from colormipsearch_torch.dataio.db import (DBNeuronMatchesReader,
+                                                SqliteStore)
+    store = SqliteStore(db)
+    try:
+        neurons = {n.entity_id: n for n in store.find_neurons(
+            DataSourceParam())}
+        reader = DBNeuronMatchesReader(store)
+        mips = reader.list_match_locations([DataSourceParam()])
+        matches = reader.read_matches_by_mask(
+            DataSourceParam(mip_ids=mips)) if mips else []
+    finally:
+        store.close()
+    return neurons, matches
+
+
+def ingest_chain(root, device, ppp):
+    """Steps 3-8 of phase 9a over the store in root: colorDepthSearch
+    (--mips-storage db), gradientScores, normalizeGradientScores,
+    importPPPResults, exportData (EM CD and EM PPP matches), tag,
+    validateDBData and deleteCDMatches (a dry run, then a run). Returns
+    what a chain on another device must reproduce."""
+    db = os.path.join(root, "nb.db")
+    cache = ["--array-cache", os.path.join(root, "array-cache")]
+    rd, shots, urls, samples = ppp
+    run_cli(["colorDepthSearch", "--mips-storage", "db", "--db", db,
+             "-m", "flyem_smoke", "-i", "flylight_smoke", *PIPELINE_CDS,
+             *cache, "--processing-tag", "cds-ingest", "--device", device])
+    run_cli(["gradientScores", "--db", db, *PIPELINE_GRAD, *cache,
+             "--device", device])
+    run_cli(["normalizeGradientScores", "--db", db])
+    run_cli(["importPPPResults", "--db", db, "-rd", rd, "--screenshots-dir",
+             shots, "-od", os.path.join(root, "ppp_json")])
+    # the ingested LM entities carry no anatomical area (the fixtures'
+    # names hold none), which the export's validation requires
+    run_cli(["exportData", "--exported-result-type", "EM_CD_MATCHES",
+             "--db", db, "-od", os.path.join(root, "export_cd"),
+             "--validation", "off"])
+    run_cli(["exportData", "--exported-result-type", "EM_PPP_MATCHES",
+             "--db", db, "-od", os.path.join(root, "export_ppp"),
+             "--pppm-urls", urls, "--jacs-samples-file", samples])
+    run_cli(["tag", "--db", db, "--tag", "smoke-9a", "--library",
+             "flylight_smoke"])
+    report = os.path.join(root, "report.json")
+    run_cli(["validateDBData", "--db", db, "--error-tag", "invalid",
+             "--check-matches", "--error-report", report], want=1)
+    neurons, before = store_rows(db)
+    delete = ["deleteCDMatches", "--db", db, "--include-matches-with-"
+              "gradscore", "--masks-published-names", "1752016801"]
+    run_cli(delete + ["--dry-run"])
+    if len(store_rows(db)[1]) != len(before):
+        raise SystemExit("deleteCDMatches --dry-run deleted matches")
+    run_cli(delete)
+    _, after = store_rows(db)
+    with open(report) as f:
+        errors = json.load(f)
+    kept = {m.entity_id for m in after}
+    return {"export_cd": file_tree(os.path.join(root, "export_cd")),
+            "export_ppp": file_tree(os.path.join(root, "export_ppp")),
+            "report": errors,
+            "deleted": sorted((m.mask_image.mip_id, m.matched_image.mip_id)
+                              for m in before if m.entity_id not in kept),
+            "rows": len(before), "rows_after": len(after),
+            "tagged": sum("smoke-9a" in (n.tags or ())
+                          for n in neurons.values()),
+            "neurons": neurons, "matches": before}
+
+
+def phase_ingest(ws, device="cuda"):
+    """(a) The whole production pipeline from ingest to export through the
+    CLI's entry points: the MIP lists of createColorDepthSearchDataInput,
+    copyToMipsStore, then search, gradient, normalize, PPP import, both
+    exports, tag, validate and delete over one SQLite store on `device`;
+    the goldens of the fixture pairs, K1 launched and K3a not (counted
+    from 0 just before the chain), and the exports, the validation report
+    and the rows deleted equal to the same chain's on the CPU over a copy
+    of the same ingested store."""
+    import shutil
+    from colormipsearch_torch.cds import multimask as mm
+    root = os.path.join(ws, "ingest")
+    t0 = time.perf_counter()
+    lists = ingest_lists(root)
+    report = {"listed": {k: len(v) for k, v in lists.items()},
+              "ingest_s": round(time.perf_counter() - t0, 2)}
+    copied = file_tree(os.path.join(root, "store"))
+    repointed = 0  # list entries that copyToMipsStore pointed at its copies
+    for lib in INGEST_LIBRARIES:
+        with open(os.path.join(root, "mips", f"{lib}.json")) as f:
+            repointed += sum(os.path.join(root, "store") in json.dumps(e)
+                             for e in json.load(f))
+    report["copied_files"] = len(copied)
+    ppp = ppp_inputs(root)
+    chains = {}
+    for i, dev in enumerate((device, "cpu")):
+        croot = os.path.join(root, f"chain{i}-{dev}")
+        os.makedirs(croot)
+        shutil.copy(os.path.join(root, "nb.db"), croot)  # the same lists
+        k1, k3a = (mm.PREDICATE_KERNELS[p][0] for p in ("ratio", "words"))
+        k1.launches = k3a.launches = 0
+        t0 = time.perf_counter()
+        chains[i] = ingest_chain(croot, dev, ppp)
+        chains[i]["launches"] = {"multimask_ratio": k1.launches,
+                                 "multimask_words": k3a.launches}
+        report[f"chain{i}_{dev}_s"] = round(time.perf_counter() - t0, 2)
+    main = chains[0]
+    by_file = {}
+    for e in main["neurons"].values():
+        src = e.compute_files.get(next(
+            c for c in e.compute_files if c.name == "SourceColorDepthImage"))
+        by_file[os.path.basename(src.file_name)] = e
+    mask = by_file["12191_JRC2018U.tif"]
+    target_key = {by_file[f"{n}.tif"].mip_id: f"lm-{i}"
+                  for i, n in enumerate(LM_GOLDEN)}
+    rows = {target_key[m.matched_image.mip_id]: m for m in main["matches"]
+            if m.mask_image.mip_id == mask.mip_id
+            and m.matched_image.mip_id in target_key}
+    pixels = [(k, rows[k].matching_pixels, rows[k].mirrored)
+              for k in sorted(rows)]
+    gaps = [(k, rows[k].gradient_area_gap) for k in sorted(rows)]
+    exported = json.loads(main["export_cd"][f"{mask.mip_id}.json"])
+    scores = [(target_key.get(r["image"]["mipId"], r["image"]["mipId"]),
+               round(r["normalizedScore"], 2)) for r in exported["results"]]
+    ppp_doc = json.loads(main["export_ppp"]["1599747200.json"])
+    ppp_results = [(r["image"]["publishedName"], r["files"].get("CDMBest"))
+                   for r in ppp_doc["results"]]
+    report.update(rows=main["rows"], rows_deleted=main["rows"]
+                  - main["rows_after"], report_errors=len(main["report"]),
+                  tagged=main["tagged"], launches=main["launches"],
+                  export_cd_files=len(main["export_cd"]),
+                  export_ppp_files=len(main["export_ppp"]))
+    log(f"[phase 9a] ingest: lists {report['listed']}, {len(copied)} files "
+        f"copied to the canonical store, {repointed} entities repointed; "
+        f"mask 12191 on {device}: stored {pixels}, gaps {gaps}, exported "
+        f"normalizedScore {scores}; PPP export {ppp_results}; {main['rows']} "
+        f"rows, {report['rows_deleted']} deleted, {report['report_errors']} "
+        f"validation errors, {main['tagged']} tagged; kernel launches "
+        f"{main['launches']}; chains {report[f'chain0_{device}_s']}s "
+        f"({device}), {report['chain1_cpu_s']}s (cpu)")
+    if pixels != CDS_GOLDENS or gaps != GAP_GOLDENS \
+            or scores != EXPORT_GOLDENS:
+        raise SystemExit("phase 9a's goldens are wrong")
+    if ppp_results != [("BJD_100A01", "https://s3/ppp/" + "-".join(
+            PPP_PAIRS[0]) + "_ch.png")]:
+        raise SystemExit(f"the PPP export: {ppp_results}")
+    if not copied or not repointed or not main["tagged"] \
+            or not main["report"] or not main["deleted"]:
+        raise SystemExit("copy, tag, validate or delete did nothing")
+    if device != "cpu" and (main["launches"]["multimask_ratio"] == 0
+                            or main["launches"]["multimask_words"] != 0):
+        raise SystemExit(f"phase 9a did not run through K1 alone: "
+                         f"{main['launches']}")
+    for key in ("export_cd", "export_ppp", "report", "deleted"):
+        if main[key] != chains[1][key]:
+            raise SystemExit(f"phase 9a: the CPU chain's {key} differs")
+    log(f"[phase 9a] the CPU chain over a copy of the ingested store: "
+        f"exports, validation report and rows deleted equal")
+    return report
+
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """os.environ[name] = value inside the block, restored after."""
+    prev = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
+def phase_tier2_at_size(checks, dev, library):
+    """(b) The tier-2 bin-compat gate (CMS_MM_TIER2=1) on phase 4's
+    library: the gated sweep's scores equal the ungated ones on every pair
+    on both predicates; on partition 0 the gated launch table, on K1,
+    equals its plain version and the full table's counts. Live (row,
+    tile) pairs with and without the gate, the bin-bit planes' ms, the
+    query bits' and the launch table's host seconds, K1's ms from either
+    table, and pipelined pairs/s with and without the gate, in turns."""
+    import torch
+    from colormipsearch_torch.cds import multimask as mm
+    from colormipsearch_torch.cds.pixel_active import pad_for_predicate
+    from colormipsearch_torch.scripts.op_microbench import cuda_ms
+    engines, parts, sweeps = (library[k] for k in ("engines", "parts",
+                                                   "sweeps"))
+    want = library["result"]
+    pairs = len(engines) * sum(len(p) for p in parts)
+    report = {}
+    t0 = time.perf_counter()
+    for e in engines:
+        e.__dict__.pop("_tier2_bits", None)
+        if mm.tile_compat_bits(e) is None:
+            raise SystemExit("tile_compat_bits cannot apply at zTol 0.01")
+    report["query_bits_s_per_mask"] = (time.perf_counter() - t0) / len(
+        engines)
+    with env_set("CMS_MM_TIER2", "1"):
+        if not mm.tier2_enabled():
+            raise SystemExit("CMS_MM_TIER2=1 did not turn the gate on")
+        for path, sweep in sweeps.items():
+            got = swept(sweep, parts, dev)
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"the gated {path} sweep's scores differ")
+    log(f"[phase 9b] the gated sweep == the ungated one on all {pairs} "
+        f"pairs, both predicates")
+    # partition 0's tables, gated and not
+    words = engines[0].pack_raw_words(parts[0], dev)
+    _, h, w = words.shape
+    grid = (-(-h // 8), -(-w // 128))
+    report["bin_bits_ms"] = cuda_ms(lambda: mm._bin_bits_dev(words, *grid),
+                                    3)
+    t0 = time.perf_counter()
+    bins = mm.bin_bits_from_words(words)
+    report["bin_bits_host_s"] = time.perf_counter() - t0
+    screen, u, thr = (library[k] for k in ("screen", "u_matrix", "thr"))
+    survivors = (screen.bounds_from_words(u, words)
+                 > thr[:, None]).astype(np.int32)
+    ranges = mm.signal_ranges_from_words(words)
+    live = mm.tile_live_from_words(words)
+    (_, scorer), = sweeps["ratio"].groups
+    tables, table_s = {}, {}
+    for name, bits in (("full", None), ("gated", bins)):
+        t0 = time.perf_counter()
+        tables[name] = scorer.build_table(survivors, ranges, live, bits)
+        table_s[name] = time.perf_counter() - t0
+    planes = pad_for_predicate(words, "ratio")
+    kernel, plain = mm.PREDICATE_KERNELS["ratio"]
+    tail = scorer.kernel_tail()
+    args = {k: scorer.kernel_args(planes, t) for k, t in tables.items()}
+    got = checks["multimask_ratio"].compare(
+        "at size, partition 0's tier-2 gated table",
+        lambda: kernel(*args["gated"], *tail),
+        lambda: plain(*args["gated"], *tail))
+    if not torch.equal(got, kernel(*args["full"], *tail)):
+        raise SystemExit("the gated table's counts differ from the full "
+                         "table's")
+    ms = {k: cuda_ms(lambda a=a: kernel(*a, *tail), 3)
+          for k, a in args.items()}
+
+    def directions(tab):
+        d = (tab.tile_list >> mm.DIR_SHIFT) & 3
+        return int((d & 1).sum() + (d >> 1).sum())
+
+    report["partition0"] = {
+        k: {"rows": len(t.tgt), "live_row_tiles": len(t.tile_list),
+            "live_directions": directions(t), "table_host_s": table_s[k],
+            "k1_ms": ms[k]} for k, t in tables.items()}
+    walls = {"off": [], "on": []}
+    for gate in ("off", "on", "on", "off"):
+        with env_set("CMS_MM_TIER2", "1" if gate == "on" else "0"):
+            t0 = time.perf_counter()
+            got = swept(sweeps["ratio"], parts, dev)
+            walls[gate].append(time.perf_counter() - t0)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise SystemExit(f"a {gate} round's scores differ")
+    report["pairs_per_s"] = {k: [pairs / x for x in v]
+                             for k, v in walls.items()}
+    p0 = report["partition0"]
+    log(f"[phase 9b] partition 0: live (row, tile) pairs "
+        f"{p0['full']['live_row_tiles']} -> {p0['gated']['live_row_tiles']}"
+        f" (directions {p0['full']['live_directions']} -> "
+        f"{p0['gated']['live_directions']}); bin-bit planes "
+        f"{report['bin_bits_ms']:.3f} ms on the card "
+        f"({report['bin_bits_host_s']:.3f}s with the copy); query bits "
+        f"{1e3 * report['query_bits_s_per_mask']:.3f} ms per mask; launch "
+        f"table {table_s['full']:.3f}s -> {table_s['gated']:.3f}s; K1 "
+        f"{ms['full']:.3f} -> {ms['gated']:.3f} ms; pipelined pairs/s "
+        f"off {report['pairs_per_s']['off']}, on "
+        f"{report['pairs_per_s']['on']}")
+    return report
+
+
+def phase_bounds_at_size(dev, library, n_cpu=4):
+    """(c) The uncapped bound (CMS_PRESCREEN_CAP=0) and the target-feature
+    bound beside the capped one on partition 0 (all masks x 256 targets of
+    566x1210): each equal to its CPU run on the first n_cpu masks and
+    targets, exact <= capped <= uncapped <= feature on every pair; each
+    bound's ms by CUDA events, survivor rate at the 1 % keep threshold,
+    peak device memory and bound (bytes over 3.35 TB/s, its products over
+    the card's 67 TFLOP/s of fp32)."""
+    import torch
+    from colormipsearch_torch.cds import prescreen as ps
+    from colormipsearch_torch.scripts.op_microbench import cuda_ms
+    engines, screen, u, thr = (library[k] for k in (
+        "engines", "screen", "u_matrix", "thr"))
+    part = library["parts"][0]
+    exact = library["result"][0][:, :len(part)]
+    words = engines[0].pack_raw_words(part, dev)
+    u_dev = torch.from_numpy(u).to(dev)
+
+    def capped(uu, ww):
+        return screen.bounds_from_words(uu, ww)
+
+    def uncapped(uu, ww):
+        with env_set("CMS_PRESCREEN_CAP", "0"):
+            return screen.bounds_from_words(uu, ww)
+
+    def feature(uu, ww):
+        return screen.bounds(uu, screen.target_features(ww))
+
+    bsz, tsz = exact.shape
+    n_off = len(screen.offsets)
+    f = u.shape[1]
+    in_bytes = words.numel() * 4 + u.size * 4 + bsz * tsz * 4
+    flops = {"capped": 2 * bsz * tsz * f * n_off * 2,
+             "uncapped": 2 * bsz * tsz * f * n_off * 2,
+             "feature": 2 * bsz * tsz * f * 2}
+    report, values = {}, {}
+    for name, fn in (("capped", capped), ("uncapped", uncapped),
+                     ("feature", feature)):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        values[name] = fn(u_dev, words)
+        peak = torch.cuda.max_memory_allocated(dev)
+        ms = cuda_ms(lambda fn=fn: fn(u_dev, words), 2)
+        cpu = fn(u[:n_cpu], words[:n_cpu].cpu())
+        if not np.array_equal(cpu, values[name][:n_cpu, :n_cpu]):
+            raise SystemExit(f"the {name} bound on the card differs from "
+                             f"its CPU run")
+        bytes_ms = 1e3 * in_bytes / PEAK_BYTES
+        ops_ms = 1e3 * flops[name] / (2 * PEAK_LANE_OPS)
+        report[name] = {
+            "ms": ms, "peak_gib": peak / 2**30,
+            "survivor_rate": float(np.mean(values[name] > thr[:, None])),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    chain = [exact, values["capped"], values["uncapped"], values["feature"]]
+    held = all((a <= b).all() for a, b in zip(chain, chain[1:]))
+    log(f"[phase 9c] partition 0 ({bsz} masks x {tsz} targets): each bound "
+        f"== its CPU run on {n_cpu} x {n_cpu}; exact <= capped <= uncapped "
+        f"<= feature on every pair: {held}; " + "; ".join(
+            f"{k} {v['ms']:.2f} ms (bound {v['bound_ms']:.2f} ms by "
+            f"{v['bound_by']}), survivors {v['survivor_rate']:.4f}, peak "
+            f"{v['peak_gib']:.2f} GiB" for k, v in report.items()))
+    if not held:
+        raise SystemExit("the bounds' chain does not hold")
+    del words, u_dev
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -2038,6 +2498,13 @@ def main():
         pipeline["at_size"]["phase_s"] = round(time.perf_counter() - t8b, 2)
         log(f"[phase 8] the production pipeline in "
             f"{time.perf_counter() - t8:.1f}s")
+        t9 = time.perf_counter()
+        ingest = {"pipeline": phase_ingest(ws),
+                  "tier2": phase_tier2_at_size(checks, dev, library),
+                  "bounds": phase_bounds_at_size(dev, library)}
+        ingest["phase_s"] = round(time.perf_counter() - t9, 2)
+        log(f"[phase 9] ingest to export, the tier-2 gate and the bounds "
+            f"in {ingest['phase_s']}s")
     for name, check in checks.items():
         timing[name]["max_abs_err"] = check.max_abs_err
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f}s")
@@ -2045,6 +2512,7 @@ def main():
     print(json.dumps({"gradient": gradient}))
     print(json.dumps({"scale_out": scale_out}))
     print(json.dumps({"pipeline": pipeline}))
+    print(json.dumps({"ingest": ingest}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: timing[name][k] for k in (

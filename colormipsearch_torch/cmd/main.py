@@ -1,11 +1,7 @@
 """CLI dispatcher: `python -m colormipsearch_torch <command> ...`.
 
-Counterpart of `colormipsearch_tpu/cmd/main.py`. The production
-pipeline runs on this package: colorDepthSearch, gradientScores,
-normalizeGradientScores (and its alias mormalizeGradientScores) and
-exportData. The reference's other commands are not ported yet; each is
-registered under its own name and refuses with a pointer to the JAX
-package, which runs it (`python -m colormipsearch_tpu <command>`).
+Counterpart of `colormipsearch_tpu/cmd/main.py` (cmd/Main.java:25-97):
+one multi-command entry point for every command of the JAX package.
 """
 
 from __future__ import annotations
@@ -15,42 +11,26 @@ import logging
 import sys
 from typing import List, Optional
 
-# the reference's commands that are not ported yet (ROADMAP.md, queue 1):
-# the host commands around the production pipeline
-NOT_PORTED = ("createColorDepthSearchDataInput", "importPPPResults", "tag",
-              "copyToMipsStore", "validateDBData", "deleteCDMatches")
-
-
-def _refused(args) -> int:
-    raise SystemExit(f"{args.command} is not ported to colormipsearch_torch "
-                     f"yet (see ROADMAP.md, queue 1); run it with "
-                     f"`python -m colormipsearch_tpu {args.command}`")
-
 
 def build_parser() -> argparse.ArgumentParser:
-    from . import (colordepthsearch_cmd, exportdata_cmd, gradientscores_cmd,
-                   normalize_cmd)
+    from . import (colordepthsearch_cmd, copymips_cmd, createdatainput_cmd,
+                   delete_cmd, exportdata_cmd, gradientscores_cmd,
+                   importppp_cmd, normalize_cmd, tag_cmd, validate_cmd)
     parser = argparse.ArgumentParser(
         prog="colormipsearch-torch",
         description="color depth MIP search tools (PyTorch/CUDA port)")
     parser.add_argument("-v", "--verbose", action="store_true")
     subparsers = parser.add_subparsers(dest="command")
-    colordepthsearch_cmd.add_parser(subparsers)
-    gradientscores_cmd.add_parser(subparsers)
-    normalize_cmd.add_parser(subparsers)
-    exportdata_cmd.add_parser(subparsers)
-    for name in NOT_PORTED:
-        p = subparsers.add_parser(
-            name, help="not ported yet: runs on colormipsearch_tpu only")
-        p.set_defaults(func=_refused)
+    for mod in (colordepthsearch_cmd, gradientscores_cmd, normalize_cmd,
+                createdatainput_cmd, importppp_cmd, exportdata_cmd,
+                tag_cmd, copymips_cmd, validate_cmd, delete_cmd):
+        mod.add_parser(subparsers)
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
-    args, extra = parser.parse_known_args(argv)
-    if extra and args.command not in NOT_PORTED:  # those refuse any args
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s - %(message)s")

@@ -9,5 +9,5 @@ from .base import (AppendField, CDMIPsReader, CDMIPsWriter, DataSourceParam,
 from .db import (DBCDMIPsReader, DBCDMIPsWriter, DBNeuronMatchesReader,
                  DBNeuronMatchesWriter, SqliteStore)
 from .db_mongo import MongoStore, open_store
-from .fs import (JSONCDMIPsReader, JSONCDSSessionWriter,
+from .fs import (JSONCDMIPsReader, JSONCDMIPsWriter, JSONCDSSessionWriter,
                  JSONNeuronMatchesReader, JSONNeuronMatchesWriter)

@@ -1,12 +1,10 @@
-"""Filesystem (JSON) persistence backend of the colorDepthSearch command.
+"""Filesystem (JSON) persistence backends.
 
-Copy of the readers and writers of `colormipsearch_tpu/dataio/fs.py` that
-the colorDepthSearch and gradientScores commands use (counterparts of
-colormipsearch-persist dataio/fs/*.java).
-File formats are wire-compatible with the reference:
+Counterparts of colormipsearch-persist dataio/fs/*.java. File formats are
+wire-compatible with the reference:
 
 - MIP lists: a flat JSON array of class-discriminated neuron entities
-  (JSONCDMIPsReader.java).
+  (JSONCDMIPsReader/Writer.java).
 - Matches: one file per group keyed by mip ID, shaped
   {"inputImage": <mask entity sans mask-side compute files>,
    "results": [<match sans maskImage, with matchComputeFiles
@@ -15,6 +13,8 @@ File formats are wire-compatible with the reference:
   written under a per-masks dir and optionally a per-targets dir with
   mask/target roles swapped (JSONNeuronMatchesWriter.java:43-90,
   MatchEntitiesGrouping.groupByMaskFields/expandResultsByMask).
+
+Copy of `colormipsearch_tpu/dataio/fs.py`.
 """
 
 from __future__ import annotations
@@ -22,13 +22,14 @@ from __future__ import annotations
 import copy
 import json
 import os
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Set
 
 from ..model.entities import (CDMatchEntity, CDSSessionEntity, NeuronEntity,
                               entity_from_dict)
-from ..model.enums import ComputeFileType
-from .base import (CDMIPsReader, DataSourceParam, NeuronMatchesReader,
-                   NeuronMatchesWriter, ScoresFilter, SortCriteria)
+from ..model.enums import ComputeFileType, ProcessingType
+from .base import (CDMIPsReader, CDMIPsWriter, DataSourceParam,
+                   NeuronMatchesReader, NeuronMatchesWriter, ScoresFilter,
+                   SortCriteria)
 
 _MASK_SIDE_COMPUTE_FILES = (ComputeFileType.InputColorDepthImage,
                             ComputeFileType.GradientImage,
@@ -52,6 +53,36 @@ class JSONCDMIPsReader(CDMIPsReader):
         entities = [entity_from_dict(d) for d in raw]
         selected = [e for e in entities if param.matches_entity(e)]
         return param.apply_slice(selected)
+
+
+class JSONCDMIPsWriter(CDMIPsWriter):
+    """Write MIP entity lists to a JSON file (JSONCDMIPsWriter.java)."""
+
+    def __init__(self, path: str, append: bool = False):
+        self.path = path
+        self.append = append
+        self._items: List[NeuronEntity] = []
+
+    def open(self) -> None:
+        self._items = []
+        if self.append and os.path.exists(self.path):
+            with open(self.path) as f:
+                self._items = [entity_from_dict(d) for d in json.load(f)]
+
+    def write(self, entities: List[NeuronEntity]) -> None:
+        self._items.extend(entities)
+
+    def add_processing_tags(self, entities: List[NeuronEntity],
+                            processing_type: ProcessingType,
+                            tags: Set[str]) -> None:
+        for e in entities:
+            for t in tags:
+                e.add_processed_tag(processing_type, t)
+
+    def close(self) -> None:
+        os.makedirs(os.path.dirname(os.path.abspath(self.path)), exist_ok=True)
+        with open(self.path, "w") as f:
+            json.dump([e.to_dict() for e in self._items], f, indent=2)
 
 
 def _group_matches(matches: List[CDMatchEntity], by_target: bool):

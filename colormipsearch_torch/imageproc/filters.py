@@ -60,6 +60,8 @@ def max_filter_plane(plane: np.ndarray, radius: float) -> np.ndarray:
         hmax = ndi.maximum_filter1d(plane, size=2 * extent + 1, axis=1,
                                     mode="constant", cval=0)
         for off in offsets:
+            if abs(off) >= h:  # samples only outside-image pixels (0)
+                continue
             if off >= 0:
                 np.maximum(out[:h - off], hmax[off:], out=out[:h - off])
             else:

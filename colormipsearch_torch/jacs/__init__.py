@@ -1,8 +1,9 @@
-"""JACS data-service client of the export (counterpart of
-`colormipsearch_tpu/jacs/`)."""
+"""JACS data-service client (counterpart of `colormipsearch_tpu/jacs/`)."""
 
 from .client import (CachedDataHelper, CDMIPBody, CDMIPSample, ColorDepthMIP,
-                     JacsClient, retrieve_library_name_mapping)
+                     JacsClient, em_neuron_from_mip, lm_neuron_from_mip,
+                     retrieve_library_name_mapping)
 
 __all__ = ["JacsClient", "ColorDepthMIP", "CDMIPSample", "CDMIPBody",
-           "CachedDataHelper", "retrieve_library_name_mapping"]
+           "CachedDataHelper", "em_neuron_from_mip", "lm_neuron_from_mip",
+           "retrieve_library_name_mapping"]

@@ -1,17 +1,17 @@
 """JACS REST data client.
 
-Copy of `colormipsearch_tpu/jacs/client.py` without the paged library
-listing and the MIP-to-entity mapping of
-createColorDepthSearchDataInput, which the export does not use.
-
-Counterpart of cmd/jacsdata/*.java and cmd/HttpHelper.java: color
-depth MIPs with sample/body metadata fetched by id from the JACS data
-service, with retries and an auth header, the MIP cache the export
-enriches its neurons from (CachedDataHelper) and the library-name
-mapping of the NeuronBridge config service.
+Counterpart of cmd/jacsdata/*.java and cmd/HttpHelper.java: paged
+retrieval of color depth MIPs with sample/body metadata from the JACS
+data service, with retries and an auth header, plus the entity mapping
+used by createColorDepthSearchDataInput
+(CreateCDSDataInputCmd.java:569-614 asEMNeuron/asLMNeuron and
+:646-666 retrieveColorDepthMipsWithSamples).
 
 Pure stdlib (urllib) — no Jersey analogue needed; the service speaks
-plain JSON over GET. All calls are synchronous.
+plain JSON over GET. All calls are synchronous; the import command
+pages through results so memory stays bounded.
+
+Copy of `colormipsearch_tpu/jacs/client.py`.
 """
 
 from __future__ import annotations
@@ -23,6 +23,9 @@ import urllib.parse
 import urllib.request
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
+
+from ..model import (ComputeFileType, EMNeuronEntity, FileData, Gender,
+                     LMNeuronEntity)
 
 LOG = logging.getLogger(__name__)
 
@@ -188,13 +191,14 @@ def http_get_json(url: str, auth: Optional[str] = None, timeout: float = 60.0,
 
 
 class JacsClient:
-    """JACS data-service reader by id, ref and name
-    (cmd/jacsdata/JacsDataGetter.java)."""
+    """Paged JACS data-service reader
+    (CreateCDSDataInputCmd.java:646-678)."""
 
     def __init__(self, base_url: str, authorization: Optional[str] = None,
-                 retries: int = 3):
+                 page_size: int = 10000, retries: int = 3):
         self.base_url = base_url.rstrip("/")
         self.authorization = authorization
+        self.page_size = page_size
         self.retries = retries
 
     def _get(self, path: str, **params):
@@ -203,6 +207,37 @@ class JacsClient:
         url = f"{self.base_url}{path}?{qs}" if qs else f"{self.base_url}{path}"
         return http_get_json(url, auth=self.authorization,
                              retries=self.retries)
+
+    def count_color_depth_mips(self, library_name: str,
+                               alignment_space: str) -> int:
+        out = self._get("/data/colorDepthMIPsCount",
+                        libraryName=library_name,
+                        alignmentSpace=alignment_space)
+        return int(out)
+
+    def retrieve_color_depth_mips_with_samples(
+            self, library_name: str, alignment_space: str,
+            datasets: Sequence[str] = (), releases: Sequence[str] = (),
+            mip_ids: Sequence[str] = ()) -> List[ColorDepthMIP]:
+        """All pages of /data/colorDepthMIPsWithSamples
+        (query params per CreateCDSDataInputCmd.java:655-664)."""
+        out: List[ColorDepthMIP] = []
+        offset = 0
+        while True:
+            batch = self._get(
+                "/data/colorDepthMIPsWithSamples",
+                libraryName=library_name, alignmentSpace=alignment_space,
+                dataset=",".join(d for d in datasets if d) or None,
+                release=",".join(r for r in releases if r) or None,
+                id=",".join(m for m in mip_ids if m) or None,
+                offset=offset, length=self.page_size)
+            if not batch:
+                break
+            out.extend(ColorDepthMIP.from_dict(d) for d in batch)
+            if len(batch) < self.page_size:
+                break
+            offset += len(batch)
+        return out
 
     def retrieve_color_depth_mips_by_ids(
             self, mip_ids: Sequence[str]) -> List[ColorDepthMIP]:
@@ -336,3 +371,56 @@ class CachedDataHelper:
             return None
         return self._library_names.get(internal_name, internal_name)
 
+
+def em_neuron_from_mip(mip: ColorDepthMIP, library_name: str,
+                       alignment_space: str) -> EMNeuronEntity:
+    """ColorDepthMIP -> EMNeuronEntity
+    (CreateCDSDataInputCmd.java:569-592)."""
+    e = EMNeuronEntity()
+    e.mip_id = mip.id
+    e.alignment_space = mip.alignment_space or alignment_space
+    e.library_name = library_name
+    e.source_ref_id = mip.em_body_ref
+    e.published_name = mip.em_body_id()
+    e.neuron_instance = mip.neuron_instance
+    e.neuron_type = mip.neuron_type
+    terms = mip.em_terms()
+    if terms:
+        e.neuron_terms = list(terms)
+    ds = mip.em_dataset()
+    if ds:
+        e.dataset_labels.add(ds)
+    if mip.filepath:
+        e.compute_files[ComputeFileType.SourceColorDepthImage] = \
+            FileData.from_string(mip.filepath)
+    if mip.em_body:
+        for key, ftype in (("SkeletonSWC", ComputeFileType.SkeletonSWC),
+                           ("SkeletonOBJ", ComputeFileType.SkeletonOBJ)):
+            if mip.em_body.files.get(key):
+                e.compute_files[ftype] = FileData.from_string(
+                    mip.em_body.files[key])
+    return e
+
+
+def lm_neuron_from_mip(mip: ColorDepthMIP, library_name: str,
+                       alignment_space: str) -> LMNeuronEntity:
+    """ColorDepthMIP -> LMNeuronEntity
+    (CreateCDSDataInputCmd.java:594-614)."""
+    e = LMNeuronEntity()
+    e.mip_id = mip.id
+    e.alignment_space = mip.alignment_space or alignment_space
+    e.library_name = library_name
+    e.source_ref_id = mip.sample_ref
+    e.internal_line_name = mip.lm_internal_line_name()
+    e.published_name = mip.lm_line_name()
+    e.slide_code = mip.lm_slide_code()
+    e.anatomical_area = mip.anatomical_area
+    g = mip.lm_gender()
+    e.gender = Gender.from_val(g) if g else None
+    e.objective = mip.objective
+    for r in mip.lm_release_names():
+        e.dataset_labels.add(r)
+    if mip.filepath:
+        e.compute_files[ComputeFileType.SourceColorDepthImage] = \
+            FileData.from_string(mip.filepath)
+    return e

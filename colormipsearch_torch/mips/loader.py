@@ -1,11 +1,11 @@
 """MIP loading: FileData -> decoded Image, with caching.
 
-Copy of `colormipsearch_tpu/mips/loader.py` without `filedata_exists`
-(used by validateDBData only). Counterparts of
-mips/NeuronMIPUtils.java:62-236 (loadComputeFile / loadImageFromFileData
-/ openInputStream: plain file, directory entry, or zip entry with a
-fallback archive scan) and cmd/CachedMIPsUtils.java:19-112 (the bounded
-MIP cache keyed on (neuron, computeFileType)).
+Counterparts of mips/NeuronMIPUtils.java:62-236 (loadComputeFile /
+loadImageFromFileData / openInputStream: plain file, directory entry, or
+zip entry with a fallback archive scan) and cmd/CachedMIPsUtils.java:19-112
+(the bounded MIP cache keyed on (neuron, computeFileType)).
+
+Copy of `colormipsearch_tpu/mips/loader.py`.
 """
 
 from __future__ import annotations
@@ -32,6 +32,10 @@ class NeuronMIP:
     file_data: Optional[FileData]
     image: Optional[Image]
 
+    @property
+    def has_image(self) -> bool:
+        return self.image is not None
+
 
 def _load_from_zip(archive: str, entry: str) -> Optional[Image]:
     with zipfile.ZipFile(archive) as zf:
@@ -49,6 +53,29 @@ def _load_from_zip(archive: str, entry: str) -> Optional[Image]:
             if data is None:
                 return None
     return load_image(data)
+
+
+def filedata_exists(fd: Optional[FileData]) -> bool:
+    """NeuronMIPUtils.exists analogue (used by validateDBData's
+    compute-file checks, ValidateNBDBDataCmd.java:326-337): plain files
+    by path; zip entries by archive membership, including the
+    basename fallback scan the loader itself uses."""
+    if fd is None:
+        return False
+    if fd.data_type == FileDataType.zipEntry:
+        if not os.path.exists(fd.file_name):
+            return False
+        try:
+            with zipfile.ZipFile(fd.file_name) as zf:
+                names = set(zf.namelist())
+                if fd.entry_name in names:
+                    return True
+                base = os.path.basename(fd.entry_name or "")
+                return any(os.path.basename(n) == base and is_image_file(n)
+                           for n in names)
+        except (OSError, zipfile.BadZipFile):
+            return False
+    return os.path.exists(fd.file_name) and not os.path.isdir(fd.file_name)
 
 
 def load_image_from_filedata(fd: Optional[FileData]) -> Optional[Image]:

@@ -1,14 +1,13 @@
 """Domain entities: neurons, matches, sessions.
 
-Copy of `colormipsearch_tpu/model/entities.py` without
-`NeuronEntity.has_compute_file`, which no ported command calls.
-
 Counterparts of the reference model layer (model/AbstractNeuronEntity
 .java:25-50, EMNeuronEntity.java, LMNeuronEntity.java:17-28,
 AbstractMatchEntity.java:22-30, CDMatchEntity.java:12-170,
 PPPMatchEntity.java:15-35, CDSSessionEntity.java). JSON round-trips use
 the reference's fs-store field names (class-discriminated entities) so
 the two toolsets can read each other's JSON results.
+
+Copy of `colormipsearch_tpu/model/entities.py`.
 """
 
 from __future__ import annotations
@@ -53,6 +52,9 @@ class NeuronEntity:
 
     def compute_file(self, ftype: ComputeFileType) -> Optional[FileData]:
         return self.compute_files.get(ftype)
+
+    def has_compute_file(self, ftype: ComputeFileType) -> bool:
+        return ftype in self.compute_files
 
     def add_processed_tag(self, ptype: ProcessingType, tag: str) -> None:
         self.processed_tags.setdefault(ptype, set()).add(tag)

@@ -1,12 +1,11 @@
 """Domain enums, mirroring the reference's model enums.
 
-Copy of `colormipsearch_tpu/model/enums.py` without the FileType PPP
-suffix lookups, which only the PPP import (not ported) uses.
-
 - ComputeFileType: model/ComputeFileType.java:5-17
-- FileType: model/FileType.java:5-27
+- FileType: model/FileType.java:5-27 (incl. PPP suffix mapping)
 - ProcessingType: model/ProcessingType.java
 - Gender: model/Gender.java
+
+Copy of `colormipsearch_tpu/model/enums.py`.
 """
 
 from __future__ import annotations
@@ -63,6 +62,18 @@ class FileType(enum.Enum):
             if v.name.lower() == name.lower():
                 return v
         return None
+
+    @classmethod
+    def find_by_ppp_suffix(cls, fname: str) -> Optional["FileType"]:
+        for v in cls:
+            if v.file_suffix and fname.endswith(v.file_suffix):
+                return v
+        return None
+
+    @property
+    def display_ppp_suffix(self) -> str:
+        # strips the ordering prefix _n_ (FileType.getDisplayPPPSuffix)
+        return "" if not self.file_suffix else self.file_suffix[3:]
 
 
 class PPPScreenshotType(enum.Enum):

@@ -1,3 +1,4 @@
 """Persistence helpers (counterpart of `colormipsearch_tpu/persist/`)."""
 
+from .config import Config
 from .idgenerator import TimebasedIdGenerator

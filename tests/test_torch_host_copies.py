@@ -586,6 +586,275 @@ def _case_filters(tmp_path, fixtures_dir):
                                       want.max_filter_plane(rgb[..., 0], r))
 
 
+
+def _case_filters_short_planes(tmp_path, fixtures_dir):
+    """Planes shorter than the kernel: offsets past the plane sample only
+    outside-image pixels (0). The reference is the JAX package's default
+    path, its native filter, or where that does not load, the dense
+    footprint max (never its NumPy decomposition, which raises there)."""
+    from scipy import ndimage as ndi
+
+    from colormipsearch_tpu import native
+    from colormipsearch_tpu.imageproc import filters as want
+    from colormipsearch_torch.imageproc import filters as got
+    rng = np.random.default_rng(11)
+    for h in (1, 19, 20, 40, 59, 60, 61):
+        rgb = _random_rgb(rng, (h, 96), 0.9)
+        for r in (20.0, 60.0):
+            if native.available():
+                ref = want.max_filter_rgb(rgb, r)
+            else:
+                fp = want.circular_footprint(r)
+                ref = np.stack([ndi.maximum_filter(
+                    rgb[..., c], footprint=fp, mode="constant", cval=0)
+                    for c in range(3)], axis=-1)
+            np.testing.assert_array_equal(got.max_filter_rgb(rgb, r), ref)
+            np.testing.assert_array_equal(
+                got.max_filter_plane(rgb[..., 1], r), ref[..., 1])
+
+
+def _case_enums_ppp_suffix(tmp_path, fixtures_dir):
+    from colormipsearch_tpu.model.enums import FileType as want
+    from colormipsearch_torch.model.enums import FileType as got
+    assert [v.name for v in got] == [v.name for v in want]
+    for v in got:
+        assert v.display_ppp_suffix == want[v.name].display_ppp_suffix
+    names = ["em-lm" + (v.file_suffix or "") for v in want]
+    names += ["em-lm_9_unknown.png", "", "plain.tif", "_1_raw.png"]
+    for name in names:
+        g, w = got.find_by_ppp_suffix(name), want.find_by_ppp_suffix(name)
+        assert (g and g.name) == (w and w.name), name
+
+
+def _case_mips_loader(tmp_path, fixtures_dir):
+    """filedata_exists on plain files, directories, zip entries (exact,
+    by the basename fallback, missing) and broken archives; has_image."""
+    import zipfile
+
+    from colormipsearch_tpu.mips import loader as want
+    from colormipsearch_tpu.model import FileData as WantFD
+    from colormipsearch_torch.mips import loader as got
+    from colormipsearch_torch.model import FileData, FileDataType
+    tif = fixtures_dir / "ems" / "12191_JRC2018U.tif"
+    z = tmp_path / "mips.zip"
+    with zipfile.ZipFile(z, "w") as zf:
+        zf.write(tif, "deep/dir/12191_JRC2018U.tif")
+        zf.writestr("other/notes.txt", "x")
+    (tmp_path / "broken.zip").write_bytes(b"not a zip")
+    refs = [FileData.from_string(str(tif)),
+            FileData.from_string(str(tmp_path)),
+            FileData.from_string(str(tmp_path / "missing.tif"))]
+    for archive, entry in ((z, "deep/dir/12191_JRC2018U.tif"),
+                           (z, "other/12191_JRC2018U.tif"),
+                           (z, "other/notes.txt"), (z, "missing.tif"),
+                           (tmp_path / "broken.zip", "a.tif"),
+                           (tmp_path / "none.zip", "a.tif")):
+        refs.append(FileData(file_name=str(archive),
+                             data_type=FileDataType.zipEntry,
+                             entry_name=entry))
+    got_exists = [got.filedata_exists(None)] + [got.filedata_exists(fd)
+                                                for fd in refs]
+    want_exists = [want.filedata_exists(None)] + [
+        want.filedata_exists(WantFD.from_json(fd.to_json())) for fd in refs]
+    assert got_exists == want_exists
+    assert got_exists == [False, True, False, False, True, True, True,
+                          False, False, False]
+    for image in (None, object()):
+        assert got.NeuronMIP(None, None, image).has_image == \
+            want.NeuronMIP(None, None, image).has_image == (image is not None)
+
+
+def _case_json_mips_writer(tmp_path, fixtures_dir):
+    """JSONCDMIPsWriter: the bytes written, append mode and processing
+    tags."""
+    from colormipsearch_tpu import dataio as want_io
+    from colormipsearch_tpu import model as want_model
+    from colormipsearch_torch import dataio as got_io
+    from colormipsearch_torch import model as got_model
+    docs = [d["maskImage"] for d in _match_dicts(fixtures_dir)[:4]]
+    docs += [d["image"] for d in _match_dicts(fixtures_dir)[:4]]
+    out = {}
+    for name, io, model in (("got", got_io, got_model),
+                            ("want", want_io, want_model)):
+        path = tmp_path / name / "mips.json"
+        ents = [model.entity_from_dict(d) for d in docs]
+        w = io.JSONCDMIPsWriter(str(path))
+        w.open()
+        w.write(ents[:5])
+        w.add_processing_tags(ents[:2], model.ProcessingType.ColorDepthSearch,
+                              {"t1", "t2"})
+        w.close()
+        w = io.JSONCDMIPsWriter(str(path), append=True)
+        w.open()
+        w.write(ents[5:])
+        w.close()
+        out[name] = path.read_bytes()
+    assert out["got"] == out["want"]
+
+
+def _case_ppp_raw_reader(tmp_path, fixtures_dir):
+    from colormipsearch_tpu.ppp import read_raw_ppp_matches as want
+    from colormipsearch_torch.ppp import read_raw_ppp_matches as got
+    for path in sorted(fixtures_dir.parent.glob("cov_scores_*.json")):
+        for best in (False, True):
+            g = [m.to_dict() for m in got(str(path), only_best_matches=best)]
+            w = [m.to_dict() for m in want(str(path),
+                                           only_best_matches=best)]
+            assert g == w and g
+
+
+def _case_mipstores(tmp_path, fixtures_dir):
+    """Name parsing, store indexing (directories and zips) and the
+    variant lookup of cmd.mipstores."""
+    import zipfile
+
+    from colormipsearch_tpu.cmd import mipstores as want
+    from colormipsearch_torch.cmd import mipstores as got
+    names = [p.name for p in sorted(fixtures_dir.glob("*/*"))]
+    names += ["1537331894-RT-JRC2018_Unisex_20x_HR-CDM.tif",
+              "R12A34-20200101_31_A1-m-20x-VNC-JRC2018_VNC_Unisex_40x_DS"
+              "-CH1_CDM.png", "flyem_hemibrain", "flywire_fafb", "x_FL.tif",
+              "a-b-c-CH3-07_CDM.tif", "", "1234_FL-01.png",
+              "1234_LV_x.tif", "1234-L_x.tif"]
+    for n in names:
+        for fn in ("extract_em_body_id", "extract_lm_slide_code",
+                   "extract_channel", "is_em_library",
+                   "extract_em_neuron_state"):
+            _same_outcome(lambda: getattr(got, fn)(n),
+                          lambda: getattr(want, fn)(n))
+        for space in ("", "JRC2018_Unisex_20x_HR",
+                      "JRC2018_VNC_Unisex_40x_DS"):
+            _same_outcome(lambda: got.extract_objective(n, space),
+                          lambda: want.extract_objective(n, space))
+    for a in (None, "20x", "40x", "63X"):
+        for b in (None, "20x", "40x", "63x"):
+            assert got.match_objectives(a, b) == want.match_objectives(a, b)
+    z = tmp_path / "lms.zip"
+    with zipfile.ZipFile(z, "w") as zf:
+        for p in sorted((fixtures_dir / "lms").glob("*")):
+            zf.write(p, f"sub/{p.name}")
+        zf.writestr("sub/readme.txt", "x")
+
+    def entries(found):
+        return [(e.store_base_path, e.store_entry_type.name, e.image_path,
+                 e.entry_name, e.file_data().to_json()) for e in found]
+
+    for loc in (fixtures_dir / "lms", fixtures_dir / "grad", z,
+                tmp_path / "none"):
+        assert entries(got.list_store_images(str(loc))) == \
+            entries(want.list_store_images(str(loc)))
+    locs = [str(fixtures_dir / "ems"), str(fixtures_dir / "grad"),
+            str(fixtures_dir / "zgap"), str(z)]
+    for em in (False, True):
+        gi, wi = got.index_mip_stores(locs, em), want.index_mip_stores(locs,
+                                                                      em)
+        assert {k: entries(v) for k, v in gi.items()} == \
+            {k: entries(v) for k, v in wi.items()}
+        for nid in sorted(wi) + ["no-such-id"]:
+            for ch, obj in ((-1, None), (1, "40x"), (0, "20x")):
+                for state in (False, True):
+                    kw = dict(match_neuron_state=state,
+                              source_cdm_name=f"{nid}_LV_CDM.tif")
+                    g = got.lookup_variant_images(
+                        nid, gi, em, ch, obj, "JRC2018_Unisex_20x_HR", **kw)
+                    w = want.lookup_variant_images(
+                        nid, wi, em, ch, obj, "JRC2018_Unisex_20x_HR", **kw)
+                    assert entries(g) == entries(w)
+
+
+
+def _case_jacs_neuron_from_mip(tmp_path, fixtures_dir):
+    """em_neuron_from_mip and lm_neuron_from_mip on the JACS fake's MIP
+    records (tests/test_jacs_client.py), with and without an alignment
+    space of their own."""
+    from colormipsearch_tpu import jacs as want
+    from colormipsearch_torch import jacs as got
+    import test_jacs_client as ref
+    for doc in ref.EM_MIPS + [ref.LM_MIP, ref.BARE_LM_MIP, ref.BARE_EM_MIP]:
+        for d in (doc, {k: v for k, v in doc.items()
+                        if k != "alignmentSpace"}):
+            for fn in ("em_neuron_from_mip", "lm_neuron_from_mip"):
+                g, w = (getattr(j, fn)(j.ColorDepthMIP.from_dict(d), "lib",
+                                       "JRC2018_Unisex_20x_HR").to_dict()
+                        for j in (got, want))
+                assert g == w
+
+def _case_persist_config(tmp_path, fixtures_dir, monkeypatch=None):
+    """Config: defaults, a .properties file, environment overrides and
+    the typed getters."""
+    from colormipsearch_tpu.persist import Config as Want
+    from colormipsearch_torch.persist import Config as Got
+    props = tmp_path / "app.properties"
+    props.write_text("# comment\n! bang\nMongoDB.Server = host:27017\n"
+                     "MongoDB.Database=nb\n\nTimebasedId.DeploymentContext"
+                     ": 3\nbad line\nk.with.dots=a=b\n")
+    key = "CMS_MongoDB_Database"
+    old = os.environ.pop(key, None)
+    try:
+        for env in (None, "from-env"):
+            if env is not None:
+                os.environ[key] = env
+            for path in (str(props), None, str(tmp_path / "missing")):
+                g, w = Got.from_file(path), Want.from_file(path)
+                assert g._values == w._values
+                for k in ("MongoDB.Database", "k.with.dots", "no"):
+                    assert g.get(k) == w.get(k)
+                    assert g.get(k, "dflt") == w.get(k, "dflt")
+                for k in ("TimebasedId.DeploymentContext", "no"):
+                    assert g.get_int(k, 7) == w.get_int(k, 7)
+                assert g.get_float("Memory.LowPercThreshold") == \
+                    w.get_float("Memory.LowPercThreshold")
+    finally:
+        os.environ.pop(key, None)
+        if old is not None:
+            os.environ[key] = old
+    g, w = Got({"a": "1"}), Want({"a": "1"})
+    g.put("b", "2")
+    w.put("b", "2")
+    assert g._values == w._values
+
+
+def _case_telemetry(tmp_path, fixtures_dir):
+    """StageTimer, log_memory_usage and processing_context: the same log
+    records, with the times and memory figures masked."""
+    import logging
+    import re
+
+    from colormipsearch_tpu.utils import telemetry as want
+    from colormipsearch_torch.utils import telemetry as got
+    out = {}
+    for name, mod in (("got", got), ("want", want)):
+        records = []
+        handler = logging.Handler()
+        handler.emit = lambda r: records.append(
+            (r.levelname, re.sub(r"[0-9]+(\.[0-9]+)?", "N", r.getMessage())))
+        log = logging.getLogger(f"telemetry-{name}")
+        log.addHandler(handler)
+        log.setLevel(logging.DEBUG)
+        mod.LOG.addHandler(handler)
+        old_level = mod.LOG.level
+        mod.LOG.setLevel(logging.DEBUG)
+        try:
+            ctx = [mod.current_context()]
+            with mod.processing_context(maskId="m1"):
+                with mod.processing_context(targetId="t9"):
+                    ctx.append(mod.current_context())
+                    with mod.StageTimer("decode", 10, log=log) as t:
+                        t.add_items(4)
+                        t.add_items(3)
+                    assert t.elapsed >= 0
+                    mib = mod.log_memory_usage("after")
+                ctx.append(mod.current_context())
+                mod.StageTimer("pack", log=log).finish()
+            ctx.append(mod.current_context())
+        finally:
+            mod.LOG.removeHandler(handler)
+            mod.LOG.setLevel(old_level)
+        assert mib > 0
+        out[name] = (records, ctx, t.stage, t.items, t.total_items)
+    assert out["got"] == out["want"]
+
+
 def _case_lut(tmp_path, fixtures_dir):
     from colormipsearch_tpu.cds import lut as want
     from colormipsearch_torch.cds import lut as got
@@ -905,6 +1174,15 @@ HOST_COPY_CASES = {
     "results.normalize_match_scores": _case_normalize,
     "imageproc.colors": _case_colors,
     "imageproc.filters": _case_filters,
+    "imageproc.filters.short_planes": _case_filters_short_planes,
+    "model.enums.FileType.ppp_suffix": _case_enums_ppp_suffix,
+    "mips.loader.filedata_exists": _case_mips_loader,
+    "dataio.fs.JSONCDMIPsWriter": _case_json_mips_writer,
+    "ppp.raw_reader": _case_ppp_raw_reader,
+    "cmd.mipstores": _case_mipstores,
+    "persist.Config": _case_persist_config,
+    "jacs.client.neuron_from_mip": _case_jacs_neuron_from_mip,
+    "utils.telemetry": _case_telemetry,
     "cds.lut": _case_lut,
     "cds.shape_oracle": _case_shape_oracle,
     "cds.oracle.shift_ring_offsets": _case_shift_ring_offsets,

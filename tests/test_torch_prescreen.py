@@ -1,6 +1,9 @@
-"""The port's prescreen bound (colormipsearch_torch.cds.prescreen) must
-equal the JAX package's PairPrescreen.bounds_from_words exactly, and
-dominate the exact score (a fuzz against the reference oracle)."""
+"""The port's prescreen bounds (colormipsearch_torch.cds.prescreen) must
+equal the JAX package's exactly: the count-capped bound and the uncapped
+one (CMS_PRESCREEN_CAP=0) of PairPrescreen.bounds_from_words, and the
+target-feature bound (target_features, then bounds). Each dominates the
+one before it and the exact score (a fuzz against the reference
+oracle): exact <= capped <= uncapped <= feature."""
 
 import numpy as np
 import pytest
@@ -17,6 +20,9 @@ from colormipsearch_tpu.imageproc import (label_regions_mask,  # noqa: E402
                                           load_image)
 from colormipsearch_tpu.imageproc.io import image_from_array  # noqa: E402
 
+from colormipsearch_tpu.cds import prescreen as ref_ps  # noqa: E402
+
+from colormipsearch_torch.cds import prescreen as ps  # noqa: E402
 from colormipsearch_torch.cds.pixel_active import \
     ActiveTilePixelEngine  # noqa: E402
 from colormipsearch_torch.cds.prescreen import PairPrescreen  # noqa: E402
@@ -96,3 +102,123 @@ def test_bounds_restore_tf32_setting():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     np.testing.assert_array_equal(got, want)
+
+
+def _pack(targets_u8, h, w):
+    eng = ActiveTilePixelEngine(np.zeros((h, w, 3), np.uint8), 20, True, 20,
+                                1.0, 2)
+    return eng.pack_raw_words(targets_u8, CPU)
+
+
+def _every_bound(query_words, targets_u8, fluct, xy, h, w, monkeypatch):
+    """{name: (port, JAX)} for the capped, uncapped and feature bounds."""
+    import jax.numpy as jnp
+    zt9 = z_tolerance_to_zt9(fluct)
+    words = _pack(targets_u8, h, w)
+    screen, ref = PairPrescreen(zt9, xy, h, w), RefPrescreen(zt9, xy, h, w)
+    u = np.stack([screen.query_features(qw) for qw in query_words])
+    out = {"capped": (screen.bounds_from_words(u, words),
+                      np.asarray(ref.bounds_from_words(u, words.numpy())))}
+    with monkeypatch.context() as m:
+        m.setenv("CMS_PRESCREEN_CAP", "0")
+        m.setattr(RefPrescreen, "USE_COUNT_CAP", False)
+        out["uncapped"] = (screen.bounds_from_words(u, words),
+                           np.asarray(ref.bounds_from_words(u,
+                                                            words.numpy())))
+    feats = screen.target_features(words)
+    ref_feats = ref.target_features(jnp.asarray(words.numpy()))
+    for got, want in zip(feats, ref_feats):
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want).astype(np.float32))
+    out["feature"] = (screen.bounds(u, feats),
+                      np.asarray(ref.bounds(u, ref_feats)))
+    return out
+
+
+@pytest.mark.parametrize("fluct,xy", [(2.0, 2), (1.0, 0), (0.5, 4)])
+def test_uncapped_and_feature_bounds_equal_reference(fluct, xy, monkeypatch):
+    """All three bounds equal the reference's, and on every pair
+    exact <= capped <= uncapped <= feature; the caller's TF32 setting is
+    back after each."""
+    rng = np.random.default_rng(23)
+    h, w = 40, 300  # a partial last tile in both directions
+    qs = []
+    for frac in (0.6, 0.85, 0.97):
+        q = rng.integers(0, 256, size=(h, w, 3)).astype(np.uint8)
+        q[rng.random((h, w)) < frac] = 0
+        qs.append(q)
+    t = rng.integers(0, 256, size=(4, h, w, 3)).astype(np.uint8)
+    t[rng.random((4, h, w)) < 0.6] = 0
+    t[3] = 0  # an empty target
+    words = [prepare_query_planes(image_from_array(q), 20, None).words
+             for q in qs]
+    # each bound turns TF32 off for its own products only
+    seen = []
+    real = ps._bounds_matmul
+
+    def spy(*a):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(*a)
+
+    monkeypatch.setattr(ps, "_bounds_matmul", spy)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        bounds = _every_bound(words, t, fluct, xy, h, w, monkeypatch)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert seen == [False]
+    for name, (got, want) in bounds.items():
+        assert got.shape == (3, 4) and got.dtype == np.float32, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    capped, uncapped, feature = (bounds[k][0] for k in
+                                 ("capped", "uncapped", "feature"))
+    assert (capped <= uncapped).all() and (uncapped <= feature).all()
+    assert (feature[:, 3] == 0).all()
+    for qi, q in enumerate(qs):
+        oracle = PixelMatchOracle(image_from_array(q), 20, True, 20,
+                                  fluct / 100, xy, None)
+        for i in range(len(t)):
+            exact = oracle.score(image_from_array(t[i])).matching_pixels
+            assert capped[qi, i] >= exact, (qi, i, capped[qi, i], exact)
+
+
+def test_target_features_given_flipped_frames_and_blocks(monkeypatch):
+    """Mirrored features from pre-flipped frames equal those of the flip
+    done here, across FEATURE_BLOCK sub-blocks; an empty block gives
+    empty features and bounds."""
+    rng = np.random.default_rng(4)
+    h, w = 24, 140
+    t = rng.integers(0, 256, size=(5, h, w, 3)).astype(np.uint8)
+    t[rng.random((5, h, w)) < 0.5] = 0
+    words = _pack(t, h, w)
+    screen = PairPrescreen(z_tolerance_to_zt9(1.0), 2, h, w)
+    monkeypatch.setattr(PairPrescreen, "FEATURE_BLOCK", 2)
+    wd, wm = screen.target_features(words)
+    wd2, wm2 = screen.target_features(words, torch.flip(words, dims=(2,)))
+    assert torch.equal(wd, wd2) and torch.equal(wm, wm2)
+    one = ps.target_features(words[:1], screen.zt9, 2, screen.grid_hw, True)
+    assert torch.equal(one, wm[:1])
+    ed, em = screen.target_features(words[:0])
+    assert ed.shape == (0, wd.shape[1]) and em.shape == ed.shape
+    u = np.ones((2, wd.shape[1]), np.float32)
+    assert screen.bounds(u, (ed, em)).shape == (2, 0)
+
+
+def test_or_dilate_matches_reduce_window():
+    """The separable OR-dilation equals lax.reduce_window with "same"
+    padding, on random bit planes with bit 31 set."""
+    import jax
+    rng = np.random.default_rng(8)
+    x = rng.integers(-2**31, 2**31, size=(2, 3, 9, 21), dtype=np.int64
+                     ).astype(np.int32)
+    for pad in (1, 2, 4):
+        for dim in (2, 3):
+            win = [1, 1, 1, 1]
+            win[dim] = 2 * pad + 1
+            want = jax.lax.reduce_window(x, np.int32(0), jax.lax.bitwise_or,
+                                         tuple(win), (1, 1, 1, 1), "same")
+            got = ps._or_dilate(torch.from_numpy(x), dim, pad)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))

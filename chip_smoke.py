@@ -113,18 +113,11 @@ exact predicates, and the op microbench:
    PPP export's screenshot-backed match, K1 launched and K3a not
    (counted from 0 just before the chain), and the exports, the
    validation report and the rows deleted equal to the same chain's on
-   the CPU over a copy of the ingested store; (b) the tier-2 gate
-   (CMS_MM_TIER2=1) on phase 4's library: scores equal to the ungated
-   sweep on all 524,288 pairs on both predicates, partition 0's gated
-   table on K1 equal to its plain version and to the full table's
-   counts; live (row, tile) pairs, the bin-bit planes' ms, the query
-   bits' and the launch table's host seconds, K1's ms from either table
-   and pipelined pairs/s with and without the gate, in turns; (c) the
-   uncapped bound (CMS_PRESCREEN_CAP=0) and the target-feature bound on
-   partition 0, each equal to its CPU run on a slice, exact <= capped <=
-   uncapped <= feature on every pair, each bound's ms, survivor rate,
-   peak memory and bound. Its numbers are one JSON line `{"ingest": ...}`
-   before the kernels line.
+   the CPU over a copy of the ingested store; (b) the target-feature
+   bound beside the capped one on partition 0 of phase 4's library, each
+   equal to its CPU run on a slice, exact <= capped <= feature on every
+   pair, each bound's ms, survivor rate, peak memory and bound. Its
+   numbers are one JSON line `{"ingest": ...}` before the kernels line.
 
 `python3 chip_smoke.py --profile DIR` adds a torch.profiler round of the
 phase-4 ratio sweep: device busy share, the bound's and the exact
@@ -138,7 +131,6 @@ or without a CUDA card, it exits with code 2 before printing any result.
 """
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
@@ -546,16 +538,6 @@ def adversarial_library(n_masks, n_targets):
     return masks, targets, h, w
 
 
-def swept(sweep, parts, dev, stage=None, sync=False):
-    """(scores, mirrored) of the CLI's partition loop over parts, to its
-    end on the card: partition p+1 is launched before p is collected."""
-    import torch
-    out = list(sweep.sweep_parts(enumerate(parts), stage, sync))
-    torch.cuda.synchronize(dev)
-    return (np.concatenate([s for _, s, _ in out], axis=1),
-            np.concatenate([m for _, _, m in out], axis=1))
-
-
 def device_kernel_ms(prof):
     """{kernel name: (device ms, launches)} of a torch.profiler run."""
     from torch.autograd import DeviceType
@@ -724,7 +706,12 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
     wrappers = {p: fns[0] for p, fns in mm.PREDICATE_KERNELS.items()}
 
     def run(sweep, stage, sync=False):
-        return swept(sweep, parts, dev, stage, sync)
+        """The CLI's partition loop: partition p+1 is launched before p is
+        collected."""
+        out = list(sweep.sweep_parts(enumerate(parts), stage, sync))
+        torch.cuda.synchronize(dev)
+        return (np.concatenate([s for _, s, _ in out], axis=1),
+                np.concatenate([m for _, _, m in out], axis=1))
 
     # stage round of each path: every stage synchronizes, so each stage's
     # seconds hold its device work; the main-path kernel launch counts are
@@ -862,7 +849,7 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
                       profile_dir)
     library = {"engines": engines, "words_engines": words_engines,
                "screen": screen, "u_matrix": u_matrix, "thr": thr,
-               "parts": parts, "result": results["ratio"], "sweeps": sweeps}
+               "parts": parts, "result": results["ratio"]}
     return timing, library
 
 
@@ -2021,7 +2008,6 @@ def phase_pipeline_at_size(ws, dev, library, n_masks=256, n_targets=512,
     return report
 
 
-
 # ---- phase 9 ---------------------------------------------------------------
 
 INGEST_LIBRARIES = {
@@ -2267,125 +2253,11 @@ def phase_ingest(ws, device="cuda"):
 
 
 
-@contextlib.contextmanager
-def env_set(name, value):
-    """os.environ[name] = value inside the block, restored after."""
-    prev = os.environ.get(name)
-    os.environ[name] = value
-    try:
-        yield
-    finally:
-        if prev is None:
-            os.environ.pop(name, None)
-        else:
-            os.environ[name] = prev
-
-
-def phase_tier2_at_size(checks, dev, library):
-    """(b) The tier-2 bin-compat gate (CMS_MM_TIER2=1) on phase 4's
-    library: the gated sweep's scores equal the ungated ones on every pair
-    on both predicates; on partition 0 the gated launch table, on K1,
-    equals its plain version and the full table's counts. Live (row,
-    tile) pairs with and without the gate, the bin-bit planes' ms, the
-    query bits' and the launch table's host seconds, K1's ms from either
-    table, and pipelined pairs/s with and without the gate, in turns."""
-    import torch
-    from colormipsearch_torch.cds import multimask as mm
-    from colormipsearch_torch.cds.pixel_active import pad_for_predicate
-    from colormipsearch_torch.scripts.op_microbench import cuda_ms
-    engines, parts, sweeps = (library[k] for k in ("engines", "parts",
-                                                   "sweeps"))
-    want = library["result"]
-    pairs = len(engines) * sum(len(p) for p in parts)
-    report = {}
-    t0 = time.perf_counter()
-    for e in engines:
-        e.__dict__.pop("_tier2_bits", None)
-        if mm.tile_compat_bits(e) is None:
-            raise SystemExit("tile_compat_bits cannot apply at zTol 0.01")
-    report["query_bits_s_per_mask"] = (time.perf_counter() - t0) / len(
-        engines)
-    with env_set("CMS_MM_TIER2", "1"):
-        if not mm.tier2_enabled():
-            raise SystemExit("CMS_MM_TIER2=1 did not turn the gate on")
-        for path, sweep in sweeps.items():
-            got = swept(sweep, parts, dev)
-            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
-                raise SystemExit(f"the gated {path} sweep's scores differ")
-    log(f"[phase 9b] the gated sweep == the ungated one on all {pairs} "
-        f"pairs, both predicates")
-    # partition 0's tables, gated and not
-    words = engines[0].pack_raw_words(parts[0], dev)
-    _, h, w = words.shape
-    grid = (-(-h // 8), -(-w // 128))
-    report["bin_bits_ms"] = cuda_ms(lambda: mm._bin_bits_dev(words, *grid),
-                                    3)
-    t0 = time.perf_counter()
-    bins = mm.bin_bits_from_words(words)
-    report["bin_bits_host_s"] = time.perf_counter() - t0
-    screen, u, thr = (library[k] for k in ("screen", "u_matrix", "thr"))
-    survivors = (screen.bounds_from_words(u, words)
-                 > thr[:, None]).astype(np.int32)
-    ranges = mm.signal_ranges_from_words(words)
-    live = mm.tile_live_from_words(words)
-    (_, scorer), = sweeps["ratio"].groups
-    tables, table_s = {}, {}
-    for name, bits in (("full", None), ("gated", bins)):
-        t0 = time.perf_counter()
-        tables[name] = scorer.build_table(survivors, ranges, live, bits)
-        table_s[name] = time.perf_counter() - t0
-    planes = pad_for_predicate(words, "ratio")
-    kernel, plain = mm.PREDICATE_KERNELS["ratio"]
-    tail = scorer.kernel_tail()
-    args = {k: scorer.kernel_args(planes, t) for k, t in tables.items()}
-    got = checks["multimask_ratio"].compare(
-        "at size, partition 0's tier-2 gated table",
-        lambda: kernel(*args["gated"], *tail),
-        lambda: plain(*args["gated"], *tail))
-    if not torch.equal(got, kernel(*args["full"], *tail)):
-        raise SystemExit("the gated table's counts differ from the full "
-                         "table's")
-    ms = {k: cuda_ms(lambda a=a: kernel(*a, *tail), 3)
-          for k, a in args.items()}
-
-    def directions(tab):
-        d = (tab.tile_list >> mm.DIR_SHIFT) & 3
-        return int((d & 1).sum() + (d >> 1).sum())
-
-    report["partition0"] = {
-        k: {"rows": len(t.tgt), "live_row_tiles": len(t.tile_list),
-            "live_directions": directions(t), "table_host_s": table_s[k],
-            "k1_ms": ms[k]} for k, t in tables.items()}
-    walls = {"off": [], "on": []}
-    for gate in ("off", "on", "on", "off"):
-        with env_set("CMS_MM_TIER2", "1" if gate == "on" else "0"):
-            t0 = time.perf_counter()
-            got = swept(sweeps["ratio"], parts, dev)
-            walls[gate].append(time.perf_counter() - t0)
-        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
-            raise SystemExit(f"a {gate} round's scores differ")
-    report["pairs_per_s"] = {k: [pairs / x for x in v]
-                             for k, v in walls.items()}
-    p0 = report["partition0"]
-    log(f"[phase 9b] partition 0: live (row, tile) pairs "
-        f"{p0['full']['live_row_tiles']} -> {p0['gated']['live_row_tiles']}"
-        f" (directions {p0['full']['live_directions']} -> "
-        f"{p0['gated']['live_directions']}); bin-bit planes "
-        f"{report['bin_bits_ms']:.3f} ms on the card "
-        f"({report['bin_bits_host_s']:.3f}s with the copy); query bits "
-        f"{1e3 * report['query_bits_s_per_mask']:.3f} ms per mask; launch "
-        f"table {table_s['full']:.3f}s -> {table_s['gated']:.3f}s; K1 "
-        f"{ms['full']:.3f} -> {ms['gated']:.3f} ms; pipelined pairs/s "
-        f"off {report['pairs_per_s']['off']}, on "
-        f"{report['pairs_per_s']['on']}")
-    return report
-
-
 def phase_bounds_at_size(dev, library, n_cpu=4):
-    """(c) The uncapped bound (CMS_PRESCREEN_CAP=0) and the target-feature
-    bound beside the capped one on partition 0 (all masks x 256 targets of
-    566x1210): each equal to its CPU run on the first n_cpu masks and
-    targets, exact <= capped <= uncapped <= feature on every pair; each
+    """(b) The target-feature bound beside the capped one on partition 0
+    (all masks x 256 targets of 566x1210): each equal to its CPU run on
+    the first n_cpu masks and targets, exact <= capped <= feature on
+    every pair; each
     bound's ms by CUDA events, survivor rate at the 1 % keep threshold,
     peak device memory and bound (bytes over 3.35 TB/s, its products over
     the card's 67 TFLOP/s of fp32)."""
@@ -2402,10 +2274,6 @@ def phase_bounds_at_size(dev, library, n_cpu=4):
     def capped(uu, ww):
         return screen.bounds_from_words(uu, ww)
 
-    def uncapped(uu, ww):
-        with env_set("CMS_PRESCREEN_CAP", "0"):
-            return screen.bounds_from_words(uu, ww)
-
     def feature(uu, ww):
         return screen.bounds(uu, screen.target_features(ww))
 
@@ -2414,11 +2282,9 @@ def phase_bounds_at_size(dev, library, n_cpu=4):
     f = u.shape[1]
     in_bytes = words.numel() * 4 + u.size * 4 + bsz * tsz * 4
     flops = {"capped": 2 * bsz * tsz * f * n_off * 2,
-             "uncapped": 2 * bsz * tsz * f * n_off * 2,
              "feature": 2 * bsz * tsz * f * 2}
     report, values = {}, {}
-    for name, fn in (("capped", capped), ("uncapped", uncapped),
-                     ("feature", feature)):
+    for name, fn in (("capped", capped), ("feature", feature)):
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         values[name] = fn(u_dev, words)
@@ -2436,11 +2302,11 @@ def phase_bounds_at_size(dev, library, n_cpu=4):
             "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    chain = [exact, values["capped"], values["uncapped"], values["feature"]]
+    chain = [exact, values["capped"], values["feature"]]
     held = all((a <= b).all() for a, b in zip(chain, chain[1:]))
-    log(f"[phase 9c] partition 0 ({bsz} masks x {tsz} targets): each bound "
-        f"== its CPU run on {n_cpu} x {n_cpu}; exact <= capped <= uncapped "
-        f"<= feature on every pair: {held}; " + "; ".join(
+    log(f"[phase 9b] partition 0 ({bsz} masks x {tsz} targets): each bound "
+        f"== its CPU run on {n_cpu} x {n_cpu}; exact <= capped <= feature "
+        f"on every pair: {held}; " + "; ".join(
             f"{k} {v['ms']:.2f} ms (bound {v['bound_ms']:.2f} ms by "
             f"{v['bound_by']}), survivors {v['survivor_rate']:.4f}, peak "
             f"{v['peak_gib']:.2f} GiB" for k, v in report.items()))
@@ -2500,11 +2366,10 @@ def main():
             f"{time.perf_counter() - t8:.1f}s")
         t9 = time.perf_counter()
         ingest = {"pipeline": phase_ingest(ws),
-                  "tier2": phase_tier2_at_size(checks, dev, library),
                   "bounds": phase_bounds_at_size(dev, library)}
         ingest["phase_s"] = round(time.perf_counter() - t9, 2)
-        log(f"[phase 9] ingest to export, the tier-2 gate and the bounds "
-            f"in {ingest['phase_s']}s")
+        log(f"[phase 9] ingest to export and the feature bound in "
+            f"{ingest['phase_s']}s")
     for name, check in checks.items():
         timing[name]["max_abs_err"] = check.max_abs_err
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f}s")

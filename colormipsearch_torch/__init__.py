@@ -7,8 +7,7 @@ exact equality with it by the `tests/test_torch_*.py` suite.
 
 What is here:
 - `cds/`: host query tables, target pack and pad, the prescreen bounds,
-  live-tile bitmaps, the tier-2 gate and the exact multi-mask scorer
-  with its CUDA kernels
+  live-tile bitmaps and the exact multi-mask scorer with its CUDA kernels
   (`csrc/multimask_ratio.cu`, `csrc/multimask_words.cu`, built at first
   use by `cds/kernels.py`);
 - `cds/shape_device.py`, `cds/shape_kernel.py`: the gradientScores

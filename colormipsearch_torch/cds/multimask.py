@@ -24,25 +24,16 @@ mask of a target partition.
   staged once for every mask that reads it) and launches one block per
   bin. Each wrapper's `.launches` counts its kernel launches.
 
-Under CMS_MM_TIER2=1 (read at call time; off by default, as in the
-reference, :799-809) the tier-2 bin-compat gate cuts more of each row's
-list: a tile keeps a direction only if some query pixel bin of the tile
-is prescreen-compatible with some target pixel bin in the 3x3 tile
-neighbourhood that direction samples (tile_compat_bits against
-bin_bits_from_words). compat_matrix is a superset of the exact
-predicate, so a cut direction scores 0. The reference unions the bits of
-a chunk's targets because a TPU chunk shares one live list; here each
-row is cut by its own target's bits, the direct plane for the direct
-pass and the flipped plane for the mirrored pass.
-
-Left out: the adaptive live-table gate, ROWS, G_BUCKET and pow2 k-grid
-buckets, which exist for Mosaic's SMEM limits and compile costs.
+Left out: the tier-2 bin-compat gate (CMS_MM_TIER2=1, off by default in
+the reference), which cut more of each row's list but lowered the
+pipelined rate on the H100 (a net loss, as on the TPU); and the adaptive
+live-table gate, ROWS, G_BUCKET and pow2 k-grid buckets, which exist for
+Mosaic's SMEM limits and compile costs.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
@@ -53,7 +44,6 @@ from . import kernels
 from .oracle import shift_ring_offsets
 from .pixel_active import (POS_SHIFT, TILE_H, TILE_W, DeferredScore,
                            _match_unpacked, _unpack)
-from .prescreen import N_BINS, bin_plane_from_words, compat_matrix, or_reduce
 
 KERNEL_XY_SHIFTS = (0, 2)  # xy_shift values the kernels are built for
 
@@ -437,104 +427,6 @@ def tile_live_from_words(words: torch.Tensor) -> tuple:
     return d.cpu().numpy(), m.cpu().numpy()
 
 
-# ---- the tier-2 bin-compat gate ------------------------------------------
-
-def tier2_enabled() -> bool:
-    """Whether the sweep applies the tier-2 gate: CMS_MM_TIER2=1, read at
-    each call, and the hue bins fit two 32-bit lanes."""
-    return os.environ.get("CMS_MM_TIER2", "0") == "1" and N_BINS <= 64
-
-
-def _bin_bits_dev(words: torch.Tensor, gh: int, gw: int):
-    """Per-tile-neighbourhood target hue-bin bitmasks on the device of
-    words: two int32 lanes (bin b < 32 at bit b of lane 0, bin b >= 32 at
-    bit b - 32 of lane 1; bins 31 and 63 are the sign bit), OR-reduced
-    over each mask tile footprint, then 3x3-dilated over the tile grid
-    (the windows' sampling neighbourhood, as in _tile_live_dev)."""
-    tsz, h, w = words.shape
-
-    def pool_dilate(x):
-        p = torch.nn.functional.pad(x, (0, gw * TILE_W - w,
-                                        0, gh * TILE_H - h))
-        t = or_reduce(or_reduce(p.reshape(tsz, gh, TILE_H, gw, TILE_W), 4),
-                      2)
-        t = torch.nn.functional.pad(t, (1, 1, 1, 1))
-        t = t[:, :-2] | t[:, 1:-1] | t[:, 2:]
-        return t[:, :, :-2] | t[:, :, 1:-1] | t[:, :, 2:]
-
-    def bits_of(wds):
-        bins = bin_plane_from_words(wds, torch)
-        one = torch.ones_like(bins)
-        lane0 = torch.where((bins >= 0) & (bins < 32),
-                            one << bins.clamp(0, 31), 0)
-        lane1 = torch.where(bins >= 32, one << (bins - 32).clamp(0, 31), 0)
-        return pool_dilate(lane0), pool_dilate(lane1)
-
-    # the mirror flip is of the RAW w-wide plane (pad_from_words)
-    return bits_of(words), bits_of(torch.flip(words, dims=(2,)))
-
-
-def bin_bits_from_words(words: torch.Tensor) -> tuple:
-    """((d0, d1), (m0, m1)): the target-bin bitmask planes, direct and
-    mirrored, each np.int32 [T, gh, gw] over the mask tile grid, computed
-    on the device of the packed target words."""
-    _, h, w = words.shape
-    (d0, d1), (m0, m1) = _bin_bits_dev(words, -(-h // TILE_H),
-                                       -(-w // TILE_W))
-    return ((d0.cpu().numpy(), d1.cpu().numpy()),
-            (m0.cpu().numpy(), m1.cpu().numpy()))
-
-
-def tile_compat_bits(engine) -> Optional[np.ndarray]:
-    """uint32 [n_active, 2]: per active tile of the engine's query, bit jt
-    (lane jt // 32) set iff some query pixel bin in the tile is compatible
-    with target bin jt. None where the gate cannot apply (N_BINS > 64, or
-    a zTolerance wider than a bin). Read from the tile's query words;
-    cached on the engine."""
-    cached = getattr(engine, "_tier2_bits", False)
-    if cached is not False:
-        return cached
-    bits = None
-    if N_BINS <= 64:
-        try:
-            compat = compat_matrix(engine.zt9)
-        except ValueError:
-            compat = None
-        if compat is not None:
-            k = engine.tiles.n_active
-            bins = bin_plane_from_words(
-                engine.tiles.q_words.astype(np.int64), np).reshape(k, -1)
-            present = np.zeros((k, N_BINS + 1), np.int64)  # -1: last column
-            present[np.arange(k)[:, None], bins] = 1
-            reach = (present[:, :N_BINS] @ compat.astype(np.int64)) > 0
-            place = np.left_shift(np.uint64(1),
-                                  np.arange(N_BINS, dtype=np.uint64))
-            packed = (reach.astype(np.uint64) * place).sum(axis=1,
-                                                           dtype=np.uint64)
-            bits = np.stack([packed & np.uint64(0xFFFFFFFF),
-                             packed >> np.uint64(32)], axis=1).astype(
-                                 np.uint32)
-    engine._tier2_bits = bits
-    return bits
-
-
-def tier2_codes(qbits: np.ndarray, bin_bits: tuple,
-                cell: np.ndarray) -> np.ndarray:
-    """uint8 direction codes of the tier-2 gate for (tile, target) pairs:
-    qbits uint32 [N, 2] each pair's tile_compat_bits, cell [N] its index
-    into the flattened [T * gh * gw] bit planes; bit 0 (direct) and bit 1
-    (mirrored) set where the tile's query bins meet that plane's target
-    bins."""
-    q0 = qbits[:, 0].astype(np.int64)
-    q1 = qbits[:, 1].astype(np.int64)
-    out = np.zeros(len(cell), np.uint8)
-    for bit, (b0, b1) in enumerate(bin_bits):
-        t0 = b0.reshape(-1)[cell].astype(np.int64) & 0xFFFFFFFF
-        t1 = b1.reshape(-1)[cell].astype(np.int64) & 0xFFFFFFFF
-        out |= (((q0 & t0) | (q1 & t1)) != 0).astype(np.uint8) << bit
-    return out
-
-
 # ---- the scorer ----------------------------------------------------------
 
 @dataclass
@@ -643,28 +535,16 @@ class MultiMaskScorer:
         kernel, _ = PREDICATE_KERNELS[self.predicate]
         return kernel(*args, *self.kernel_tail())
 
-    def _tier2_query_bits(self) -> Optional[np.ndarray]:
-        """tile_compat_bits of every stacked tile (None where the gate
-        cannot apply)."""
-        if not hasattr(self, "_tier2_q"):
-            bits = [tile_compat_bits(e) for e in self.engines]
-            self._tier2_q = None if any(b is None for b in bits) \
-                else np.concatenate(bits)
-        return self._tier2_q
-
     def build_table(self, survivors: np.ndarray,
                     signal_ranges: Optional[np.ndarray] = None,
-                    tile_live: Optional[tuple] = None,
-                    bin_bits: Optional[tuple] = None) -> LaunchTable:
+                    tile_live: Optional[tuple] = None) -> LaunchTable:
         """Rows and live-tile lists for `survivors` int [B, T].
 
         signal_ranges: optional int32 [T, 2] or [T, 4] row (and column)
-        signal extents; tile_live: optional (direct, mirrored) bitmaps;
-        bin_bits: optional bin_bits_from_words planes (the tier-2 gate).
-        Each restricts each row's tiles, per direction, to those that
+        signal extents; tile_live: optional (direct, mirrored) bitmaps.
+        Either restricts each row's tiles, per direction, to those that
         can score; a tile stays in a row's list with the directions that
-        can (exact: each test only drops windows without target signal,
-        or without a target bin compatible with the tile's query bins).
+        can (exact: each test only drops windows without target signal).
         Tiles without a selected query pixel are never listed.
 
         Rows come in engine order, each engine's in target order, and a
@@ -680,13 +560,8 @@ class MultiMaskScorer:
         n_cand = int(ends[-1]) if len(ends) else 0
         idx = np.arange(n_cand) + np.repeat(self._listed_off[eng] - starts,
                                             cnt)
-        cell = (np.repeat(dest * (self._grid[0] * self._grid[1]), cnt)
-                + self._listed_pos[idx])
-        code = codes[cell]
-        qbits = None if bin_bits is None else self._tier2_query_bits()
-        if qbits is not None:
-            code = code & tier2_codes(qbits[self._listed[idx]], bin_bits,
-                                      cell)
+        code = codes[np.repeat(dest * (self._grid[0] * self._grid[1]), cnt)
+                     + self._listed_pos[idx]]
         keep = np.flatnonzero(code)
         bounds = np.searchsorted(eng, np.arange(len(self.engines) + 1))
         spans = {pos: (np.arange(a, b), dest[a:b]) for pos, (a, b)
@@ -740,13 +615,11 @@ class MultiMaskScorer:
 
     def launch_deferred(self, packed, survivors: np.ndarray,
                         signal_ranges: Optional[np.ndarray] = None,
-                        tile_live: Optional[tuple] = None,
-                        bin_bits: Optional[tuple] = None
+                        tile_live: Optional[tuple] = None
                         ) -> List[DeferredScore]:
         """Queue the exact sweep of ALL masks over one packed target block
         (on its device): packed is the predicate's padded target planes
-        (pixel_active.pad_for_predicate); the cuts are build_table's.
-        Returns one
+        (pixel_active.pad_for_predicate). Returns one
         DeferredScore per engine (drain with pixel_active.drain_deferred:
         the shared output is copied once)."""
         packed = tuple(packed)
@@ -755,7 +628,7 @@ class MultiMaskScorer:
                              f"do not fit masks padded to {self.frame_shape}")
         tsz = packed[0].shape[0]
         surv_np = np.asarray(survivors).astype(np.int32)
-        tab = self.build_table(surv_np, signal_ranges, tile_live, bin_bits)
+        tab = self.build_table(surv_np, signal_ranges, tile_live)
         out = self.counts(self.kernel_args(packed, tab))
         pendings = [[] for _ in self.engines]
         for pos, (rows, dest) in tab.spans.items():

@@ -1,8 +1,8 @@
 """Prescreen: a provable upper bound on pixel-match scores, in PyTorch.
 
 Counterpart of `colormipsearch_tpu/cds/prescreen.py` (:67-154 host
-tables, :157-196 target features, :202-351 the count-capped and the
-uncapped bound, :354-377 the feature bound, :380-482 PairPrescreen).
+tables, :157-196 target features, :202-310 the count-capped bound,
+:354-377 the feature bound, :380-482 PairPrescreen).
 Phase 1 of the two-phase search bounds every (mask, target) pair's
 best-variant score; only pairs whose bound clears the keep threshold
 reach the exact scorer, so results are the same with the screen on or
@@ -20,13 +20,16 @@ by interval arithmetic over bin edges), and tcnt[C+o] counts its
 bin-valid target pixels (the sampling map p -> p+o is injective). The
 bound is the max over offsets, direct and x-flipped.
 
-Under CMS_PRESCREEN_CAP=0 (read at call time) the bound drops the count
-cap (`_variant_block_bounds`). The target-feature path bounds with one
-product per orientation: `target_features` marks, per cell and query
-bin j, whether the cell dilated by xyShift holds a target pixel
-compatible with j, and `PairPrescreen.bounds` takes u against those
-0/1 features (`_bounds_matmul`). Each bound dominates the one before:
-exact <= capped <= uncapped <= feature.
+The target-feature path bounds with one product per orientation:
+`target_features` marks, per cell and query bin j, whether the cell
+dilated by xyShift holds a target pixel compatible with j, and
+`PairPrescreen.bounds` takes u against those 0/1 features
+(`_bounds_matmul`). It is looser than the capped bound (exact <= capped
+<= feature) and no command calls it: it is kept for a benchmark's
+prescreen cell, which times it as the reference's bench.py does.
+
+Left out: the uncapped `_variant_block_bounds` (CMS_PRESCREEN_CAP=0), a
+user switch between two bounds that no workload has shown to win.
 
 Every value is an integer below 2^24 (cell counts <= 128, 0/1 weights,
 sums <= the query size), so the fp32 products and sums here are exact on
@@ -40,7 +43,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import os
 
 import numpy as np
 import torch
@@ -187,12 +189,12 @@ def _window(x: torch.Tensor, dim: int, k: int, op) -> torch.Tensor:
 
 
 def _sliding_cell_stats(t_words: torch.Tensor, flip: bool, pad: int,
-                        grid_hw, counts: bool = True):
+                        grid_hw):
     """Sliding-window (SUBTILE_H x SUBTILE_W) statistics over the
     pad-ringed tile-aligned frame, computed once and sliced per offset:
       or_full  [T, P, Hc-SUBTILE_H+1, Wc-SUBTILE_W+1]  presence bitmasks
       cnt_full [T,    Hc-SUBTILE_H+1, Wc-SUBTILE_W+1]  bin-valid counts
-    (cnt_full is None unless `counts`)."""
+    """
     gh, gw = grid_hw
     tsz, h, w = t_words.shape
     words2 = _bitmask_planes(t_words, flip)               # [T, P, H, W]
@@ -201,14 +203,12 @@ def _sliding_cell_stats(t_words: torch.Tensor, flip: bool, pad: int,
     canvas = torch.zeros((tsz, N_PLANES, hc, wc), dtype=torch.int32,
                          device=t_words.device)
     canvas[:, :, pad:pad + h, pad:pad + w] = words2
-    or_full = _window(_window(canvas, 2, SUBTILE_H, torch.bitwise_or),
-                      3, SUBTILE_W, torch.bitwise_or)
-    if not counts:
-        return or_full, None
     any_bin = canvas[:, 0]
     for p in range(1, N_PLANES):
         any_bin = any_bin | canvas[:, p]
     cnt = (any_bin != 0).to(torch.int32)
+    or_full = _window(_window(canvas, 2, SUBTILE_H, torch.bitwise_or),
+                      3, SUBTILE_W, torch.bitwise_or)
     cnt_full = _window(_window(cnt, 1, SUBTILE_H, torch.add),
                        2, SUBTILE_W, torch.add)
     return or_full, cnt_full
@@ -223,15 +223,6 @@ def _cell_slice(full: torch.Tensor, pad: int, dx: int, dy: int, grid_hw):
     return out.reshape(full.shape[:-2] + (ghn * gwn,))
 
 
-def _compat_weights(tile_or: torch.Tensor, zt9: int) -> torch.Tensor:
-    """f32 0/1 [T, npos, N_BINS]: weight [t, c, j] is 1 iff the cell's
-    presence bitmasks (tile_or [T, P, npos]) hold a bin compatible with
-    query bin j."""
-    compat = torch.from_numpy(compat_matrix(zt9).astype(np.float32)).to(
-        tile_or.device)                                    # [J, K]
-    return ((_presence_from_bits(tile_or) @ compat.T) > 0).to(torch.float32)
-
-
 def _variant_block_bounds_capped(u3: torch.Tensor, t_words: torch.Tensor,
                                  zt9: int, offsets, grid_hw,
                                  flip: bool) -> torch.Tensor:
@@ -242,6 +233,8 @@ def _variant_block_bounds_capped(u3: torch.Tensor, t_words: torch.Tensor,
     tsz = t_words.shape[0]
     pad = max((max(abs(dx), abs(dy)) for dx, dy in offsets), default=0)
     or_full, cnt_full = _sliding_cell_stats(t_words, flip, pad, grid_hw)
+    compat = torch.from_numpy(compat_matrix(zt9).astype(np.float32)).to(
+        t_words.device)                                    # [J, K]
     bsz, npos = u3.shape[0], u3.shape[1]
     # chunk the per-cell [B, T', chunk] temp to ~128 MB
     chunk = max(1, min(npos, (128 << 20) // max(bsz * tsz * 4, 1)))
@@ -249,7 +242,8 @@ def _variant_block_bounds_capped(u3: torch.Tensor, t_words: torch.Tensor,
     for dx, dy in offsets:
         tile_or = _cell_slice(or_full, pad, dx, dy, grid_hw)  # [T, P, npos]
         cnts = _cell_slice(cnt_full, pad, dx, dy, grid_hw)    # [T, npos]
-        w01 = _compat_weights(tile_or, zt9)                   # [T, npos, J]
+        pres = _presence_from_bits(tile_or)                   # [T, npos, K]
+        w01 = ((pres @ compat.T) > 0).to(torch.float32)       # [T, npos, J]
         cnts_f = cnts.to(torch.float32)
         bound_o = torch.zeros((bsz, tsz), dtype=torch.float32,
                               device=t_words.device)
@@ -259,28 +253,6 @@ def _variant_block_bounds_capped(u3: torch.Tensor, t_words: torch.Tensor,
             capped = torch.minimum(s, cnts_f[None, :, p0:p0 + chunk])
             bound_o = bound_o + capped.sum(dim=2)
         best = bound_o if best is None else torch.maximum(best, bound_o)
-    return best
-
-
-def _variant_block_bounds(u: torch.Tensor, t_words: torch.Tensor, zt9: int,
-                          offsets, grid_hw, flip: bool) -> torch.Tensor:
-    """Per-offset-max upper bounds [B, T'] without the count cap (f32,
-    integral): for each shift offset o the exact kernel samples
-    t(p.y + dy, p.x + dx), so score_o <= sum_C sum_j u[C, j] * w01[C + o,
-    j], and score = max_o score_o.
-
-    u: f32 [B, npos * N_BINS] query cell-bin counts; t_words: int32
-    [T', H, W] packed target words (unpadded frame)."""
-    tsz = t_words.shape[0]
-    pad = max((max(abs(dx), abs(dy)) for dx, dy in offsets), default=0)
-    or_full, _ = _sliding_cell_stats(t_words, flip, pad, grid_hw,
-                                     counts=False)
-    best = None
-    for dx, dy in offsets:
-        w01 = _compat_weights(_cell_slice(or_full, pad, dx, dy, grid_hw),
-                              zt9)                         # [T, npos, J]
-        b = u @ w01.reshape(tsz, -1).T                     # [B, T']
-        best = b if best is None else torch.maximum(best, b)
     return best
 
 
@@ -326,19 +298,16 @@ def target_features(t_words: torch.Tensor, zt9: int, xy_shift: int, grid_hw,
     cells = padded.reshape(tsz, N_PLANES, ghn, SUBTILE_H, gwn, SUBTILE_W)
     tile_or = or_reduce(or_reduce(cells, 5), 3).reshape(
         tsz, N_PLANES, ghn * gwn)                         # [T, P, npos]
-    return _compat_weights(tile_or, zt9).reshape(tsz, -1)
+    compat = torch.from_numpy(compat_matrix(zt9).astype(np.float32)).to(
+        t_words.device)                                    # [J, K]
+    pres = _presence_from_bits(tile_or)                    # [T, npos, K]
+    return ((pres @ compat.T) > 0).to(torch.float32).reshape(tsz, -1)
 
 
 def _bounds_matmul(u: torch.Tensor, wd: torch.Tensor, wm: torch.Tensor
                    ) -> torch.Tensor:
     """max(u wd^T, u wm^T): the feature bound [B, T] (f32, integral)."""
     return torch.maximum(u @ wd.T, u @ wm.T)
-
-
-def count_cap_enabled() -> bool:
-    """bounds_from_words caps each cell by its target count unless
-    CMS_PRESCREEN_CAP=0 (read at call time)."""
-    return os.environ.get("CMS_PRESCREEN_CAP", "1") == "1"
 
 
 @contextlib.contextmanager
@@ -411,22 +380,21 @@ class PairPrescreen:
                           ) -> np.ndarray:
         """Variant-consistent bounds [B, T] (numpy f32) from a query
         feature matrix (numpy or tensor [B, npos * N_BINS]) and packed
-        target words on their device; one copy to the host at the end.
-        Count-capped unless CMS_PRESCREEN_CAP=0."""
+        target words on their device; one copy to the host at the end."""
         dev = t_words.device
         u = torch.as_tensor(u_matrix).to(device=dev, dtype=torch.float32)
-        if count_cap_enabled():
-            fn, u = _variant_block_bounds_capped, u.reshape(u.shape[0], -1,
-                                                            N_BINS)
-        else:
-            fn = _variant_block_bounds
+        u3 = u.reshape(u.shape[0], -1, N_BINS)
         outs = []
         with _fp32_matmul():  # exact fp32 products
             for i in range(0, t_words.shape[0], self.FEATURE_BLOCK):
                 wb = t_words[i:i + self.FEATURE_BLOCK]
-                bd = fn(u, wb, self.zt9, self.offsets, self.grid_hw, False)
-                bm = fn(u, wb, self.zt9, self.offsets, self.grid_hw, True)
+                bd = _variant_block_bounds_capped(u3, wb, self.zt9,
+                                                  self.offsets, self.grid_hw,
+                                                  False)
+                bm = _variant_block_bounds_capped(u3, wb, self.zt9,
+                                                  self.offsets, self.grid_hw,
+                                                  True)
                 outs.append(torch.maximum(bd, bm))
         if not outs:
-            return np.zeros((u.shape[0], 0), np.float32)
+            return np.zeros((u3.shape[0], 0), np.float32)
         return torch.cat(outs, dim=1).cpu().numpy()

@@ -3,8 +3,7 @@
 Counterpart of `colormipsearch_tpu/parallel/pallas_sweep.py` (:33-176).
 Targets are block-partitioned over the given devices and each device
 runs the whole pipeline on its shard: pack words, pad (for the ratio
-predicate, into its prepared target planes), prescreen bound, live tiles
-(and under CMS_MM_TIER2=1 the tier-2 bin bits, multimask.tier2_enabled),
+predicate, into its prepared target planes), prescreen bound, live tiles,
 exact kernel launch. Every (mask, target) score is
 independent, so shards need no collectives. Launches are queued on each
 device's current stream; collect() drains a partition with one batched
@@ -19,9 +18,8 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..cds.multimask import (MultiMaskScorer, bin_bits_from_words,
-                             launch_params, signal_ranges_from_words,
-                             tier2_enabled, tile_live_from_words)
+from ..cds.multimask import (MultiMaskScorer, launch_params,
+                             signal_ranges_from_words, tile_live_from_words)
 from ..cds.pixel_active import drain_deferred, pad_for_predicate
 
 
@@ -124,15 +122,13 @@ class TwoPhaseSweep:
                 mark("bound", dev)
             ranges = signal_ranges_from_words(words)
             live = tile_live_from_words(words)
-            bins = bin_bits_from_words(words) if tier2_enabled() else None
             del words
             mark("live", dev)
             defs = [None] * len(self.engines)
             for idx, scorer in self.groups:
                 for i, d in zip(idx, scorer.launch_deferred(
                         packed[scorer.predicate], survivors[idx],
-                        signal_ranges=ranges, tile_live=live,
-                        bin_bits=bins)):
+                        signal_ranges=ranges, tile_live=live)):
                     defs[i] = d
             mark("launch", dev)
             launched.append((off, ln, defs))

@@ -1,4 +1,3 @@
 """Persistence helpers (counterpart of `colormipsearch_tpu/persist/`)."""
 
-from .config import Config
 from .idgenerator import TimebasedIdGenerator

@@ -1,3 +1,1 @@
 """Host utilities (counterpart of `colormipsearch_tpu/utils/`)."""
-
-from .telemetry import StageTimer, log_memory_usage, processing_context

@@ -779,82 +779,6 @@ def _case_jacs_neuron_from_mip(tmp_path, fixtures_dir):
                         for j in (got, want))
                 assert g == w
 
-def _case_persist_config(tmp_path, fixtures_dir, monkeypatch=None):
-    """Config: defaults, a .properties file, environment overrides and
-    the typed getters."""
-    from colormipsearch_tpu.persist import Config as Want
-    from colormipsearch_torch.persist import Config as Got
-    props = tmp_path / "app.properties"
-    props.write_text("# comment\n! bang\nMongoDB.Server = host:27017\n"
-                     "MongoDB.Database=nb\n\nTimebasedId.DeploymentContext"
-                     ": 3\nbad line\nk.with.dots=a=b\n")
-    key = "CMS_MongoDB_Database"
-    old = os.environ.pop(key, None)
-    try:
-        for env in (None, "from-env"):
-            if env is not None:
-                os.environ[key] = env
-            for path in (str(props), None, str(tmp_path / "missing")):
-                g, w = Got.from_file(path), Want.from_file(path)
-                assert g._values == w._values
-                for k in ("MongoDB.Database", "k.with.dots", "no"):
-                    assert g.get(k) == w.get(k)
-                    assert g.get(k, "dflt") == w.get(k, "dflt")
-                for k in ("TimebasedId.DeploymentContext", "no"):
-                    assert g.get_int(k, 7) == w.get_int(k, 7)
-                assert g.get_float("Memory.LowPercThreshold") == \
-                    w.get_float("Memory.LowPercThreshold")
-    finally:
-        os.environ.pop(key, None)
-        if old is not None:
-            os.environ[key] = old
-    g, w = Got({"a": "1"}), Want({"a": "1"})
-    g.put("b", "2")
-    w.put("b", "2")
-    assert g._values == w._values
-
-
-def _case_telemetry(tmp_path, fixtures_dir):
-    """StageTimer, log_memory_usage and processing_context: the same log
-    records, with the times and memory figures masked."""
-    import logging
-    import re
-
-    from colormipsearch_tpu.utils import telemetry as want
-    from colormipsearch_torch.utils import telemetry as got
-    out = {}
-    for name, mod in (("got", got), ("want", want)):
-        records = []
-        handler = logging.Handler()
-        handler.emit = lambda r: records.append(
-            (r.levelname, re.sub(r"[0-9]+(\.[0-9]+)?", "N", r.getMessage())))
-        log = logging.getLogger(f"telemetry-{name}")
-        log.addHandler(handler)
-        log.setLevel(logging.DEBUG)
-        mod.LOG.addHandler(handler)
-        old_level = mod.LOG.level
-        mod.LOG.setLevel(logging.DEBUG)
-        try:
-            ctx = [mod.current_context()]
-            with mod.processing_context(maskId="m1"):
-                with mod.processing_context(targetId="t9"):
-                    ctx.append(mod.current_context())
-                    with mod.StageTimer("decode", 10, log=log) as t:
-                        t.add_items(4)
-                        t.add_items(3)
-                    assert t.elapsed >= 0
-                    mib = mod.log_memory_usage("after")
-                ctx.append(mod.current_context())
-                mod.StageTimer("pack", log=log).finish()
-            ctx.append(mod.current_context())
-        finally:
-            mod.LOG.removeHandler(handler)
-            mod.LOG.setLevel(old_level)
-        assert mib > 0
-        out[name] = (records, ctx, t.stage, t.items, t.total_items)
-    assert out["got"] == out["want"]
-
-
 def _case_lut(tmp_path, fixtures_dir):
     from colormipsearch_tpu.cds import lut as want
     from colormipsearch_torch.cds import lut as got
@@ -1180,9 +1104,7 @@ HOST_COPY_CASES = {
     "dataio.fs.JSONCDMIPsWriter": _case_json_mips_writer,
     "ppp.raw_reader": _case_ppp_raw_reader,
     "cmd.mipstores": _case_mipstores,
-    "persist.Config": _case_persist_config,
     "jacs.client.neuron_from_mip": _case_jacs_neuron_from_mip,
-    "utils.telemetry": _case_telemetry,
     "cds.lut": _case_lut,
     "cds.shape_oracle": _case_shape_oracle,
     "cds.oracle.shift_ring_offsets": _case_shift_ring_offsets,

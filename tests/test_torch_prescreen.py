@@ -1,9 +1,9 @@
 """The port's prescreen bounds (colormipsearch_torch.cds.prescreen) must
-equal the JAX package's exactly: the count-capped bound and the uncapped
-one (CMS_PRESCREEN_CAP=0) of PairPrescreen.bounds_from_words, and the
-target-feature bound (target_features, then bounds). Each dominates the
-one before it and the exact score (a fuzz against the reference
-oracle): exact <= capped <= uncapped <= feature."""
+equal the JAX package's exactly: the count-capped bound of
+PairPrescreen.bounds_from_words and the target-feature bound
+(target_features, then bounds). Each dominates the one before it and the
+exact score (a fuzz against the reference oracle): exact <= capped <=
+feature."""
 
 import numpy as np
 import pytest
@@ -110,8 +110,8 @@ def _pack(targets_u8, h, w):
     return eng.pack_raw_words(targets_u8, CPU)
 
 
-def _every_bound(query_words, targets_u8, fluct, xy, h, w, monkeypatch):
-    """{name: (port, JAX)} for the capped, uncapped and feature bounds."""
+def _every_bound(query_words, targets_u8, fluct, xy, h, w):
+    """{name: (port, JAX)} for the capped and feature bounds."""
     import jax.numpy as jnp
     zt9 = z_tolerance_to_zt9(fluct)
     words = _pack(targets_u8, h, w)
@@ -119,12 +119,6 @@ def _every_bound(query_words, targets_u8, fluct, xy, h, w, monkeypatch):
     u = np.stack([screen.query_features(qw) for qw in query_words])
     out = {"capped": (screen.bounds_from_words(u, words),
                       np.asarray(ref.bounds_from_words(u, words.numpy())))}
-    with monkeypatch.context() as m:
-        m.setenv("CMS_PRESCREEN_CAP", "0")
-        m.setattr(RefPrescreen, "USE_COUNT_CAP", False)
-        out["uncapped"] = (screen.bounds_from_words(u, words),
-                           np.asarray(ref.bounds_from_words(u,
-                                                            words.numpy())))
     feats = screen.target_features(words)
     ref_feats = ref.target_features(jnp.asarray(words.numpy()))
     for got, want in zip(feats, ref_feats):
@@ -136,11 +130,12 @@ def _every_bound(query_words, targets_u8, fluct, xy, h, w, monkeypatch):
     return out
 
 
-@pytest.mark.parametrize("fluct,xy", [(2.0, 2), (1.0, 0), (0.5, 4)])
-def test_uncapped_and_feature_bounds_equal_reference(fluct, xy, monkeypatch):
-    """All three bounds equal the reference's, and on every pair
-    exact <= capped <= uncapped <= feature; the caller's TF32 setting is
-    back after each."""
+@pytest.mark.parametrize("fluct,xy", [(2.0, 2), (1.0, 0), (0.5, 4),
+                                     (1.0, 4), (2.0, 0), (0.5, 2)])
+def test_feature_bounds_equal_reference(fluct, xy, monkeypatch):
+    """Both bounds equal the reference's, and on every pair
+    exact <= capped <= feature; the caller's TF32 setting is back after
+    each."""
     rng = np.random.default_rng(23)
     h, w = 40, 300  # a partial last tile in both directions
     qs = []
@@ -165,7 +160,7 @@ def test_uncapped_and_feature_bounds_equal_reference(fluct, xy, monkeypatch):
     prev = torch.backends.cuda.matmul.allow_tf32
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
-        bounds = _every_bound(words, t, fluct, xy, h, w, monkeypatch)
+        bounds = _every_bound(words, t, fluct, xy, h, w)
         assert torch.backends.cuda.matmul.allow_tf32 is True
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
@@ -173,9 +168,8 @@ def test_uncapped_and_feature_bounds_equal_reference(fluct, xy, monkeypatch):
     for name, (got, want) in bounds.items():
         assert got.shape == (3, 4) and got.dtype == np.float32, name
         np.testing.assert_array_equal(got, want, err_msg=name)
-    capped, uncapped, feature = (bounds[k][0] for k in
-                                 ("capped", "uncapped", "feature"))
-    assert (capped <= uncapped).all() and (uncapped <= feature).all()
+    capped, feature = bounds["capped"][0], bounds["feature"][0]
+    assert (capped <= feature).all()
     assert (feature[:, 3] == 0).all()
     for qi, q in enumerate(qs):
         oracle = PixelMatchOracle(image_from_array(q), 20, True, 20,
@@ -185,7 +179,8 @@ def test_uncapped_and_feature_bounds_equal_reference(fluct, xy, monkeypatch):
             assert capped[qi, i] >= exact, (qi, i, capped[qi, i], exact)
 
 
-def test_target_features_given_flipped_frames_and_blocks(monkeypatch):
+@pytest.mark.parametrize("block", [1, 2, 5])
+def test_target_features_given_flipped_frames_and_blocks(block, monkeypatch):
     """Mirrored features from pre-flipped frames equal those of the flip
     done here, across FEATURE_BLOCK sub-blocks; an empty block gives
     empty features and bounds."""
@@ -195,7 +190,7 @@ def test_target_features_given_flipped_frames_and_blocks(monkeypatch):
     t[rng.random((5, h, w)) < 0.5] = 0
     words = _pack(t, h, w)
     screen = PairPrescreen(z_tolerance_to_zt9(1.0), 2, h, w)
-    monkeypatch.setattr(PairPrescreen, "FEATURE_BLOCK", 2)
+    monkeypatch.setattr(PairPrescreen, "FEATURE_BLOCK", block)
     wd, wm = screen.target_features(words)
     wd2, wm2 = screen.target_features(words, torch.flip(words, dims=(2,)))
     assert torch.equal(wd, wd2) and torch.equal(wm, wm2)
@@ -207,18 +202,33 @@ def test_target_features_given_flipped_frames_and_blocks(monkeypatch):
     assert screen.bounds(u, (ed, em)).shape == (2, 0)
 
 
-def test_or_dilate_matches_reduce_window():
+@pytest.mark.parametrize("pad", [1, 2, 4])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_or_dilate_matches_reduce_window(pad, dim):
     """The separable OR-dilation equals lax.reduce_window with "same"
     padding, on random bit planes with bit 31 set."""
     import jax
     rng = np.random.default_rng(8)
     x = rng.integers(-2**31, 2**31, size=(2, 3, 9, 21), dtype=np.int64
                      ).astype(np.int32)
-    for pad in (1, 2, 4):
-        for dim in (2, 3):
-            win = [1, 1, 1, 1]
-            win[dim] = 2 * pad + 1
-            want = jax.lax.reduce_window(x, np.int32(0), jax.lax.bitwise_or,
-                                         tuple(win), (1, 1, 1, 1), "same")
-            got = ps._or_dilate(torch.from_numpy(x), dim, pad)
-            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    win = [1, 1, 1, 1]
+    win[dim] = 2 * pad + 1
+    want = jax.lax.reduce_window(x, np.int32(0), jax.lax.bitwise_or,
+                                 tuple(win), (1, 1, 1, 1), "same")
+    got = ps._or_dilate(torch.from_numpy(x), dim, pad)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 8])
+@pytest.mark.parametrize("dim", [0, 2])
+def test_or_reduce_equals_numpy(n, dim):
+    """or_reduce (halving ORs) equals numpy's bitwise_or.reduce on int32
+    with the sign bit set, on odd and even lengths."""
+    rng = np.random.default_rng(n)
+    shape = [3, 4, 5]
+    shape[dim] = n
+    x = rng.integers(-2**31, 2**31, size=shape, dtype=np.int64
+                     ).astype(np.int32)
+    got = ps.or_reduce(torch.from_numpy(x), dim)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.bitwise_or.reduce(x, axis=dim))

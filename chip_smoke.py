@@ -6,10 +6,11 @@ CUDA card (Hopper, sm_90a) and nvcc; it builds the package's kernels from
 the sources in the checkout and drives the colorDepthSearch path on both
 exact predicates, and the op microbench:
 
-1. card: nvidia-smi name and power limit; the three kernel libraries
-   (multimask_ratio, multimask_words, op_chain) built in parallel, with
-   their build seconds, registers and shared memory; the native host
-   word packer of the pack stage (g++), which must build and load;
+1. card: nvidia-smi name and power limit; the four kernel libraries
+   (multimask_ratio, multimask_words, op_chain, prescreen_bound) built in
+   parallel, with their build seconds, registers and shared memory; the
+   native host word packer of the pack stage (g++), which must build and
+   load;
 2. each exact kernel against its plain PyTorch version, exactly, on a
    random library of full 566x1210 frames (16 masks x 64 targets): sparse
    and dense survivors, a mask with zero survivors, one survivor at the
@@ -26,11 +27,14 @@ exact predicates, and the op microbench:
 4. at size: TwoPhaseSweep over 1024 masks x 512 targets (two 256-target
    partitions) of the adversarial library built from the fixtures (rolled
    and banded frames, label-region exclusion, 1% keep threshold), on the
-   ratio path and on the word path (word tables from the ratio engines'
-   query tiles): 439 among mask 0's scores, each path's kernel launches
-   > 0, the two paths' scores equal on all 524,288 pairs, each kernel
-   equal to its plain version on partition 0's whole table, 32 masks'
-   one-launch scores equal to the sweep's; pairs/s of both paths in
+   ratio path, on the word path (word tables from the ratio engines'
+   query tiles) and on the ratio path screened by the dense fp32 bound
+   (`dense_capped_bounds`, the port's bound before its two kernels): 439
+   among mask 0's scores, each path's exact kernel launched and the other
+   not, the bound's two kernels once per partition (none on the dense
+   path), the three paths' scores equal on all 524,288 pairs, each exact
+   kernel equal to its plain version on partition 0's whole table, 32
+   masks' one-launch scores equal to the sweep's; pairs/s of the paths in
    turns, survivor rate, stage seconds, peak memory, and each kernel on
    partition 0 over all masks with its work (evaluations that can count,
    staged bytes), its bound and its share of it, and its pixel loop's
@@ -85,8 +89,9 @@ exact predicates, and the op microbench:
    (a) the four commands through the CLI's entry points on
    `--device cuda` on phase 3's workspace: stored pixel scores 439 / 414
    / 426 (lm-2 mirrored), gaps 21365 / 33884 / 40696, exported
-   normalizedScore 100.0 / 97.04 / 94.31, K1 launched and K3a not
-   (counted from 0 just before the chain), and the exported files equal
+   normalizedScore 100.0 / 97.04 / 94.31, the bound's two kernels and K1
+   launched and K3a not (counted from 0 just before the chain), and the
+   exported files equal
    to the same chain's on the CPU and on per-mask JSON files; (b) at
    size, the port's script (one search block, two gradient processes on
    the card and the store) over 256 of phase 4's masks (cut from 1024 to
@@ -110,18 +115,26 @@ exact predicates, and the op microbench:
    importPPPResults (the two raw PPP fixtures, with screenshots), both
    EM exports, tag, validateDBData and deleteCDMatches (a dry run, then
    a run): the goldens of the fixture pairs from the ingested lists, the
-   PPP export's screenshot-backed match, K1 launched and K3a not
-   (counted from 0 just before the chain), and the exports, the
-   validation report and the rows deleted equal to the same chain's on
-   the CPU over a copy of the ingested store; (b) the target-feature
-   bound beside the capped one on partition 0 of phase 4's library, each
-   equal to its CPU run on a slice, exact <= capped <= feature on every
-   pair, each bound's ms, survivor rate, peak memory and bound. Its
+   PPP export's screenshot-backed match, the bound's two kernels and K1
+   launched and K3a not (counted from 0 just before the chain), and the
+   exports, the validation report and the rows deleted equal to the same
+   chain's on the CPU over a copy of the ingested store; (b) the
+   prescreen bound on phase 4's library: each of its two kernels
+   (`prescreen_cells`, `prescreen_capped`) equal to its plain version on
+   the card on every entry of both partitions (the bits and counts of
+   all 18 variants, all 1024 x 256 bounds), each kernel's ms beside its
+   plain version's and its bound (operations and bytes from the query
+   CSR's sizes); on partition 0 the kernels' bound equal to the dense
+   formulation's on every pair, the capped and the target-feature bound
+   each equal to its CPU run on a slice, exact <= capped <= feature on
+   every pair, and each bound's ms (the capped one through the kernels
+   and as the dense products), survivor rate, peak memory and bound. Its
    numbers are one JSON line `{"ingest": ...}` before the kernels line.
 
 `python3 chip_smoke.py --profile DIR` adds a torch.profiler round of the
-phase-4 ratio sweep: device busy share, the bound's and the exact
-kernel's device time, the top device kernels, and a Chrome trace in DIR.
+phase-4 ratio sweep: device busy share, the bound's (its two kernels
+profiled alone on the same partitions) and the exact kernel's device
+time, the top device kernels, and a Chrome trace in DIR.
 
 Any failure exits non-zero. The last two lines are a JSON object per
 kernel (its launches on the main path, worst error, time, plain time,
@@ -149,7 +162,8 @@ LM_GOLDEN = [
     "2483089192251293794-CH2-01_CDM",
     "VT016795_115C08_AE_01-20200221_61_I2-m-CH1_01",
 ]
-# kernel -> (source, the TPU kernel it replaces)
+# kernel -> (source, the TPU kernel it replaces; the prescreen bound's
+# two replace an XLA function of the JAX package, not a Pallas kernel)
 KERNELS = {
     "multimask_ratio": ("colormipsearch_torch/csrc/multimask_ratio.cu",
                         "colormipsearch_tpu/cds/multimask.py:326"),
@@ -157,7 +171,14 @@ KERNELS = {
                         "colormipsearch_tpu/cds/multimask.py:260"),
     "op_chain": ("colormipsearch_torch/csrc/op_chain.cu",
                  "scripts/op_microbench.py:38"),
+    "prescreen_cells": ("colormipsearch_torch/csrc/prescreen_bound.cu",
+                        "colormipsearch_tpu/cds/prescreen.py:269"),
+    "prescreen_capped": ("colormipsearch_torch/csrc/prescreen_bound.cu",
+                         "colormipsearch_tpu/cds/prescreen.py:269"),
 }
+# the kernel libraries, one per source (cds/kernels.py)
+LIBRARIES = tuple(dict.fromkeys(os.path.basename(src)[:-len(".cu")]
+                                for src, _ in KERNELS.values()))
 
 
 def log(msg):
@@ -232,7 +253,7 @@ def phase_card():
         f"{torch.cuda.get_device_name(0)}")
     from colormipsearch_torch.cds import kernels
     t0 = time.perf_counter()
-    libs = kernels.load_libraries(tuple(KERNELS))
+    libs = kernels.load_libraries(LIBRARIES)
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.2f}s "
         f"(one nvcc each, in parallel)")
     for name, kl in libs.items():
@@ -666,6 +687,74 @@ def kernel_work(scorer, tab):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def dense_capped_bounds(screen, u_matrix, t_words):
+    """The count-capped bound as the port computed it before its two
+    kernels: the dense fp32 products of
+    prescreen._variant_block_bounds_capped over every cell and bin, in
+    FEATURE_BLOCK target blocks, TF32 off. u_matrix: a QueryRows CSR or a
+    dense [B, F] matrix. The yardstick of phases 4 and 9b; no command
+    calls it."""
+    import torch
+    from colormipsearch_torch.cds import prescreen as ps
+    u = (u_matrix.to_dense() if isinstance(u_matrix, ps.QueryRows)
+         else torch.as_tensor(u_matrix))
+    u3 = u.to(device=t_words.device, dtype=torch.float32).reshape(
+        u.shape[0], -1, ps.N_BINS)
+    outs = []
+    with ps._fp32_matmul():
+        for i in range(0, t_words.shape[0], screen.FEATURE_BLOCK):
+            wb = t_words[i:i + screen.FEATURE_BLOCK]
+            outs.append(torch.maximum(*(ps._variant_block_bounds_capped(
+                u3, wb, screen.zt9, screen.offsets, screen.grid_hw, flip)
+                for flip in (False, True))))
+    return torch.cat(outs, dim=1).cpu().numpy()
+
+
+class DenseBoundScreen:
+    """A screen for TwoPhaseSweep whose bound is dense_capped_bounds: the
+    same bounds as the package's PairPrescreen, without its kernels."""
+
+    def __init__(self, screen):
+        self.screen = screen
+
+    def bounds_from_words(self, u_matrix, t_words):
+        return dense_capped_bounds(self.screen, u_matrix, t_words)
+
+
+# the least operations of the prescreen kernels: cells, an OR and a count
+# per pixel of each variant's window, and the bin of each word (field
+# extracts, the ratio's multiply and divide, the sector's offset);
+# capped, a bit test and a multiply-add per (entry, variant, target), a
+# min and an add per (cell, variant, target) and a max per (mask,
+# variant, target)
+OPS_PER_WINDOW_PX = 2
+OPS_PER_BIN = 6
+OPS_PER_ENTRY = 2
+OPS_PER_CELL = 2
+
+
+def prescreen_work(words, bits, cnt, rows):
+    """{kernel: (ops_ms, bytes_ms)} of the two prescreen kernels on one
+    partition: their operations at the card's lane rate and their bytes,
+    each input read once and each output written once, at its memory
+    rate, from this partition's shapes and the query CSR's sizes."""
+    nv, npos, tsz = bits.shape
+    n_cells, n_ent = rows.cell_pos.numel(), rows.entries.numel()
+    csr_bytes = 4 * sum(t.numel() for t in rows.tensors())
+    out_bytes = 4 * rows.n_masks * tsz
+    table_bytes = bits.numel() * 8 + cnt.numel()
+    cells_ops = (nv * npos * tsz * 8 * 16 * OPS_PER_WINDOW_PX
+                 + words.numel() * OPS_PER_BIN)
+    capped_ops = nv * tsz * (n_ent * OPS_PER_ENTRY + n_cells * OPS_PER_CELL
+                             + rows.n_masks)
+    return {"prescreen_cells": (1e3 * cells_ops / PEAK_LANE_OPS,
+                                1e3 * (words.numel() * 4 + table_bytes)
+                                / PEAK_BYTES),
+            "prescreen_capped": (1e3 * capped_ops / PEAK_LANE_OPS,
+                                 1e3 * (table_bytes + csr_bytes + out_bytes)
+                                 / PEAK_BYTES)}
+
+
 def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
                   n_targets=512, part=256):
     import torch
@@ -674,6 +763,7 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
     from colormipsearch_torch.cds.pixel_active import (ActiveTilePixelEngine,
                                                        drain_deferred,
                                                        pad_for_predicate)
+    from colormipsearch_torch.cds import prescreen as ps
     from colormipsearch_torch.cds.prescreen import PairPrescreen
     from colormipsearch_torch.parallel.twophase_sweep import TwoPhaseSweep
     from colormipsearch_torch.scripts.op_microbench import cuda_ms
@@ -702,8 +792,15 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
                                     thr)
     log(f"[phase 4] word engines from the ratio engines' tiles in "
         f"{time.perf_counter() - t0:.3f}s")
+    # the ratio path screened by the dense fp32 bound, without the
+    # prescreen kernels: the yardstick of the bound's kernels
+    sweeps["dense"] = TwoPhaseSweep(engines, [dev], DenseBoundScreen(screen),
+                                    u_matrix, thr)
+    predicate = {"ratio": "ratio", "words": "words", "dense": "ratio"}
     parts = [targets[i:i + part] for i in range(0, n_targets, part)]
     wrappers = {p: fns[0] for p, fns in mm.PREDICATE_KERNELS.items()}
+    wrappers.update(prescreen_cells=ps.prescreen_cells,
+                    prescreen_capped=ps.prescreen_capped)
 
     def run(sweep, stage, sync=False):
         """The CLI's partition loop: partition p+1 is launched before p is
@@ -728,32 +825,38 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
         staged_s = time.perf_counter() - t0
         launches[path] = {p: fn.launches for p, fn in wrappers.items()}
         peak = torch.cuda.max_memory_allocated(dev)
-        other = "words" if path == "ratio" else "ratio"
-        if launches[path][path] == 0 or launches[path][other] != 0:
+        own = predicate[path]
+        other = "words" if own == "ratio" else "ratio"
+        screens = launches[path]["prescreen_cells"], launches[path][
+            "prescreen_capped"]
+        if launches[path][own] == 0 or launches[path][other] != 0 \
+                or screens != ((0, 0) if path == "dense"
+                               else (len(parts), len(parts))):
             raise SystemExit(f"the {path} path did not run through its "
-                             f"kernel alone: {launches[path]}")
+                             f"kernels alone: {launches[path]}")
         scores = results[path][0]
         if 439 not in scores[0]:
             raise SystemExit(f"{path}: golden 439 missing from mask 0: "
                              f"{scores[0][:8]}")
         surv_rate = 1.0 - stage.get("screened", 0) / pairs
         true_rate = float(np.mean(scores > thr[:, None]))
-        log(f"[phase 4] {path} path: {launches[path][path]} kernel launches; "
+        log(f"[phase 4] {path} path: kernel launches {launches[path]}; "
             f"439 in mask 0's scores; stage-synced round {staged_s:.3f}s; "
             f"survivor rate {surv_rate:.4f}, true match rate "
             f"{true_rate:.4f}, peak device memory {peak / 2**30:.2f} GiB")
         log(f"[phase 4] {path} stage seconds: " + json.dumps(
             {k: round(v, 4) for k, v in stage.items() if k != "screened"}))
-    for a, b in zip(results["ratio"], results["words"]):
-        if not np.array_equal(a, b):
-            raise SystemExit("the word path's scores differ from the ratio "
-                             "path's")
-    log(f"[phase 4] word path == ratio path on all {pairs} pairs "
-        f"(scores and mirrored flags)")
+    for path in ("words", "dense"):
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(results["ratio"], results[path])):
+            raise SystemExit(f"the {path} path's scores differ from the "
+                             f"ratio path's")
+    log(f"[phase 4] word path == dense-bound path == ratio path on all "
+        f"{pairs} pairs (scores and mirrored flags)")
     # timed rounds, no stage syncs, the CLI's loop as it runs; the paths
-    # in turns: ratio, words, words, ratio
-    walls = {"ratio": [], "words": []}
-    for path in ("ratio", "words", "words", "ratio"):
+    # in turns: ratio, dense, words, words, dense, ratio
+    walls = {"ratio": [], "dense": [], "words": []}
+    for path in ("ratio", "dense", "words", "words", "dense", "ratio"):
         t0 = time.perf_counter()
         got = run(sweeps[path], None)
         walls[path].append(time.perf_counter() - t0)
@@ -765,14 +868,15 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
 
     # partition 0's tables, as the sweep builds them
     words = engines[0].pack_raw_words(parts[0], dev)
-    planes = {p: pad_for_predicate(words, p) for p in sweeps}
+    planes = {p: pad_for_predicate(words, p) for p in ("ratio", "words")}
     ranges = mm.signal_ranges_from_words(words)
     live = mm.tile_live_from_words(words)
     survivors = (screen.bounds_from_words(u_matrix, words)
                  > thr[:, None]).astype(np.int32)
-    timing = {}
-    for path, sweep in sweeps.items():
-        (_, everyone), = sweep.groups  # one param group: every mask
+    timing = {name: {"launches": launches["ratio"][name]}
+              for name in ("prescreen_cells", "prescreen_capped")}
+    for path in ("ratio", "words"):
+        (_, everyone), = sweeps[path].groups  # one param group: every mask
         kernel, plain = mm.PREDICATE_KERNELS[path]
         t0 = time.perf_counter()
         tab = everyone.build_table(survivors, ranges, live)
@@ -840,11 +944,11 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
             "bound_by": work["bound_by"], "library_ms": None}
     if profile_dir is not None:
         part_words = [engines[0].pack_raw_words(tp, dev) for tp in parts]
-        u_dev = torch.from_numpy(u_matrix).to(dev)
+        rows = ps.sparse_query_rows(u_matrix).to(dev)
 
         def bound_only():
             for wp in part_words:
-                screen.bounds_from_words(u_dev, wp)
+                screen.bounds_from_words(rows, wp)
         phase_profile(lambda stage: run(sweeps["ratio"], stage), bound_only,
                       profile_dir)
     library = {"engines": engines, "words_engines": words_engines,
@@ -1677,25 +1781,43 @@ def pipeline_chain(ws, out, device, backend):
     return file_tree(export)
 
 
+def path_kernels():
+    """{name: wrapper} of the kernels colorDepthSearch's default path can
+    launch: the exact kernels of both predicates and the bound's two."""
+    from colormipsearch_torch.cds import multimask as mm
+    from colormipsearch_torch.cds import prescreen as ps
+    return {"multimask_ratio": mm.PREDICATE_KERNELS["ratio"][0],
+            "multimask_words": mm.PREDICATE_KERNELS["words"][0],
+            "prescreen_cells": ps.prescreen_cells,
+            "prescreen_capped": ps.prescreen_capped}
+
+
+def ran_k1_path(launches):
+    """The default path ran: the bound's kernels and K1, not K3a."""
+    return launches["multimask_words"] == 0 and all(
+        launches[k] > 0 for k in ("multimask_ratio", "prescreen_cells",
+                                  "prescreen_capped"))
+
+
 def phase_pipeline_fixtures(ws):
     """(a) The production pipeline on the golden fixtures through the
     CLI's entry points on --device cuda, over one SQLite store: the
-    stored pixel scores and gaps, the exported normalized scores, K1
-    launched and K3a not (counted from 0 just before the chain); the same
-    chain on the CPU and on per-mask JSON files exports the same bytes."""
-    from colormipsearch_torch.cds import multimask as mm
+    stored pixel scores and gaps, the exported normalized scores, the
+    bound's two kernels and K1 launched and K3a not (counted from 0 just
+    before the chain); the same chain on the CPU and on per-mask JSON
+    files exports the same bytes."""
     from colormipsearch_torch.dataio import DataSourceParam
     from colormipsearch_torch.dataio.db import (DBNeuronMatchesReader,
                                                 SqliteStore)
-    k1, k3a = (mm.PREDICATE_KERNELS[p][0] for p in ("ratio", "words"))
     root = os.path.join(ws, "pipeline")
     seconds = {}
     t0 = time.perf_counter()
-    k1.launches = k3a.launches = 0
+    counters = path_kernels()
+    for fn in counters.values():
+        fn.launches = 0
     exported = pipeline_chain(ws, os.path.join(root, "cuda_sqlite"), "cuda",
                               "sqlite")
-    launches = {"multimask_ratio": k1.launches,
-                "multimask_words": k3a.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     seconds["cuda_sqlite"] = round(time.perf_counter() - t0, 2)
     store = SqliteStore(os.path.join(root, "cuda_sqlite", "nb.db"))
     rows = {m.matched_image.mip_id: m
@@ -1713,9 +1835,9 @@ def phase_pipeline_fixtures(ws):
     if pixels != CDS_GOLDENS or gaps != GAP_GOLDENS \
             or scores != EXPORT_GOLDENS or list(exported) != ["em-12191.json"]:
         raise SystemExit("the pipeline's goldens are wrong")
-    if launches["multimask_ratio"] == 0 or launches["multimask_words"] != 0:
-        raise SystemExit(f"the pipeline did not run through K1 alone: "
-                         f"{launches}")
+    if not ran_k1_path(launches):
+        raise SystemExit(f"the pipeline did not run through the bound's "
+                         f"kernels and K1 alone: {launches}")
     for device, backend in (("cpu", "sqlite"), ("cuda", "json")):
         t0 = time.perf_counter()
         got = pipeline_chain(ws, os.path.join(root, f"{device}_{backend}"),
@@ -2166,12 +2288,12 @@ def phase_ingest(ws, device="cuda"):
     CLI's entry points: the MIP lists of createColorDepthSearchDataInput,
     copyToMipsStore, then search, gradient, normalize, PPP import, both
     exports, tag, validate and delete over one SQLite store on `device`;
-    the goldens of the fixture pairs, K1 launched and K3a not (counted
-    from 0 just before the chain), and the exports, the validation report
+    the goldens of the fixture pairs, the bound's two kernels and K1
+    launched and K3a not (counted from 0 just before the chain), and the
+    exports, the validation report
     and the rows deleted equal to the same chain's on the CPU over a copy
     of the same ingested store."""
     import shutil
-    from colormipsearch_torch.cds import multimask as mm
     root = os.path.join(ws, "ingest")
     t0 = time.perf_counter()
     lists = ingest_lists(root)
@@ -2190,12 +2312,13 @@ def phase_ingest(ws, device="cuda"):
         croot = os.path.join(root, f"chain{i}-{dev}")
         os.makedirs(croot)
         shutil.copy(os.path.join(root, "nb.db"), croot)  # the same lists
-        k1, k3a = (mm.PREDICATE_KERNELS[p][0] for p in ("ratio", "words"))
-        k1.launches = k3a.launches = 0
+        counters = path_kernels()
+        for fn in counters.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         chains[i] = ingest_chain(croot, dev, ppp)
-        chains[i]["launches"] = {"multimask_ratio": k1.launches,
-                                 "multimask_words": k3a.launches}
+        chains[i]["launches"] = {name: fn.launches
+                                 for name, fn in counters.items()}
         report[f"chain{i}_{dev}_s"] = round(time.perf_counter() - t0, 2)
     main = chains[0]
     by_file = {}
@@ -2240,10 +2363,9 @@ def phase_ingest(ws, device="cuda"):
     if not copied or not repointed or not main["tagged"] \
             or not main["report"] or not main["deleted"]:
         raise SystemExit("copy, tag, validate or delete did nothing")
-    if device != "cpu" and (main["launches"]["multimask_ratio"] == 0
-                            or main["launches"]["multimask_words"] != 0):
-        raise SystemExit(f"phase 9a did not run through K1 alone: "
-                         f"{main['launches']}")
+    if device != "cpu" and not ran_k1_path(main["launches"]):
+        raise SystemExit(f"phase 9a did not run through the bound's kernels "
+                         f"and K1 alone: {main['launches']}")
     for key in ("export_cd", "export_ppp", "report", "deleted"):
         if main[key] != chains[1][key]:
             raise SystemExit(f"phase 9a: the CPU chain's {key} differs")
@@ -2253,66 +2375,126 @@ def phase_ingest(ws, device="cuda"):
 
 
 
-def phase_bounds_at_size(dev, library, n_cpu=4):
-    """(b) The target-feature bound beside the capped one on partition 0
-    (all masks x 256 targets of 566x1210): each equal to its CPU run on
-    the first n_cpu masks and targets, exact <= capped <= feature on
-    every pair; each
-    bound's ms by CUDA events, survivor rate at the 1 % keep threshold,
-    peak device memory and bound (bytes over 3.35 TB/s, its products over
-    the card's 67 TFLOP/s of fp32)."""
+def phase_bounds_at_size(checks, dev, library, n_cpu=4):
+    """(b) The count-capped bound's two kernels against their plain
+    versions on the card, on every entry of both partitions of phase 4's
+    library (the bits and counts of every variant, cell and target; every
+    mask's bound against every target); on partition 0 (all masks x 256
+    targets of 566x1210) the kernels' bound equal to the dense fp32
+    formulation's on every pair, each of the capped and the feature bound
+    equal to its CPU run on the first n_cpu masks and targets, and exact
+    <= capped <= feature on every pair. Times by CUDA events: each kernel
+    and its plain version, the capped bound through the kernels and as
+    the dense products, the feature bound; each with its survivor rate at
+    the 1 % keep threshold, peak device memory and bound (bytes over 3.35
+    TB/s, operations over the card's lane rate or, for the products, 67
+    TFLOP/s of fp32)."""
     import torch
     from colormipsearch_torch.cds import prescreen as ps
     from colormipsearch_torch.scripts.op_microbench import cuda_ms
     engines, screen, u, thr = (library[k] for k in (
         "engines", "screen", "u_matrix", "thr"))
-    part = library["parts"][0]
-    exact = library["result"][0][:, :len(part)]
-    words = engines[0].pack_raw_words(part, dev)
-    u_dev = torch.from_numpy(u).to(dev)
-
-    def capped(uu, ww):
-        return screen.bounds_from_words(uu, ww)
-
-    def feature(uu, ww):
-        return screen.bounds(uu, screen.target_features(ww))
-
-    bsz, tsz = exact.shape
-    n_off = len(screen.offsets)
-    f = u.shape[1]
-    in_bytes = words.numel() * 4 + u.size * 4 + bsz * tsz * 4
-    flops = {"capped": 2 * bsz * tsz * f * n_off * 2,
-             "feature": 2 * bsz * tsz * f * 2}
-    report, values = {}, {}
-    for name, fn in (("capped", capped), ("feature", feature)):
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        values[name] = fn(u_dev, words)
-        peak = torch.cuda.max_memory_allocated(dev)
-        ms = cuda_ms(lambda fn=fn: fn(u_dev, words), 2)
-        cpu = fn(u[:n_cpu], words[:n_cpu].cpu())
-        if not np.array_equal(cpu, values[name][:n_cpu, :n_cpu]):
-            raise SystemExit(f"the {name} bound on the card differs from "
-                             f"its CPU run")
-        bytes_ms = 1e3 * in_bytes / PEAK_BYTES
-        ops_ms = 1e3 * flops[name] / (2 * PEAK_LANE_OPS)
-        report[name] = {
-            "ms": ms, "peak_gib": peak / 2**30,
-            "survivor_rate": float(np.mean(values[name] > thr[:, None])),
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    chain = [exact, values["capped"], values["feature"]]
-    held = all((a <= b).all() for a, b in zip(chain, chain[1:]))
-    log(f"[phase 9b] partition 0 ({bsz} masks x {tsz} targets): each bound "
-        f"== its CPU run on {n_cpu} x {n_cpu}; exact <= capped <= feature "
-        f"on every pair: {held}; " + "; ".join(
-            f"{k} {v['ms']:.2f} ms (bound {v['bound_ms']:.2f} ms by "
-            f"{v['bound_by']}), survivors {v['survivor_rate']:.4f}, peak "
-            f"{v['peak_gib']:.2f} GiB" for k, v in report.items()))
-    if not held:
-        raise SystemExit("the bounds' chain does not hold")
-    del words, u_dev
+    rows = ps.sparse_query_rows(u).to(dev)
+    stage_args = (screen.zt9, screen.offsets, screen.grid_hw)
+    report, kernel_timing = {}, {}
+    for p, part in enumerate(library["parts"]):
+        words = engines[0].pack_raw_words(part, dev)
+        bits, cnt = ps.prescreen_cells(words, *stage_args)
+        plain_cells = event_ms(lambda: ps.cell_masks_plain(words,
+                                                           *stage_args))
+        nv, npos, tsz = bits.shape
+        label = f"partition {p}, {nv} variants x {npos} cells x {tsz} targets"
+        checks["prescreen_cells"].compare(f"{label}: bits", lambda: bits,
+                                          lambda: plain_cells[0][0])
+        checks["prescreen_cells"].compare(f"{label}: counts", lambda: cnt,
+                                          lambda: plain_cells[0][1])
+        got = ps.prescreen_capped(rows, bits, cnt)
+        plain_capped = event_ms(lambda: ps.capped_bounds_plain(rows, bits,
+                                                               cnt))
+        checks["prescreen_capped"].compare(
+            f"partition {p}, {rows.n_masks} masks x {tsz} targets: bounds",
+            lambda: got, lambda: plain_capped[0])
+        if p:
+            continue
+        work = prescreen_work(words, bits, cnt, rows)
+        for name, fn, plain_ms in (
+                ("prescreen_cells",
+                 lambda: ps.prescreen_cells(words, *stage_args),
+                 plain_cells[1]),
+                ("prescreen_capped",
+                 lambda: ps.prescreen_capped(rows, bits, cnt),
+                 plain_capped[1])):
+            ops_ms, bytes_ms = work[name]
+            kernel_timing[name] = {
+                "ms": cuda_ms(fn, 10), "plain_ms": plain_ms,
+                "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": None}
+        exact = library["result"][0][:, :tsz]
+        in_bytes = words.numel() * 4 + u.size * 4 + rows.n_masks * tsz * 4
+        f = u.shape[1]
+        flops = {"capped_dense": 2 * rows.n_masks * tsz * f * nv,
+                 "feature": 2 * rows.n_masks * tsz * f * 2}
+        u_dev = torch.from_numpy(u).to(dev)
+        bounds = {
+            "capped": (lambda uu, ww: screen.bounds_from_words(uu, ww),
+                       rows),
+            "capped_dense": (lambda uu, ww: dense_capped_bounds(screen, uu,
+                                                                ww), u_dev),
+            "feature": (lambda uu, ww: screen.bounds(
+                uu, screen.target_features(ww)), u_dev)}
+        values = {}
+        for name, (fn, uu) in bounds.items():
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            values[name] = fn(uu, words)
+            peak = torch.cuda.max_memory_allocated(dev)
+            ms = cuda_ms(lambda fn=fn, uu=uu: fn(uu, words), 2)
+            if name == "capped":
+                ops_ms = sum(kernel_timing[k]["ops_ms"]
+                             for k in kernel_timing)
+                bytes_ms = 1e3 * (words.numel() * 4 + 4 * sum(
+                    t.numel() for t in rows.tensors())
+                    + rows.n_masks * tsz * 4) / PEAK_BYTES
+            else:
+                ops_ms = 1e3 * flops[name] / (2 * PEAK_LANE_OPS)
+                bytes_ms = 1e3 * in_bytes / PEAK_BYTES
+            report[name] = {
+                "ms": ms, "peak_gib": peak / 2**30,
+                "survivor_rate": float(np.mean(values[name] > thr[:, None])),
+                "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        for name, uu in (("capped", u), ("feature", u)):
+            cpu = bounds[name][0](uu[:n_cpu], words[:n_cpu].cpu())
+            if not np.array_equal(cpu, values[name][:n_cpu, :n_cpu]):
+                raise SystemExit(f"the {name} bound on the card differs "
+                                 f"from its CPU run")
+        if not np.array_equal(values["capped"], values["capped_dense"]):
+            raise SystemExit("the prescreen kernels' bound differs from the "
+                             "dense formulation's")
+        chain = [exact, values["capped"], values["feature"]]
+        held = all((a <= b).all() for a, b in zip(chain, chain[1:]))
+        log(f"[phase 9b] partition 0 ({rows.n_masks} masks x {tsz} targets; "
+            f"query CSR {rows.cell_pos.numel()} cells, "
+            f"{rows.entries.numel()} entries): the kernels' bound == the "
+            f"dense formulation's on every pair; capped and feature bounds "
+            f"== their CPU runs on {n_cpu} x {n_cpu}; exact <= capped <= "
+            f"feature on every pair: {held}; " + "; ".join(
+                f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f} ms by "
+                f"{v['bound_by']}), survivors {v['survivor_rate']:.4f}, peak "
+                f"{v['peak_gib']:.2f} GiB" for k, v in report.items()))
+        for name, v in kernel_timing.items():
+            log(f"[phase 9b] {name}: {v['ms']:.4f} ms, plain version "
+                f"{v['plain_ms']:.3f} ms; bound {v['bound_ms']:.4f} ms by "
+                f"{v['bound_by']} (ops {v['ops_ms']:.4f} ms, bytes "
+                f"{v['bytes_ms']:.4f} ms): {100 * v['bound_ms'] / v['ms']:.1f}"
+                f" % of its bound")
+        if not held:
+            raise SystemExit("the bounds' chain does not hold")
+        del u_dev
+    report["kernels"] = kernel_timing
     return report
 
 
@@ -2337,7 +2519,8 @@ def main():
     t_all = time.perf_counter()
     card = phase_card()
     checks = {name: Check(name) for name in
-              ("multimask_ratio", "multimask_words")}
+              ("multimask_ratio", "multimask_words", "prescreen_cells",
+               "prescreen_capped")}
     phase_kernel_vs_plain(checks, dev)
     with tempfile.TemporaryDirectory() as ws:
         phase_cli(ws, "1")
@@ -2366,10 +2549,12 @@ def main():
             f"{time.perf_counter() - t8:.1f}s")
         t9 = time.perf_counter()
         ingest = {"pipeline": phase_ingest(ws),
-                  "bounds": phase_bounds_at_size(dev, library)}
+                  "bounds": phase_bounds_at_size(checks, dev, library)}
         ingest["phase_s"] = round(time.perf_counter() - t9, 2)
-        log(f"[phase 9] ingest to export and the feature bound in "
+        log(f"[phase 9] ingest to export and the prescreen bounds in "
             f"{ingest['phase_s']}s")
+        for name, measured in ingest["bounds"]["kernels"].items():
+            timing[name].update(measured)
     for name, check in checks.items():
         timing[name]["max_abs_err"] = check.max_abs_err
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f}s")

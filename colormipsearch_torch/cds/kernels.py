@@ -57,6 +57,17 @@ BINDINGS = {
         _I, _P, _P, _P,          # op case, x, y, out
         _I, _I, _P, _I],         # n elements, steps, stream, device
         "cms_op_chain_loop_steps": []},  # returns a count, not an error
+    "prescreen_bound": {
+        "cms_prescreen_cells": [
+            _P, _I, _I, _I,      # words, n targets, h, w
+            _I, _I,              # cell grid rows, cols
+            ctypes.POINTER(ctypes.c_longlong),  # colbits: N_BINS host ints
+            _I, ctypes.POINTER(_I),  # n offsets, (dx, dy) host ints
+            _P, _P, _P, _I],     # bits, cnt, stream, device
+        "cms_prescreen_capped": [
+            _P, _P, _P, _P, _I,  # mask_off, cell_pos, cell_off, entries, B
+            _P, _P, _I, _I, _I,  # bits, cnt, variants, cells, targets
+            _P, _P, _I]},        # out, stream, device
 }
 LIBRARIES = tuple(BINDINGS)
 

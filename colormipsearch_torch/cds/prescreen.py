@@ -20,6 +20,22 @@ by interval arithmetic over bin edges), and tcnt[C+o] counts its
 bin-valid target pixels (the sampling map p -> p+o is injective). The
 bound is the max over offsets, direct and x-flipped.
 
+`PairPrescreen.bounds_from_words` computes it in two stages, each a
+hand-written Hopper kernel (`csrc/prescreen_bound.cu`) with a plain
+PyTorch version that CPU tensors run:
+- `prescreen_cells` (plain: `cell_masks_plain`): per variant (direct and
+  flipped frame x offset), cell and target, w01 as the bits of an int64
+  and tcnt as a uint8;
+- `prescreen_capped` (plain: `capped_bounds_plain`): the capped sums
+  over the query's non-zero cells only, read from a per-mask CSR of its
+  (bin, count) entries (`sparse_query_rows`, `QueryRows`), max over the
+  variants. The at-size masks fill ~3 % of the cells and ~0.2 % of the
+  (cell, bin) entries, so this skips nearly all of the dense product.
+Each wrapper's `.launches` counts its kernel launches.
+`_variant_block_bounds_capped` is the same bound as dense fp32 products
+(the JAX package's formulation, op for op); no command calls it:
+`chip_smoke.py` times it beside the kernels and screens with it.
+
 The target-feature path bounds with one product per orientation:
 `target_features` marks, per cell and query bin j, whether the cell
 dilated by xyShift holds a target pixel compatible with j, and
@@ -32,21 +48,26 @@ Left out: the uncapped `_variant_block_bounds` (CMS_PRESCREEN_CAP=0), a
 user switch between two bounds that no workload has shown to win.
 
 Every value is an integer below 2^24 (cell counts <= 128, 0/1 weights,
-sums <= the query size), so the fp32 products and sums here are exact on
-any device as long as no reduced-precision mode is on: the bound never
-rounds below the count (a bf16 product would round its output above
-256). Each entry point turns TF32 off for its own products and restores
-the caller's setting afterwards.
+sums <= the query size). The two stages compute in integers; the fp32
+products of the dense and feature bounds are exact on any device as
+long as no reduced-precision mode is on: the bound never rounds below
+the count (a bf16 product would round its output above 256). Those
+entry points turn TF32 off for their own products and restore the
+caller's setting afterwards.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from . import kernels
+from .multimask import _check, _on_cuda
 from .oracle import shift_ring_offsets
 from .pixel_kernel import PAIR_K9
 
@@ -226,7 +247,10 @@ def _cell_slice(full: torch.Tensor, pad: int, dx: int, dy: int, grid_hw):
 def _variant_block_bounds_capped(u3: torch.Tensor, t_words: torch.Tensor,
                                  zt9: int, offsets, grid_hw,
                                  flip: bool) -> torch.Tensor:
-    """Count-capped per-offset-max upper bounds [B, T'] (f32, integral).
+    """Count-capped per-offset-max upper bounds [B, T'] (f32, integral),
+    as dense fp32 products over every cell and bin (the JAX package's
+    formulation). `bounds_from_words` computes the same bound in two
+    kernels; chip_smoke.py times this one beside them.
 
     u3: f32 [B, npos, N_BINS] query cell-bin counts; t_words: int32
     [T', H, W] packed target words (unpadded frame)."""
@@ -254,6 +278,255 @@ def _variant_block_bounds_capped(u3: torch.Tensor, t_words: torch.Tensor,
             bound_o = bound_o + capped.sum(dim=2)
         best = bound_o if best is None else torch.maximum(best, bound_o)
     return best
+
+
+# ---- the count-capped bound in two stages ----------------------------------
+
+# elements of one [entries, targets] temporary of capped_bounds_plain
+PLAIN_ELEMS = 1 << 24
+MAX_OFFSETS = 32  # shift offsets the kernels take (xyShift <= 6)
+
+
+@functools.lru_cache(maxsize=8)
+def col_bits(zt9: int) -> np.ndarray:
+    """int64 [N_BINS]: bit j of entry k is set iff a target pixel of bin k
+    is compatible with query bin j (compat[j, k]), so that a cell's w01
+    is the OR of its valid pixels' entries."""
+    compat = compat_matrix(zt9)
+    weights = np.left_shift(np.int64(1), np.arange(N_BINS, dtype=np.int64))
+    return (compat.astype(np.int64) * weights[:, None]).sum(axis=0)
+
+
+def cell_masks_plain(t_words: torch.Tensor, zt9: int, offsets, grid_hw):
+    """Per variant, cell and target of int32 [T, H, W] packed words (the
+    unpadded frame): (bits int64 [2 * n_off, npos, T], bit j set iff the
+    shifted cell holds a valid target pixel whose bin is compatible with
+    query bin j; cnt uint8 [2 * n_off, npos, T], its valid pixels).
+
+    Variant v < n_off is offset v on the direct frame, v >= n_off offset
+    v - n_off on the raw frame flipped in x. A variant's cell (cy, cx) is
+    the window of frame rows 8 cy + dy .. +7 and columns 16 cx + dx .. +15
+    (_cell_slice of _sliding_cell_stats); pixels outside the frame are
+    not valid. Computed in blocks of FEATURE_BLOCK targets."""
+    tsz, h, w = t_words.shape
+    dev = t_words.device
+    ghn, gwn = _cell_grid(grid_hw)
+    npos = ghn * gwn
+    pad = max((max(abs(dx), abs(dy)) for dx, dy in offsets), default=0)
+    # the bin's compat bits; index N_BINS (not valid) holds 0
+    table = torch.from_numpy(np.append(col_bits(zt9), 0)).to(dev)
+    variants = [(flip, dx, dy) for flip in (False, True)
+                for dx, dy in offsets]
+    bits = torch.empty((len(variants), npos, tsz), dtype=torch.int64,
+                       device=dev)
+    cnt = torch.empty((len(variants), npos, tsz), dtype=torch.uint8,
+                      device=dev)
+    for t0 in range(0, tsz, PairPrescreen.FEATURE_BLOCK):
+        blk = t_words[t0:t0 + PairPrescreen.FEATURE_BLOCK]
+        n = blk.shape[0]
+        bins = bin_plane_from_words(blk, torch)
+        bins = torch.where((bins >= 0) & (bins < N_BINS), bins, N_BINS)
+        for v, (flip, dx, dy) in enumerate(variants):
+            if v % len(offsets) == 0:  # a canvas per orientation
+                canvas = torch.full((n, ghn * SUBTILE_H + 2 * pad,
+                                     gwn * SUBTILE_W + 2 * pad), N_BINS,
+                                    dtype=torch.int64, device=dev)
+                canvas[:, pad:pad + h, pad:pad + w] = (
+                    torch.flip(bins, dims=(2,)) if flip else bins)
+            win = canvas[:, pad + dy:pad + dy + ghn * SUBTILE_H,
+                         pad + dx:pad + dx + gwn * SUBTILE_W].reshape(
+                n, ghn, SUBTILE_H, gwn, SUBTILE_W)
+            ors = or_reduce(or_reduce(table[win], 4), 2)   # [n, ghn, gwn]
+            valid = (win < N_BINS).sum(dim=(2, 4))
+            bits[v, :, t0:t0 + n] = ors.reshape(n, npos).T
+            cnt[v, :, t0:t0 + n] = valid.reshape(n, npos).T.to(torch.uint8)
+    return bits, cnt
+
+
+@dataclass(frozen=True)
+class QueryRows:
+    """Per-mask CSR of the non-zero query features: mask b's cells are
+    cell_pos[mask_off[b]:mask_off[b + 1]] (ascending), and cell c's
+    entries are entries[cell_off[c]:cell_off[c + 1]], each bin | count
+    << 8 (ascending bins, counts 1..128). All int32, on one device."""
+
+    mask_off: torch.Tensor  # [B + 1]
+    cell_pos: torch.Tensor  # [NC]
+    cell_off: torch.Tensor  # [NC + 1]
+    entries: torch.Tensor   # [NE]
+    npos: int
+
+    @property
+    def n_masks(self) -> int:
+        return self.mask_off.numel() - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.entries.device
+
+    def tensors(self):
+        return (self.mask_off, self.cell_pos, self.cell_off, self.entries)
+
+    def to(self, device) -> "QueryRows":
+        return QueryRows(*(t.to(device) for t in self.tensors()),
+                         npos=self.npos)
+
+    def to_dense(self) -> torch.Tensor:
+        """The uint8 [B, npos * N_BINS] feature matrix it was built from."""
+        dev = self.device
+        n_cells = self.cell_pos.numel()
+        cell_mask = torch.repeat_interleave(
+            torch.arange(self.n_masks, device=dev),
+            self.mask_off.diff().long())
+        ent_cell = torch.repeat_interleave(
+            torch.arange(n_cells, device=dev), self.cell_off.diff().long())
+        dense = torch.zeros((self.n_masks, self.npos * N_BINS),
+                            dtype=torch.uint8, device=dev)
+        ent = self.entries.long()
+        col = self.cell_pos.long()[ent_cell] * N_BINS + (ent & 63)
+        dense[cell_mask[ent_cell], col] = (ent >> 8).to(torch.uint8)
+        return dense
+
+
+def sparse_query_rows(u_matrix) -> QueryRows:
+    """The CSR of a [B, npos * N_BINS] query feature matrix (numpy or a
+    tensor; counts <= 255), on the tensor's device (numpy: the CPU)."""
+    u = (u_matrix if isinstance(u_matrix, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(u_matrix)))
+    bsz = u.shape[0]
+    npos = u.shape[1] // N_BINS
+    flat = u.reshape(-1)
+    at, = torch.nonzero(flat, as_tuple=True)  # ascending: row-major order
+    cells, per_cell = torch.unique_consecutive(at // N_BINS,
+                                               return_counts=True)
+    dev = u.device
+
+    def offsets(counts):
+        off = torch.zeros(counts.numel() + 1, dtype=torch.int32, device=dev)
+        torch.cumsum(counts, 0, out=off[1:])
+        return off
+
+    count = flat[at].to(torch.int64)
+    return QueryRows(
+        mask_off=offsets(torch.bincount(cells // npos, minlength=bsz)),
+        cell_pos=(cells % npos).to(torch.int32),
+        cell_off=offsets(per_cell),
+        entries=(at % N_BINS | (count << 8)).to(torch.int32), npos=npos)
+
+
+def capped_bounds_plain(rows: QueryRows, bits: torch.Tensor,
+                        cnt: torch.Tensor) -> torch.Tensor:
+    """f32 [B, T] count-capped bounds: for each mask the max over the
+    variants of sum over its cells C of min(sum over C's entries (j, n)
+    of n * bit j of bits[v, C], cnt[v, C]). Integer sums, in blocks of
+    targets that keep each [entries, targets] temporary near PLAIN_ELEMS
+    elements."""
+    nv, npos, tsz = bits.shape
+    dev = bits.device
+    bsz, n_cells = rows.n_masks, rows.cell_pos.numel()
+    best = torch.zeros((bsz, tsz), dtype=torch.int64, device=dev)
+    if n_cells == 0:
+        return best.to(torch.float32)
+    cell_mask = torch.repeat_interleave(torch.arange(bsz, device=dev),
+                                        rows.mask_off.diff().long())
+    ent_cell = torch.repeat_interleave(torch.arange(n_cells, device=dev),
+                                       rows.cell_off.diff().long())
+    cell_pos = rows.cell_pos.long()
+    ent_pos = cell_pos[ent_cell]
+    ent = rows.entries.long()
+    ent_bin, ent_n = (ent & 63)[:, None], (ent >> 8)[:, None]
+    step = max(1, PLAIN_ELEMS // ent.numel())
+    for t0 in range(0, tsz, step):
+        t1 = min(tsz, t0 + step)
+        for v in range(nv):
+            hit = (bits[v, :, t0:t1][ent_pos] >> ent_bin) & 1
+            s = torch.zeros((n_cells, t1 - t0), dtype=torch.int64,
+                            device=dev).index_add_(0, ent_cell, hit * ent_n)
+            capped = torch.minimum(s, cnt[v, :, t0:t1][cell_pos].long())
+            total = torch.zeros((bsz, t1 - t0), dtype=torch.int64,
+                                device=dev).index_add_(0, cell_mask, capped)
+            best[:, t0:t1] = torch.maximum(best[:, t0:t1], total)
+    return best.to(torch.float32)
+
+
+def prescreen_cells(t_words: torch.Tensor, zt9: int, offsets, grid_hw):
+    """(bits, cnt) of cell_masks_plain. CPU tensors run the plain
+    version; a CUDA tensor launches `cms_prescreen_cells` (built at first
+    use) or raises. The checks come first, on every device."""
+    _check("t_words", t_words, torch.int32, 3, t_words.device)
+    tsz, h, w = t_words.shape
+    ghn, gwn = _cell_grid(grid_hw)
+    if not (0 < h <= ghn * SUBTILE_H and 0 < w <= gwn * SUBTILE_W):
+        raise ValueError(f"frame {h}x{w} does not fit the cell grid "
+                         f"{ghn}x{gwn}")
+    if not 0 < len(offsets) <= MAX_OFFSETS:
+        raise ValueError(f"{len(offsets)} offsets: expected 1 to "
+                         f"{MAX_OFFSETS}")
+    if not _on_cuda([t_words]):
+        return cell_masks_plain(t_words, zt9, offsets, grid_hw)
+    lib = kernels.load_library("prescreen_bound").lib
+    dev = t_words.device
+    nv, npos = 2 * len(offsets), ghn * gwn
+    bits = torch.empty((nv, npos, tsz), dtype=torch.int64, device=dev)
+    cnt = torch.empty((nv, npos, tsz), dtype=torch.uint8, device=dev)
+    if tsz == 0:
+        return bits, cnt
+    shifts = [int(s) for dx, dy in offsets for s in (dx, dy)]
+    rc = lib.cms_prescreen_cells(
+        t_words.data_ptr(), tsz, h, w, ghn, gwn,
+        (ctypes.c_longlong * N_BINS)(*(int(b) for b in col_bits(zt9))),
+        len(offsets), (ctypes.c_int * len(shifts))(*shifts),
+        bits.data_ptr(), cnt.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    if rc != 0:
+        raise RuntimeError(f"prescreen_cells kernel launch failed: "
+                           f"cudaError {rc}")
+    prescreen_cells.launches += 1
+    return bits, cnt
+
+
+prescreen_cells.launches = 0
+
+
+def prescreen_capped(rows: QueryRows, bits: torch.Tensor,
+                     cnt: torch.Tensor) -> torch.Tensor:
+    """f32 [B, T] bounds of capped_bounds_plain. CPU tensors run the
+    plain version; CUDA tensors launch `cms_prescreen_capped` (built at
+    first use) or raise. The checks come first, on every device."""
+    on_cuda = _on_cuda([*rows.tensors(), bits, cnt])
+    dev = bits.device
+    for name, t in zip(("mask_off", "cell_pos", "cell_off", "entries"),
+                       rows.tensors()):
+        _check(name, t, torch.int32, 1, dev)
+    _check("bits", bits, torch.int64, 3, dev)
+    _check("cnt", cnt, torch.uint8, 3, dev)
+    nv, npos, tsz = bits.shape
+    if tuple(cnt.shape) != tuple(bits.shape) or npos != rows.npos:
+        raise ValueError(f"bits {tuple(bits.shape)}, cnt "
+                         f"{tuple(cnt.shape)} and {rows.npos} query cells "
+                         f"do not agree")
+    if rows.cell_off.numel() != rows.cell_pos.numel() + 1:
+        raise ValueError("cell_off needs one entry more than cell_pos")
+    if not 0 < nv <= 2 * MAX_OFFSETS:
+        raise ValueError(f"{nv} variants: expected 1 to {2 * MAX_OFFSETS}")
+    if not on_cuda:
+        return capped_bounds_plain(rows, bits, cnt)
+    lib = kernels.load_library("prescreen_bound").lib
+    out = torch.zeros((rows.n_masks, tsz), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    rc = lib.cms_prescreen_capped(
+        *(t.data_ptr() for t in rows.tensors()), rows.n_masks,
+        bits.data_ptr(), cnt.data_ptr(), nv, npos, tsz, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    if rc != 0:
+        raise RuntimeError(f"prescreen_capped kernel launch failed: "
+                           f"cudaError {rc}")
+    prescreen_capped.launches += 1
+    return out
+
+
+prescreen_capped.launches = 0
 
 
 def or_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -378,23 +651,13 @@ class PairPrescreen:
 
     def bounds_from_words(self, u_matrix, t_words: torch.Tensor
                           ) -> np.ndarray:
-        """Variant-consistent bounds [B, T] (numpy f32) from a query
-        feature matrix (numpy or tensor [B, npos * N_BINS]) and packed
-        target words on their device; one copy to the host at the end."""
-        dev = t_words.device
-        u = torch.as_tensor(u_matrix).to(device=dev, dtype=torch.float32)
-        u3 = u.reshape(u.shape[0], -1, N_BINS)
-        outs = []
-        with _fp32_matmul():  # exact fp32 products
-            for i in range(0, t_words.shape[0], self.FEATURE_BLOCK):
-                wb = t_words[i:i + self.FEATURE_BLOCK]
-                bd = _variant_block_bounds_capped(u3, wb, self.zt9,
-                                                  self.offsets, self.grid_hw,
-                                                  False)
-                bm = _variant_block_bounds_capped(u3, wb, self.zt9,
-                                                  self.offsets, self.grid_hw,
-                                                  True)
-                outs.append(torch.maximum(bd, bm))
-        if not outs:
-            return np.zeros((u3.shape[0], 0), np.float32)
-        return torch.cat(outs, dim=1).cpu().numpy()
+        """Variant-consistent bounds [B, T] (numpy f32) from the query
+        features (a QueryRows CSR, or a numpy or tensor [B, npos * N_BINS]
+        matrix, turned into one) and packed target words on their device:
+        prescreen_cells, then prescreen_capped, on the whole partition;
+        one copy to the host at the end."""
+        rows = (u_matrix if isinstance(u_matrix, QueryRows)
+                else sparse_query_rows(u_matrix)).to(t_words.device)
+        bits, cnt = prescreen_cells(t_words, self.zt9, self.offsets,
+                                    self.grid_hw)
+        return prescreen_capped(rows, bits, cnt).cpu().numpy()

@@ -21,6 +21,7 @@ import torch
 from ..cds.multimask import (MultiMaskScorer, launch_params,
                              signal_ranges_from_words, tile_live_from_words)
 from ..cds.pixel_active import drain_deferred, pad_for_predicate
+from ..cds.prescreen import sparse_query_rows
 
 
 def device_blocks(n: int, n_devices: int) -> List[Tuple[int, int]]:
@@ -41,9 +42,9 @@ class TwoPhaseSweep:
     engines: one ActiveTilePixelEngine per mask.
     devices: the torch.devices to shard targets over (explicit).
     screen/u_matrix/thresholds: optional prescreen — u_matrix is the
-      stacked [B, F] query feature matrix (uploaded once per device),
-      thresholds the per-mask keep thresholds in pixels. Without a screen
-      every pair is scored exactly.
+      stacked [B, F] query feature matrix (its CSR, `sparse_query_rows`,
+      is built once per device), thresholds the per-mask keep thresholds
+      in pixels. Without a screen every pair is scored exactly.
 
     Each group of engines that share CDS params (zTolerance, xyShift) gets
     one multi-mask launch per device and partition."""
@@ -58,7 +59,7 @@ class TwoPhaseSweep:
         self.screen = screen
         self.u_matrix = u_matrix
         self.thresholds = thresholds
-        self._u_dev = {}
+        self._rows_dev = {}
         by_params = {}
         for i, e in enumerate(self.engines):
             by_params.setdefault(launch_params(e), []).append(i)
@@ -67,10 +68,11 @@ class TwoPhaseSweep:
                        for idx in by_params.values()]
 
     def _u_for(self, device):
-        got = self._u_dev.get(device)
+        """The query features' CSR on `device` (built on the first call)."""
+        got = self._rows_dev.get(device)
         if got is None:
-            got = torch.from_numpy(np.asarray(self.u_matrix)).to(device)
-            self._u_dev[device] = got
+            got = sparse_query_rows(self.u_matrix).to(device)
+            self._rows_dev[device] = got
         return got
 
     def launch(self, targets_u8: np.ndarray, stage: Optional[dict] = None,

@@ -1,6 +1,7 @@
 """On a CUDA card: the exact multi-mask kernels (ratio and packed-word
-predicates) and the op-chain kernel equal their plain PyTorch versions,
-and the two-phase sweep on the card equals the sweep on the CPU.
+predicates), the two prescreen-bound kernels and the op-chain kernel
+equal their plain PyTorch versions, and the two-phase sweep on the card
+equals the sweep on the CPU.
 
 These tests import no JAX, so they run on a machine that has only the
 port's dependencies:
@@ -14,6 +15,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
+from colormipsearch_torch.cds import prescreen as ps  # noqa: E402
+from colormipsearch_torch.cds.oracle import shift_ring_offsets  # noqa: E402
 from colormipsearch_torch.cds.pixel_active import (  # noqa: E402
     ActiveTilePixelEngine, drain_deferred)
 from colormipsearch_torch.cds.prescreen import PairPrescreen  # noqa: E402
@@ -157,3 +160,62 @@ def test_op_chain_sass_main_loop(card):
     for name, (per_step, mnemonics) in loops.items():
         assert 0.5 <= per_step <= 4, (name, per_step, mnemonics)
         assert mnemonics["BRA"] == 1, (name, mnemonics)
+
+
+def _bound_inputs(card, xy_shift, n_masks, n_targets, h, w, dense_masks):
+    """Random masks (every third one empty; dense ones fill most cells
+    with many bins, and mask 1 is one colour, one bin in every cell, so
+    the capped kernel stages them in chunks) and targets: (screen, query
+    CSR, packed target words on the card)."""
+    rng = np.random.default_rng(31 + xy_shift)
+    engine = ActiveTilePixelEngine(np.zeros((h, w, 3), np.uint8), 20, True,
+                                   20, 2.0, 2)
+    screen = PairPrescreen(engine.zt9, xy_shift, h, w)
+    frames = rng.integers(0, 256, size=(n_masks, h, w, 3)).astype(np.uint8)
+    frames[rng.random((n_masks, h, w)) < (0.2 if dense_masks else 0.9)] = 0
+    frames[::3] = 0
+    if dense_masks:
+        frames[1] = (200, 40, 90)
+    u = np.stack([screen.query_features(ActiveTilePixelEngine(
+        f, 20, True, 20, 2.0, 2).planes.words) for f in frames])
+    targets = rng.integers(0, 256, size=(n_targets, h, w, 3)).astype(np.uint8)
+    targets[rng.random((n_targets, h, w)) < 0.5] = 0
+    words = engine.pack_raw_words(targets, card)
+    return screen, ps.sparse_query_rows(u), words
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xy_shift,n_masks,n_targets,h,w,dense_masks", [
+    (2, 13, 131, 37, 299, False), (2, 9, 5, 64, 1210, True),
+    (0, 8, 1, 16, 128, False), (4, 11, 65, 41, 150, True)])
+def test_prescreen_kernels_equal_plain(card, xy_shift, n_masks, n_targets,
+                                       h, w, dense_masks):
+    """Each prescreen kernel equals its plain version: the cell bits and
+    counts of every variant (frames of odd size, T not a multiple of the
+    kernels' target tiles), then the bounds (empty masks, masks staged in
+    several chunks), and the composed bound equals the CPU's."""
+    screen, rows_cpu, words = _bound_inputs(card, xy_shift, n_masks,
+                                            n_targets, h, w, dense_masks)
+    offsets = tuple(shift_ring_offsets(xy_shift))
+    before = (ps.prescreen_cells.launches, ps.prescreen_capped.launches)
+    bits, cnt = ps.prescreen_cells(words, screen.zt9, offsets,
+                                   screen.grid_hw)
+    want_bits, want_cnt = ps.cell_masks_plain(words, screen.zt9, offsets,
+                                              screen.grid_hw)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, want_bits) and torch.equal(cnt, want_cnt)
+    rows = rows_cpu.to(card)
+    got = ps.prescreen_capped(rows, bits, cnt)
+    want = ps.capped_bounds_plain(rows, bits, cnt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (ps.prescreen_cells.launches,
+            ps.prescreen_capped.launches) == (before[0] + 1, before[1] + 1)
+    assert (got[::3] == 0).all() and got.max() > 0
+    if dense_masks:  # masks whose entries or cells span several chunks
+        per_mask = rows_cpu.cell_off[rows_cpu.mask_off.long()].diff()
+        assert int(per_mask.max()) > 1024
+        if w == 1210:
+            assert int(rows_cpu.mask_off.diff()[1]) > 256
+    cpu = screen.bounds_from_words(rows_cpu, words.cpu())
+    np.testing.assert_array_equal(screen.bounds_from_words(rows, words), cpu)

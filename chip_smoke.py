@@ -2431,6 +2431,18 @@ def phase_bounds_at_size(checks, dev, library, n_cpu=4):
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "library_ms": None}
+        # the capped kernel on a one-variant table (13 MB: it stays in the
+        # 50 MB L2) beside the full one: how much of its time the table's
+        # reads from device memory take
+        one = (bits[:1], cnt[:1])
+        checks["prescreen_capped"].compare(
+            f"partition 0, {rows.n_masks} masks x {tsz} targets, one "
+            f"variant: bounds", lambda: ps.prescreen_capped(rows, *one),
+            lambda: ps.capped_bounds_plain(rows, *one))
+        one_ms = cuda_ms(lambda: ps.prescreen_capped(rows, *one), 10)
+        kernel_timing["prescreen_capped"].update(
+            one_variant_ms=one_ms,
+            one_variant_table_mb=(one[0].numel() * 9) / 1e6)
         exact = library["result"][0][:, :tsz]
         in_bytes = words.numel() * 4 + u.size * 4 + rows.n_masks * tsz * 4
         f = u.shape[1]
@@ -2491,6 +2503,11 @@ def phase_bounds_at_size(checks, dev, library, n_cpu=4):
                 f"{v['bound_by']} (ops {v['ops_ms']:.4f} ms, bytes "
                 f"{v['bytes_ms']:.4f} ms): {100 * v['bound_ms'] / v['ms']:.1f}"
                 f" % of its bound")
+        one = kernel_timing["prescreen_capped"]
+        log(f"[phase 9b] prescreen_capped on one variant's table "
+            f"({one['one_variant_table_mb']:.1f} MB): "
+            f"{one['one_variant_ms']:.4f} ms, against {one['ms'] / nv:.4f} "
+            f"ms per variant of the full {nv}-variant table")
         if not held:
             raise SystemExit("the bounds' chain does not hold")
         del u_dev

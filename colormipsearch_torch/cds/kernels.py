@@ -65,7 +65,9 @@ BINDINGS = {
             _I, ctypes.POINTER(_I),  # n offsets, (dx, dy) host ints
             _P, _P, _P, _I],     # bits, cnt, stream, device
         "cms_prescreen_capped": [
-            _P, _P, _P, _P, _I,  # mask_off, cell_pos, cell_off, entries, B
+            _P, _P, _P, _P,      # seg_off, recs, rec_off, entries
+            _I, _I,              # entries, B
+            _I, _I, _I,          # mask group, band cells, bands
             _P, _P, _I, _I, _I,  # bits, cnt, variants, cells, targets
             _P, _P, _I]},        # out, stream, device
 }

@@ -31,6 +31,9 @@ PyTorch version that CPU tensors run:
   (bin, count) entries (`sparse_query_rows`, `QueryRows`), max over the
   variants. The at-size masks fill ~3 % of the cells and ~0.2 % of the
   (cell, bin) entries, so this skips nearly all of the dense product.
+  The kernel reads the CSR regrouped by mask group and band of cells
+  (`query_bands`, `QueryRows.bands`), so that a block holds one band of
+  the table in shared memory while its masks' cells stream past.
 Each wrapper's `.launches` counts its kernel launches.
 `_variant_block_bounds_capped` is the same bound as dense fp32 products
 (the JAX package's formulation, op for op); no command calls it:
@@ -285,6 +288,11 @@ def _variant_block_bounds_capped(u3: torch.Tensor, t_words: torch.Tensor,
 # elements of one [entries, targets] temporary of capped_bounds_plain
 PLAIN_ELEMS = 1 << 24
 MAX_OFFSETS = 32  # shift offsets the kernels take (xyShift <= 6)
+MAX_PAD = 8       # largest |dx| or |dy| of an offset the kernels take
+# the capped kernel's tiles (csrc/prescreen_bound.cu): a block runs the
+# cells of MASK_GROUP masks against the table in bands of BAND_CELLS cells
+MASK_GROUP = 128
+BAND_CELLS = 64
 
 
 @functools.lru_cache(maxsize=8)
@@ -368,8 +376,18 @@ class QueryRows:
         return (self.mask_off, self.cell_pos, self.cell_off, self.entries)
 
     def to(self, device) -> "QueryRows":
+        """The rows on `device`: these rows (and their bands, once built)
+        when they are there already."""
+        if self.device == torch.device(device):
+            return self
         return QueryRows(*(t.to(device) for t in self.tensors()),
                          npos=self.npos)
+
+    @functools.cached_property
+    def bands(self) -> "QueryBands":
+        """The CSR regrouped for the capped kernel (query_bands), on the
+        same device; built at first use and kept with the rows."""
+        return query_bands(self)
 
     def to_dense(self) -> torch.Tensor:
         """The uint8 [B, npos * N_BINS] feature matrix it was built from."""
@@ -388,6 +406,68 @@ class QueryRows:
         return dense
 
 
+@dataclass(frozen=True)
+class QueryBands:
+    """The cells of a QueryRows regrouped by mask group and band, the
+    order and form in which the capped kernel reads them. Group g holds
+    masks g * MASK_GROUP .. +MASK_GROUP - 1, band b cells b * BAND_CELLS
+    .. +BAND_CELLS - 1. The records of (g, b) are recs[seg_off[g * n_bands
+    + b]:seg_off[g * n_bands + b + 1]], by mask, then cell (ascending),
+    each (mask - g * MASK_GROUP) << 20 | n_hi << 14 | n_lo << 8 | (cell -
+    b * BAND_CELLS), int32. Record k's entries are entries[rec_off[k]:
+    rec_off[k + 1]], int64: its cell's n_lo entries of bins below 32, then
+    its n_hi others, each count << 32 | 1 << (bin % 32), so that the
+    kernel tests a target's bit with one AND. On the rows' device."""
+
+    seg_off: torch.Tensor  # int32 [n_groups * n_bands + 1]
+    recs: torch.Tensor     # int32 [NC]
+    rec_off: torch.Tensor  # int32 [NC + 1]
+    entries: torch.Tensor  # int64 [NE]
+    n_bands: int
+
+    def tensors(self):
+        return (self.seg_off, self.recs, self.rec_off, self.entries)
+
+
+def _offsets(counts: torch.Tensor) -> torch.Tensor:
+    """int32 [n + 1] exclusive prefix sums of n counts, from 0."""
+    off = torch.zeros(counts.numel() + 1, dtype=torch.int32,
+                      device=counts.device)
+    torch.cumsum(counts, 0, out=off[1:])
+    return off
+
+
+def query_bands(rows: QueryRows) -> QueryBands:
+    """The QueryBands of a query CSR, computed on its device: one stable
+    sort of the cells by (mask group, band) and a gather of their
+    entries (a cell's entries stay in ascending bin order)."""
+    dev = rows.device
+    n_bands = -(-rows.npos // BAND_CELLS)
+    n_groups = -(-rows.n_masks // MASK_GROUP)
+    n_cells = rows.cell_pos.numel()
+    mask = torch.repeat_interleave(torch.arange(rows.n_masks, device=dev),
+                                   rows.mask_off.diff().long())
+    pos = rows.cell_pos.long()
+    per_cell = rows.cell_off.diff().long()
+    ent = rows.entries.long()
+    ent_cell = torch.repeat_interleave(torch.arange(n_cells, device=dev),
+                                       per_cell)
+    n_lo = torch.bincount(ent_cell[(ent & 63) < 32], minlength=n_cells)
+    key = mask // MASK_GROUP * n_bands + pos // BAND_CELLS
+    order = torch.sort(key, stable=True).indices
+    recs = (mask % MASK_GROUP << 20 | (per_cell - n_lo) << 14 | n_lo << 8
+            | pos % BAND_CELLS)[order]
+    per = per_cell[order]
+    rec_off = _offsets(per)
+    first = torch.repeat_interleave(rows.cell_off[:-1].long()[order], per)
+    start = torch.repeat_interleave(rec_off[:-1].long(), per)
+    moved = ent[first + torch.arange(first.numel(), device=dev) - start]
+    return QueryBands(
+        seg_off=_offsets(torch.bincount(key, minlength=n_groups * n_bands)),
+        recs=recs.to(torch.int32), rec_off=rec_off,
+        entries=moved >> 8 << 32 | 1 << (moved & 31), n_bands=n_bands)
+
+
 def sparse_query_rows(u_matrix) -> QueryRows:
     """The CSR of a [B, npos * N_BINS] query feature matrix (numpy or a
     tensor; counts <= 255), on the tensor's device (numpy: the CPU)."""
@@ -399,18 +479,11 @@ def sparse_query_rows(u_matrix) -> QueryRows:
     at, = torch.nonzero(flat, as_tuple=True)  # ascending: row-major order
     cells, per_cell = torch.unique_consecutive(at // N_BINS,
                                                return_counts=True)
-    dev = u.device
-
-    def offsets(counts):
-        off = torch.zeros(counts.numel() + 1, dtype=torch.int32, device=dev)
-        torch.cumsum(counts, 0, out=off[1:])
-        return off
-
     count = flat[at].to(torch.int64)
     return QueryRows(
-        mask_off=offsets(torch.bincount(cells // npos, minlength=bsz)),
+        mask_off=_offsets(torch.bincount(cells // npos, minlength=bsz)),
         cell_pos=(cells % npos).to(torch.int32),
-        cell_off=offsets(per_cell),
+        cell_off=_offsets(per_cell),
         entries=(at % N_BINS | (count << 8)).to(torch.int32), npos=npos)
 
 
@@ -462,6 +535,8 @@ def prescreen_cells(t_words: torch.Tensor, zt9: int, offsets, grid_hw):
     if not 0 < len(offsets) <= MAX_OFFSETS:
         raise ValueError(f"{len(offsets)} offsets: expected 1 to "
                          f"{MAX_OFFSETS}")
+    if max(max(abs(dx), abs(dy)) for dx, dy in offsets) > MAX_PAD:
+        raise ValueError(f"an offset beyond {MAX_PAD} pixels")
     if not _on_cuda([t_words]):
         return cell_masks_plain(t_words, zt9, offsets, grid_hw)
     lib = kernels.load_library("prescreen_bound").lib
@@ -492,7 +567,8 @@ def prescreen_capped(rows: QueryRows, bits: torch.Tensor,
                      cnt: torch.Tensor) -> torch.Tensor:
     """f32 [B, T] bounds of capped_bounds_plain. CPU tensors run the
     plain version; CUDA tensors launch `cms_prescreen_capped` (built at
-    first use) or raise. The checks come first, on every device."""
+    first use) or raise; the kernel reads `rows.bands`, built at the first
+    launch with these rows. The checks come first, on every device."""
     on_cuda = _on_cuda([*rows.tensors(), bits, cnt])
     dev = bits.device
     for name, t in zip(("mask_off", "cell_pos", "cell_off", "entries"),
@@ -515,9 +591,12 @@ def prescreen_capped(rows: QueryRows, bits: torch.Tensor,
     out = torch.zeros((rows.n_masks, tsz), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    bands = rows.bands
     rc = lib.cms_prescreen_capped(
-        *(t.data_ptr() for t in rows.tensors()), rows.n_masks,
-        bits.data_ptr(), cnt.data_ptr(), nv, npos, tsz, out.data_ptr(),
+        *(t.data_ptr() for t in bands.tensors()), bands.entries.numel(),
+        rows.n_masks, MASK_GROUP,
+        BAND_CELLS, bands.n_bands, bits.data_ptr(), cnt.data_ptr(), nv,
+        npos, tsz, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if rc != 0:
         raise RuntimeError(f"prescreen_capped kernel launch failed: "

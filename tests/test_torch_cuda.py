@@ -184,15 +184,24 @@ def _bound_inputs(card, xy_shift, n_masks, n_targets, h, w, dense_masks):
     return screen, ps.sparse_query_rows(u), words
 
 
+# entries that the capped kernel's warps stage at once for one (mask
+# group, band): 16 warps x 64 (csrc/prescreen_bound.cu)
+BATCH_ENTS = 16 * 64
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("xy_shift,n_masks,n_targets,h,w,dense_masks", [
     (2, 13, 131, 37, 299, False), (2, 9, 5, 64, 1210, True),
-    (0, 8, 1, 16, 128, False), (4, 11, 65, 41, 150, True)])
+    (0, 8, 1, 16, 128, False), (4, 11, 65, 41, 150, True),
+    (6, 7, 45, 40, 1210, False), (2, 300, 33, 24, 300, False),
+    (6, 5, 70, 33, 1210, True)])
 def test_prescreen_kernels_equal_plain(card, xy_shift, n_masks, n_targets,
                                        h, w, dense_masks):
     """Each prescreen kernel equals its plain version: the cell bits and
-    counts of every variant (frames of odd size, T not a multiple of the
-    kernels' target tiles), then the bounds (empty masks, masks staged in
+    counts of every variant (frames of odd size and of the full 1210
+    width, xyShift up to 6, T not a multiple of the kernels' target tiles,
+    cells not a multiple of the capped kernel's band), then the bounds
+    (empty masks, more masks than one mask group, a band's cells staged in
     several chunks), and the composed bound equals the CPU's."""
     screen, rows_cpu, words = _bound_inputs(card, xy_shift, n_masks,
                                             n_targets, h, w, dense_masks)
@@ -212,10 +221,27 @@ def test_prescreen_kernels_equal_plain(card, xy_shift, n_masks, n_targets,
     assert (ps.prescreen_cells.launches,
             ps.prescreen_capped.launches) == (before[0] + 1, before[1] + 1)
     assert (got[::3] == 0).all() and got.max() > 0
-    if dense_masks:  # masks whose entries or cells span several chunks
-        per_mask = rows_cpu.cell_off[rows_cpu.mask_off.long()].diff()
-        assert int(per_mask.max()) > 1024
-        if w == 1210:
-            assert int(rows_cpu.mask_off.diff()[1]) > 256
+    if dense_masks:  # a (mask group, band) over one staged chunk
+        bands = rows_cpu.bands
+        per_seg = bands.rec_off[bands.seg_off.long()].diff()
+        assert int(per_seg.max()) > BATCH_ENTS
     cpu = screen.bounds_from_words(rows_cpu, words.cpu())
     np.testing.assert_array_equal(screen.bounds_from_words(rows, words), cpu)
+
+
+@pytest.mark.cuda
+def test_prescreen_capped_without_survivors(card):
+    """A partition whose masks are all empty: each kernel launches once
+    and every bound is 0, so no pair survives."""
+    screen, rows_cpu, words = _bound_inputs(card, 2, 6, 40, 16, 256, False)
+    rows = ps.sparse_query_rows(torch.zeros(
+        (6, rows_cpu.npos * ps.N_BINS), dtype=torch.uint8)).to(card)
+    before = (ps.prescreen_cells.launches, ps.prescreen_capped.launches)
+    bits, cnt = ps.prescreen_cells(words, screen.zt9, screen.offsets,
+                                   screen.grid_hw)
+    got = ps.prescreen_capped(rows, bits, cnt)
+    torch.cuda.synchronize()
+    assert (ps.prescreen_cells.launches,
+            ps.prescreen_capped.launches) == (before[0] + 1, before[1] + 1)
+    assert got.shape == (6, 40) and not got.any()
+    assert torch.equal(got, ps.capped_bounds_plain(rows, bits, cnt))

@@ -77,11 +77,11 @@ def _reference_cells(words, zt9, offsets, grid_hw):
     return np.stack(bits), np.stack(cnt)
 
 
-@pytest.mark.parametrize("xy", [0, 2, 4])
+@pytest.mark.parametrize("xy", [0, 2, 4, 6])
 @pytest.mark.parametrize("h,w", [(37, 149), (16, 128), (23, 131)])
 def test_cell_masks_equal_reference(xy, h, w):
-    """Bits and counts of every variant (both orientations, 1 / 9 / 17
-    offsets) equal the reference's, on frames of odd and aligned sizes
+    """Bits and counts of every variant (both orientations, 1 / 9 / 17 /
+    25 offsets) equal the reference's, on frames of odd and aligned sizes
     with signal up to every edge: the flip is of the raw frame, cells and
     shifted windows past the frame read nothing."""
     rng = np.random.default_rng(100 * xy + h)
@@ -89,7 +89,7 @@ def test_cell_masks_equal_reference(xy, h, w):
     t[2] = 0  # an empty target
     words = _pack(t, h, w)
     offsets = tuple(shift_ring_offsets(xy))
-    assert len(offsets) == {0: 1, 2: 9, 4: 17}[xy]
+    assert len(offsets) == {0: 1, 2: 9, 4: 17, 6: 25}[xy]
     zt9 = z_tolerance_to_zt9(1.0)
     bits, cnt = ps.cell_masks_plain(words, zt9, offsets, _grid(h, w))
     want_bits, want_cnt = _reference_cells(words, zt9, offsets, _grid(h, w))
@@ -159,6 +159,86 @@ def test_query_rows_round_trip():
     assert empty.cell_pos.numel() == 0 and empty.cell_off.tolist() == [0]
 
 
+def _plain_bands(rows):
+    """{(group, band): [(mask in group, cell in band, [(bin, count)])]}
+    read off the CSR mask by mask, cell by cell."""
+    mask_off, cell_off = rows.mask_off.numpy(), rows.cell_off.numpy()
+    cell_pos, entries = rows.cell_pos.numpy(), rows.entries.numpy()
+    out = {}
+    for b in range(rows.n_masks):
+        for c in range(mask_off[b], mask_off[b + 1]):
+            g, band = b // ps.MASK_GROUP, cell_pos[c] // ps.BAND_CELLS
+            out.setdefault((g, band), []).append(
+                (b % ps.MASK_GROUP, cell_pos[c] % ps.BAND_CELLS,
+                 [(int(e) & 63, int(e) >> 8)
+                  for e in entries[cell_off[c]:cell_off[c + 1]]]))
+    return out
+
+
+def _decoded(recs, rec_off, entries, k):
+    """(mask in group, cell in band, [(bin, count)]) of banded record k:
+    its n_lo entries test bins below 32, its n_hi the others."""
+    rec = int(recs[k])
+    n_lo, n_hi = (rec >> 8) & 63, (rec >> 14) & 63
+    ent = entries[rec_off[k]:rec_off[k + 1]].astype(np.uint64)
+    assert len(ent) == n_lo + n_hi
+    bits = (ent & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    assert (bits & (bits - 1) == 0).all() and (bits > 0).all()
+    bins = np.log2(bits).astype(int) + np.where(np.arange(len(ent)) < n_lo,
+                                                0, 32)
+    return (rec >> 20, rec & 0xFF,
+            list(zip(bins.tolist(), (ent >> np.uint64(32)).astype(
+                np.int64).tolist())))
+
+
+@pytest.mark.parametrize("n_masks,npos", [(300, 300), (256, 256), (5, 90),
+                                          (1, 129)])
+def test_query_bands_follow_csr(n_masks, npos):
+    """The capped kernel's banded CSR holds, for each (mask group, band),
+    exactly the CSR's cells of those masks in that band, by mask and then
+    cell, with their entries: B not a multiple of MASK_GROUP, a last band
+    shorter than BAND_CELLS (npos 300, 90, 129), a band no mask touches,
+    empty masks (the first and the last among them)."""
+    rng = np.random.default_rng(n_masks + npos)
+    u = rng.integers(1, 129, size=(n_masks, npos, ps.N_BINS))
+    u[rng.random(u.shape) < 0.995] = 0
+    u[::4] = 0
+    u[-1] = 0
+    if npos > 2 * ps.BAND_CELLS:  # band 1 untouched by any mask
+        u[:, ps.BAND_CELLS:2 * ps.BAND_CELLS] = 0
+    u[min(1, n_masks - 1), -1, 7] = 3  # a cell in the last band
+    rows = ps.sparse_query_rows(u.reshape(n_masks, -1).astype(np.uint8))
+    bands = rows.bands
+    # built once, kept with the rows, also through a move to their device
+    assert rows.bands is bands and rows.to(CPU).bands is bands
+    n_bands = -(-npos // ps.BAND_CELLS)
+    n_groups = -(-n_masks // ps.MASK_GROUP)
+    assert bands.n_bands == n_bands
+    for t in bands.tensors():
+        assert t.device == CPU
+    assert [t.dtype for t in bands.tensors()] == [torch.int32] * 3 + [
+        torch.int64]
+    seg_off, recs = bands.seg_off.numpy(), bands.recs.numpy()
+    rec_off, entries = bands.rec_off.numpy(), bands.entries.numpy()
+    assert seg_off.shape == (n_groups * n_bands + 1,)
+    assert seg_off[0] == 0 and seg_off[-1] == rows.cell_pos.numel()
+    assert rec_off[-1] == rows.entries.numel()
+    want = _plain_bands(rows)
+    for g in range(n_groups):
+        for band in range(n_bands):
+            seg = range(seg_off[g * n_bands + band],
+                        seg_off[g * n_bands + band + 1])
+            got = [_decoded(recs, rec_off, entries, k) for k in seg]
+            assert got == want.get((g, band), []), (g, band)
+    if npos > 2 * ps.BAND_CELLS:
+        assert all(seg_off[g * n_bands + 1] == seg_off[g * n_bands + 2]
+                   for g in range(n_groups))
+    assert (0, n_bands - 1) in want or (n_groups - 1, n_bands - 1) in want
+    empty = ps.sparse_query_rows(np.zeros((3, npos * ps.N_BINS), np.uint8))
+    assert empty.bands.seg_off.tolist() == [0] * (n_bands + 1)
+    assert empty.bands.recs.numel() == empty.bands.entries.numel() == 0
+
+
 def _queries(rng, n, h, w):
     qs = []
     for i in range(n):
@@ -206,7 +286,7 @@ def test_composed_bound_equals_reference(n_targets):
     assert got.max() > 0
 
 
-@pytest.mark.parametrize("xy", [0, 4])
+@pytest.mark.parametrize("xy", [0, 4, 6])
 def test_composed_bound_equals_reference_other_shifts(xy):
     rng = np.random.default_rng(40 + xy)
     h, w = 21, 133
@@ -263,7 +343,8 @@ def _no_plain(monkeypatch):
     monkeypatch.setattr(ps, "capped_bounds_plain", fail)
 
 
-@pytest.mark.parametrize("case", ["dtype", "strided", "mixed", "offsets"])
+@pytest.mark.parametrize("case", ["dtype", "strided", "mixed", "offsets",
+                                  "far"])
 def test_cells_wrapper_refuses_before_launch(case, monkeypatch):
     words, zt9, offsets, grid_hw = _cells_args()
     if case == "dtype":
@@ -272,8 +353,10 @@ def test_cells_wrapper_refuses_before_launch(case, monkeypatch):
         words = words[:, :, ::2]
     elif case == "mixed":
         words = torch.empty(words.shape, dtype=torch.int32, device="meta")
-    else:
+    elif case == "offsets":
         offsets = tuple(shift_ring_offsets(12))  # 49 > MAX_OFFSETS
+    else:
+        offsets = ((0, 0), (ps.MAX_PAD + 2, 0))  # beyond MAX_PAD
     _no_plain(monkeypatch)
     before = ps.prescreen_cells.launches
     with pytest.raises(ValueError):

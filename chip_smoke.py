@@ -4,10 +4,12 @@
 Run from the root of a checkout: `python3 chip_smoke.py`. It needs one
 CUDA card (Hopper, sm_90a) and nvcc; it builds the package's kernels from
 the sources in the checkout and drives the colorDepthSearch path on both
-exact predicates, and the op microbench:
+exact predicates, gradientScores, the production pipeline and the op
+microbench:
 
-1. card: nvidia-smi name and power limit; the four kernel libraries
-   (multimask_ratio, multimask_words, op_chain, prescreen_bound) built in
+1. card: nvidia-smi name and power limit; the six kernel libraries
+   (multimask_ratio, multimask_words, op_chain, prescreen_bound,
+   shape_score, shape_planes) built in
    parallel, with their build seconds, registers and shared memory; the
    native host word packer of the pack stage (g++), which must build and
    load;
@@ -45,23 +47,31 @@ exact predicates, and the op microbench:
    32,768 steps, Top/s at 32,768 steps, and a time ratio of 65,536 to
    32,768 steps within 1.8-2.2, and its bound: each case's main-loop SASS
    instructions at the card's peak rate for the busiest pipe they use;
-6. gradientScores (torch ops on the card, no kernel of its own): (a)
-   target planes of the three golden fixtures in both z-gap modes, query
-   planes of the three EM fixtures at borders 0 and 4, and the scorer's
-   rows, built on the card equal to the CPU's, bit for bit; (b) the CLI
+6. gradientScores on its four kernels (G1 shape_rows, G2 dilate_rgb, G3
+   query_planes, G4 target_planes): (a) on the golden fixtures each
+   kernel against its plain version on the card (G2 at r = 10 of the
+   masked target CDMs and at r = 60 and 20 of the three EM masks, G4 in
+   both z-gap modes, G3 at borders 0 and 4, G1 with and without mirror
+   and with flipped z planes), and the planes and the scorer's rows
+   built on the card equal to the CPU's, bit for bit; (b) the CLI
    (`colormipsearch_torch gradientScores --device cuda`) on phase 3's
    output: 21365/731, 33884/523 (z-gap file) and 40696/17253 (mirrored),
-   normalized scores 100.0 and 414/439, 426/439 x 100; (c) at size, the
-   JAX package's two bench.py gradient configurations through
-   `score_mask_partitions` (128 targets of 566x1210, 128 per batch):
-   precomputed z-gap files (one cold pass, three warm masks) and z-gap on
-   the fly (three cold reps, one warm mask). Each prints its cold seconds
-   per target (decode and device plane build), warm matches/s, the
-   scorer's and the plane builds' ms by CUDA events beside their bytes
-   bounds, their calls per round, peak device memory and its host-path
-   plane builds (must be 0); mask 0's scores must equal a `--device cpu`
-   run of the same batch. Phase 6's numbers are one JSON line before the
-   kernels line;
+   normalized scores 100.0 and 414/439, 426/439 x 100, with G1-G4 each
+   launched (counted from 0 just before); (c) at size, the JAX package's
+   two bench.py gradient configurations through `score_mask_partitions`
+   (128 targets of 566x1210, 128 per batch): precomputed z-gap files (one
+   cold pass, three warm masks) and z-gap on the fly (three cold reps,
+   two warm masks). Each prints its cold seconds per target (decode and
+   device plane build), warm matches/s, each warm mask's host time split
+   (the query planes, the plane cache's lookups, G1's launch with its
+   pointer table, the row sums' copy to the host, the rest), each kernel
+   against its plain version at size with its device ms by
+   torch.profiler, its ms per call with the wrapper's host work and its
+   plain version's by CUDA events, beside its bound, the plane builds' ms, the
+   kernels' launches (one G3 per mask: no query planes built on the
+   host), peak device memory and its host-path plane builds (must be 0);
+   mask 0's scores must equal a `--device cpu` run of the same batch.
+   Phase 6's numbers are one JSON line before the kernels line;
 7. the dense engine and the scale-out layer: (a) the dense engine
    (`cds/pixel_kernel.PixelMatchEngine`) on the card equal to its CPU run
    on the golden fixtures, 439 / 414 / 426; (b) the dense engine at the
@@ -89,8 +99,9 @@ exact predicates, and the op microbench:
    (a) the four commands through the CLI's entry points on
    `--device cuda` on phase 3's workspace: stored pixel scores 439 / 414
    / 426 (lm-2 mirrored), gaps 21365 / 33884 / 40696, exported
-   normalizedScore 100.0 / 97.04 / 94.31, the bound's two kernels and K1
-   launched and K3a not (counted from 0 just before the chain), and the
+   normalizedScore 100.0 / 97.04 / 94.31, the bound's two kernels, K1
+   and G1-G4 launched and K3a not (counted from 0 just before the chain),
+   and the
    exported files equal
    to the same chain's on the CPU and on per-mask JSON files; (b) at
    size, the port's script (one search block, two gradient processes on
@@ -115,8 +126,8 @@ exact predicates, and the op microbench:
    importPPPResults (the two raw PPP fixtures, with screenshots), both
    EM exports, tag, validateDBData and deleteCDMatches (a dry run, then
    a run): the goldens of the fixture pairs from the ingested lists, the
-   PPP export's screenshot-backed match, the bound's two kernels and K1
-   launched and K3a not (counted from 0 just before the chain), and the
+   PPP export's screenshot-backed match, the bound's two kernels, K1 and
+   G1-G4 launched and K3a not (counted from 0 just before the chain), and the
    exports, the validation report and the rows deleted equal to the same
    chain's on the CPU over a copy of the ingested store; (b) the
    prescreen bound on phase 4's library: each of its two kernels
@@ -163,7 +174,8 @@ LM_GOLDEN = [
     "VT016795_115C08_AE_01-20200221_61_I2-m-CH1_01",
 ]
 # kernel -> (source, the TPU kernel it replaces; the prescreen bound's
-# two replace an XLA function of the JAX package, not a Pallas kernel)
+# two and gradientScores' four replace XLA functions of the JAX package,
+# not Pallas kernels)
 KERNELS = {
     "multimask_ratio": ("colormipsearch_torch/csrc/multimask_ratio.cu",
                         "colormipsearch_tpu/cds/multimask.py:326"),
@@ -175,7 +187,17 @@ KERNELS = {
                         "colormipsearch_tpu/cds/prescreen.py:269"),
     "prescreen_capped": ("colormipsearch_torch/csrc/prescreen_bound.cu",
                          "colormipsearch_tpu/cds/prescreen.py:269"),
+    # gradientScores' four (G1-G4), replacing its XLA programs
+    "shape_rows": ("colormipsearch_torch/csrc/shape_score.cu",
+                   "colormipsearch_tpu/cds/shape_kernel.py:79"),
+    "dilate_rgb": ("colormipsearch_torch/csrc/shape_planes.cu",
+                   "colormipsearch_tpu/cds/shape_device.py:127"),
+    "query_planes": ("colormipsearch_torch/csrc/shape_planes.cu",
+                     "colormipsearch_tpu/cds/shape_device.py:211"),
+    "target_planes": ("colormipsearch_torch/csrc/shape_planes.cu",
+                      "colormipsearch_tpu/cds/shape_device.py:164"),
 }
+SHAPE_KERNELS = ("shape_rows", "dilate_rgb", "query_planes", "target_planes")
 # the kernel libraries, one per source (cds/kernels.py)
 LIBRARIES = tuple(dict.fromkeys(os.path.basename(src)[:-len(".cu")]
                                 for src, _ in KERNELS.values()))
@@ -1035,67 +1057,141 @@ def same_tensors(label, got, want):
                              f"from the CPU's")
 
 
-def phase_planes(dev):
-    """(a) Target and query planes built on the card equal the CPU's, bit
-    for bit, on the golden fixtures in both z-gap modes, and the scorer's
-    rows on the card equal the CPU's."""
+def shape_wrappers():
+    """{name: wrapper} of gradientScores' four kernels (G1-G4)."""
+    from colormipsearch_torch.cds import shape_device as sd
+    from colormipsearch_torch.cds import shape_kernel as sk
+    return {"shape_rows": sk.shape_rows, "dilate_rgb": sd.dilate_rgb,
+            "query_planes": sd.query_planes,
+            "target_planes": sd.target_planes}
+
+
+def stacked_sets(sets):
+    """target_planes' per-target planes as the plain version's batch."""
+    import torch
+    return [torch.stack(p) for p in zip(*sets)]
+
+
+def check_shape(checks, name, label, kernel_fn, plain_fn):
+    """checks[name] on kernel_fn() against plain_fn() (a tensor or a
+    sequence of them), dtypes included; returns the kernel's tensors."""
+    import torch
+    out = {}
+
+    def flat(key, fn):
+        res = fn()
+        out[key] = [res] if torch.is_tensor(res) else list(res)
+        return torch.cat([t.reshape(-1).to(torch.int64) for t in out[key]])
+
+    checks[name].compare(label, lambda: flat("got", kernel_fn),
+                         lambda: flat("want", plain_fn))
+    if [t.dtype for t in out["got"]] != [t.dtype for t in out["want"]]:
+        raise SystemExit(f"{name} {label}: dtypes differ from the plain "
+                         f"version's")
+    return out["got"]
+
+
+def phase_planes(checks, dev):
+    """(a) On the golden fixtures, gradientScores' four kernels against
+    their plain versions on the card: G2 at r = 10 of the masked target
+    CDMs and at r = 60 and r = 20 of each EM mask, G4 in both z-gap modes,
+    G3 at borders 0 and 4 and G1 with and without mirror and with flipped
+    z planes; and the planes and the scorer's rows built on the card equal
+    to the CPU's, bit for bit."""
     import torch
     from colormipsearch_torch.cds import shape_device as sd
     from colormipsearch_torch.cds import shape_kernel as sk
+    from colormipsearch_torch.cds.shape_oracle import QueryShapePlanes
     cpu = torch.device("cpu")
     cdm, grad, zgap = golden_target_frames()
     h, w = cdm.shape[1:3]
     excluded = label_regions(h, w)
     t0 = time.perf_counter()
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cdm_d, grad_d, ex_d = up(cdm), up(grad.view(np.int16)), up(excluded)
+    z_otf = check_shape(
+        checks, "dilate_rgb", "fixtures, r = 10 of the masked CDMs",
+        lambda: sd.dilate_rgb(cdm_d, 10.0, excluded=ex_d, thr=20),
+        lambda: sd.dilate_rgb_plain(sd.dilate_input_plain(cdm_d, ex_d, 20),
+                                    10.0))[0]
     targets = {}
-    for mode in ("file", "otf"):
-        zg = zgap if mode == "file" else None
-        got = sd.build_target_planes(cdm, grad, zg, excluded, thr=20,
-                                     zgap_mode=mode, grad_is_rgb=False,
-                                     device=dev)
-        want = sd.build_target_planes(cdm, grad, zg, excluded, thr=20,
-                                      zgap_mode=mode, grad_is_rgb=False,
-                                      device=cpu)
+    for mode, z in (("file", up(zgap)), ("otf", z_otf)):
+        got = check_shape(
+            checks, "target_planes", f"fixtures, z-gap {mode}",
+            lambda: stacked_sets(sd.target_planes(
+                cdm_d, grad_d, z, ex_d, thr=20, grad_is_rgb=False)),
+            lambda: sd.target_planes_plain(cdm_d, grad_d, z, ex_d, thr=20,
+                                           grad_is_rgb=False))
+        want = sd.build_target_planes(
+            cdm, grad, zgap if mode == "file" else None, excluded, thr=20,
+            zgap_mode=mode, grad_is_rgb=False, device=cpu)
         same_tensors(f"target planes ({mode})", got, want)
         targets[mode] = (got, want)
     ems = sorted(os.listdir(os.path.join(FIXTURES, "ems")))
+    names = ("q_nonzero", "q_slice", "q_mask", "high_expr")
     rows = []
     for name in ems:
         rgb = load_rgb(os.path.join(FIXTURES, "ems", name))
+        x = up(rgb)
+        dil = {r: check_shape(
+            checks, "dilate_rgb", f"{name}, r = {r:g}",
+            lambda: sd.dilate_rgb(x[None], r, excluded=ex_d),
+            lambda: sd.dilate_rgb_plain(sd.dilate_input_plain(x[None], ex_d),
+                                        r))[0][0] for r in (60.0, 20.0)}
         for border in (0, 4):
-            got = sd.build_query_planes(rgb, excluded, border, device=dev)
+            got = check_shape(
+                checks, "query_planes", f"{name}, border {border}",
+                lambda: sd.query_planes(x, ex_d, dil[60.0], dil[20.0],
+                                        border),
+                lambda: sd.query_planes_plain(x, ex_d, dil[60.0], dil[20.0],
+                                              border))
             want = sd.build_query_planes(rgb, excluded, border, device=cpu)
-            names = ("q_nonzero", "q_slice", "q_mask", "high_expr")
             same_tensors(f"query planes of {name}, border {border}",
-                         [getattr(got, n) for n in names],
-                         [getattr(want, n) for n in names])
-            if not np.array_equal(got.row_any, want.row_any):
+                         got[:4], [getattr(want, n) for n in names])
+            if not np.array_equal(got[4].cpu().numpy(), want.row_any):
                 raise SystemExit(f"query rows of {name} differ")
             if border == 0:
-                rows.append((got, want))
+                rows.append((QueryShapePlanes(
+                    *got[:4], height=h, width=w,
+                    row_any=got[4].cpu().numpy()), want))
     for (qg, qc), mode in zip(rows, ("file", "otf", "file")):
         r0, r1 = qg.active_row_range()
-        for mirror in (True, False):
-            out = []
-            for q, planes in ((qg, targets[mode][0]), (qc, targets[mode][1])):
-                out.append(sk.shape_score_stacked(
-                    q.q_nonzero, q.q_slice, q.q_mask, q.high_expr,
-                    list(planes[0]), list(planes[1]), list(planes[2]),
-                    list(planes[3]), r0=r0, r1=r1, mirror=mirror))
-            same_tensors(f"scorer rows ({mode}, mirror {mirror})", *out)
-    log(f"[phase 6] planes: target planes of {len(LM_GOLDEN)} fixtures in "
-        f"both z-gap modes, query planes of {len(ems)} masks at borders 0 "
-        f"and 4, and the scorer's rows: card == CPU, bit for bit "
+        lists = [list(p.unbind(0)) for p in targets[mode][0]]
+        lists_cpu = [list(p.unbind(0)) for p in targets[mode][1]]
+        for mirror, flip_z in ((True, False), (False, False), (False, True)):
+            kw = dict(r0=r0, r1=r1, mirror=mirror, flip_z=flip_z)
+            q = [getattr(qg, n) for n in names]
+            got = check_shape(
+                checks, "shape_rows", f"fixtures, z-gap {mode}, mirror "
+                f"{mirror}, flip_z {flip_z}",
+                lambda: sk.shape_rows(*q, *lists, **kw),
+                lambda: sk.shape_rows_plain(*q, *lists, **kw))
+            same_tensors(f"scorer rows ({mode}, mirror {mirror}, flip_z "
+                         f"{flip_z})", got, sk.shape_rows(
+                             *[getattr(qc, n) for n in names], *lists_cpu,
+                             **kw))
+    log(f"[phase 6a] G1-G4 == their plain versions on the card, and the "
+        f"target planes of {len(LM_GOLDEN)} fixtures in both z-gap modes, "
+        f"the query planes of {len(ems)} masks at borders 0 and 4 and the "
+        f"scorer's rows: card == CPU, bit for bit "
         f"({time.perf_counter() - t0:.1f}s)")
 
 
 def phase_gradient_cli(ws):
-    """(b) The CLI's gradientScores --device cuda on phase 3's output."""
+    """(b) The CLI's gradientScores --device cuda on phase 3's output,
+    through G1-G4 (counted from 0 just before the run)."""
     from colormipsearch_torch.cmd.main import main
     masks = os.path.join(ws, "out1", "masks")
+    counters = shape_wrappers()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     rc = main(["gradientScores", "-md", masks, "--maskThreshold", "20",
                "--mirrorMask", "--computeZGapOnTheFly", "--device", "cuda"])
+    launches = {name: fn.launches for name, fn in counters.items()}
     if rc != 0:
         raise SystemExit(f"gradientScores exited {rc}")
     with open(os.path.join(masks, "em-12191.json")) as f:
@@ -1103,13 +1199,17 @@ def phase_gradient_cli(ws):
     got = [(k, res[k]["gradientAreaGap"], res[k]["highExpressionArea"],
             res[k]["mirrored"], res[k]["normalizedScore"])
            for k in ("lm-0", "lm-1", "lm-2")]
-    log(f"[phase 6] gradientScores CLI goldens {got} in "
-        f"{time.perf_counter() - t0:.1f}s")
+    log(f"[phase 6b] gradientScores CLI goldens {got}; kernel launches "
+        f"{launches} ({time.perf_counter() - t0:.1f}s)")
     want = [("lm-0", 21365, 731, False, 100.0),
             ("lm-1", 33884, 523, False, float(np.float32(414 / 439 * 100))),
             ("lm-2", 40696, 17253, True, float(np.float32(426 / 439 * 100)))]
     if got != want:
         raise SystemExit(f"gradientScores goldens wrong: {got}")
+    if not all(launches.values()):
+        raise SystemExit(f"gradientScores did not launch all of G1-G4: "
+                         f"{launches}")
+    return launches
 
 
 def target_library(ws, n, zgap_files):
@@ -1146,36 +1246,136 @@ def target_library(ws, n, zgap_files):
     return targets
 
 
-def plane_bytes(n_targets, h, w, mode):
-    """Bytes a target plane build must move: the raw frames read once
-    (CDM 3 B/px, 16-bit gradient 2, z-gap file 3) and the four planes
-    written once (1 + 2 + 1 + 2 B/px)."""
-    return n_targets * h * w * (3 + 2 + (3 if mode == "file" else 0) + 6)
+# the host functions of a warm mask (gradientscores_cmd), timed apart in
+# phase 6c: the query planes (their device work ends in the row vector's
+# copy), the plane cache's lookups, G1's launch with its pointer table,
+# and the row sums' copy to the host (which waits for G1)
+HOST_SPLIT = ("_build_qplanes", "_prefetch_planes", "shape_rows",
+              "finish_shape_scores")
 
 
-def phase_gradient_at_size(dev, ws, n_targets=128, batch=128):
+# each kernel's function name in the profiler's records
+SHAPE_SYMBOLS = {"shape_rows": "shape_rows_kernel",
+                 "dilate_rgb": "dilate_kernel",
+                 "query_planes": "query_kernel",
+                 "target_planes": "target_kernel"}
+
+
+def profiled_ms(fn, symbol, reps=5):
+    """Device milliseconds per fn() call in the kernels whose name holds
+    `symbol`, by torch.profiler over `reps` calls after a warm-up: the
+    kernel's time without its wrapper's host work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = sum(t for k, (t, _) in device_kernel_ms(prof).items()
+             if symbol in k)
+    if ms == 0:
+        raise SystemExit(f"the profiler saw no device time in {symbol}")
+    return ms / reps
+
+
+def host_split(gc, fn):
+    """Run fn() once, from an idle card; its wall seconds, split into the
+    seconds spent in each of gradientscores_cmd's HOST_SPLIT functions
+    and the rest."""
+    import torch
+    spent = dict.fromkeys(HOST_SPLIT, 0.0)
+    saved = {name: getattr(gc, name) for name in HOST_SPLIT}
+
+    def timed(name, f):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return run
+
+    torch.cuda.synchronize()
+    for name, f in saved.items():
+        setattr(gc, name, timed(name, f))
+    try:
+        t0 = time.perf_counter()
+        fn()
+        total = time.perf_counter() - t0
+    finally:
+        for name, f in saved.items():
+            setattr(gc, name, f)
+    spent["rest"] = total - sum(spent.values())
+    return {"total_s": round(total, 6),
+            **{k: round(v, 6) for k, v in spent.items()}}
+
+
+def shape_bounds(n, h, w, rows, batch, mode):
+    """{kernel: (ops_ms, bytes_ms)} of gradientScores' four kernels on
+    phase 6c's shapes: each input read once and each output written once
+    at the memory rate; G2 also its operations (two byte-quad maxima per
+    footprint row and output pixel, one per doubling level above the
+    first and input pixel) at the lane rate. n frames of h x w; G1 over
+    `batch` targets in a band of `rows` rows."""
+    from colormipsearch_torch.cds import lut
+    from colormipsearch_torch.imageproc.filters import make_line_radii
+    table = lut.slice_number_table().nbytes
+    px = h * w
+
+    def dilate(frames, radius, thr):
+        ext = make_line_radii(radius)
+        levels = int(2 * ext.max() + 1).bit_length()
+        ops = frames * px * (2 * len(ext) + levels - 1)
+        return (1e3 * ops / PEAK_LANE_OPS,
+                1e3 * (frames * px * 6 + px) / PEAK_BYTES)
+
+    out = {"shape_rows": (0.0, 1e3 * (rows * w * (5 + 6 * batch)
+                                      + 16 * batch * rows + 32 * batch)
+                          / PEAK_BYTES),
+           "query_planes": (0.0, 1e3 * (px * 15 + h + table) / PEAK_BYTES),
+           # CDM 3, 16-bit gradient 2, z-gap 3 B/px read; planes 6 written
+           "target_planes": (0.0, 1e3 * (n * px * 14 + px + table)
+                             / PEAK_BYTES),
+           "dilate_rgb": dilate(n, 10.0, 20),
+           "query_dilations": tuple(a + b for a, b in zip(
+               dilate(1, 60.0, None), dilate(1, 20.0, None)))}
+    if mode == "file":
+        del out["dilate_rgb"]
+    return out
+
+
+def phase_gradient_at_size(checks, dev, ws, n_targets=128, batch=128):
     """(c) The two gradient configurations of bench.py through the port's
-    score_mask_partitions at the full frame: cold decode and device plane
-    build, warm matches/s, the scorer and the plane builds by CUDA events
-    with their bytes bounds, peak device memory, host-path plane builds
-    (must be 0), and mask 0's scores equal to a --device cpu run."""
+    score_mask_partitions at the full frame, through G1-G4: cold decode
+    and device plane build, warm matches/s and a warm mask's host time
+    split (HOST_SPLIT), peak device memory, host-path plane builds (none,
+    and one G3 launch per mask built on the card), mask 0's scores equal
+    to a --device cpu run; each kernel against its plain version at size,
+    its device ms (torch.profiler) and its ms per call with the wrapper's
+    host work and its plain version's (CUDA events) beside its bound, and
+    the plane builds' ms. Returns (report, {kernel: timing}) with
+    the kernels' launches on these main-path runs, both configurations."""
     import torch
     from colormipsearch_torch.cds import shape_device as sd
     from colormipsearch_torch.cds import shape_kernel as sk
     from colormipsearch_torch.cmd import gradientscores_cmd as gc
+    from colormipsearch_torch.imageproc.io import image_from_array
     from colormipsearch_torch.mips import MIPsCache
     from colormipsearch_torch.model import CDMatchEntity, EMNeuronEntity
     from colormipsearch_torch.scripts.op_microbench import cuda_ms
     query = load_rgb(os.path.join(FIXTURES, "ems", "12191_JRC2018U.tif"))
     h, w = query.shape[:2]
     excluded = label_regions(h, w)
-    from colormipsearch_torch.imageproc.io import image_from_array
     mask_img = image_from_array(query)
-    counters = (sd.build_target_planes, sd.build_query_planes,
-                sk.shape_score_rows)
-    report = {}
+    counters = shape_wrappers()
+    launches = dict.fromkeys(counters, 0)
+    report, timing = {}, {}
     for config, zgap_files in (("production", True), ("otf", False)):
         targets = target_library(ws, n_targets, zgap_files)
+        mode = "file" if zgap_files else "otf"
         args = argparse.Namespace(
             maskThreshold=20, mirrorMask=True,
             computeZGapOnTheFly=not zgap_files, targetsPerBatch=batch,
@@ -1198,10 +1398,11 @@ def phase_gradient_at_size(dev, ws, n_targets=128, batch=128):
             return ([(m.gradient_area_gap, m.high_expression_area)
                      for m in scored], time.perf_counter() - t0, qplanes)
 
-        for fn in counters:
-            fn.calls = 0
+        # the main path: counted from 0 just before, read just after
+        for fn in counters.values():
+            fn.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
-        cold_s, warm_rates, host_builds = [], [], 0
+        cold_s, warm_rates, host_builds, masks = [], [], 0, 0
         # cold passes: fresh image and plane caches (production: one;
         # on the fly: three reps, as bench.py runs them)
         for _ in range(1 if zgap_files else 3):
@@ -1209,20 +1410,32 @@ def phase_gradient_at_size(dev, ws, n_targets=128, batch=128):
             planes_cache.sync = True
             cache = MIPsCache(4096)
             scores0, dt, qplanes = run_mask(0, cache, planes_cache, dev)
+            masks += 1
             host_builds += planes_cache.host_builds
             cold_s.append((dt, dict(planes_cache.seconds)))
-        # warm masks: the plane cache hits
+        # warm masks: the plane cache hits; each one's host time split
         planes_cache.sync = False
-        for mi in range(1, 4 if zgap_files else 2):
-            got, dt, _ = run_mask(mi, cache, planes_cache, dev)
+        splits = []
+        for mi in range(1, 4 if zgap_files else 3):
+            out = {}
+            splits.append(host_split(gc, lambda: out.setdefault(
+                "run", run_mask(mi, cache, planes_cache, dev))))
+            got, dt, _ = out["run"]
+            masks += 1
             if got != scores0:
                 raise SystemExit(f"{config}: mask {mi} scored differently")
             warm_rates.append(n_targets / dt)
         peak = torch.cuda.max_memory_allocated(dev)
-        calls = {fn.__name__: fn.calls for fn in counters}
+        ran = {name: fn.launches for name, fn in counters.items()}
+        for name, n in ran.items():
+            launches[name] += n
         if host_builds:
             raise SystemExit(f"{config}: {host_builds} target plane sets "
                              f"were built on the host")
+        if ran["query_planes"] != masks or not all(ran.values()):
+            raise SystemExit(f"{config}: {masks} masks, launches {ran}: "
+                             f"query planes built on the host, or a kernel "
+                             f"of the path did not run")
         # the same batch on the CPU
         t0 = time.perf_counter()
         cpu_scores, _, _ = run_mask(0, MIPsCache(4096),
@@ -1233,36 +1446,78 @@ def phase_gradient_at_size(dev, ws, n_targets=128, batch=128):
                    if a != b]
             raise SystemExit(f"{config}: mask 0's scores on the card differ "
                              f"from the CPU's at {bad[:8]}")
-        # the device functions alone, by CUDA events, on this batch
+
+        # each kernel against its plain version at size, then timed
         tplanes = [planes_cache.get(t.entity_id) for t in targets[:batch]]
+        lists = [[getattr(p, n) for p in tplanes]
+                 for n in ("t_above", "grad", "z_nonzero", "z_slice")]
+        q = [qplanes.q_nonzero, qplanes.q_slice, qplanes.q_mask,
+             qplanes.high_expr]
         r0, r1 = qplanes.active_row_range()
-        score_ms = cuda_ms(lambda: sk.shape_score_stacked(
-            qplanes.q_nonzero, qplanes.q_slice, qplanes.q_mask,
-            qplanes.high_expr, [p.t_above for p in tplanes],
-            [p.grad for p in tplanes], [p.z_nonzero for p in tplanes],
-            [p.z_slice for p in tplanes], r0=r0, r1=r1, mirror=True), 5)
         raws = [gc._decode_raw(t, cache, args) for t in targets[:batch]]
-        mode = "file" if zgap_files else "otf"
-        frames = [torch.from_numpy(np.stack([r[0] for r in raws])).to(dev),
-                  torch.from_numpy(np.stack([r[1][0] for r in raws]
-                                            ).view(np.int16)).to(dev),
-                  (torch.from_numpy(np.stack([r[2] for r in raws])).to(dev)
-                   if zgap_files else None),
-                  torch.from_numpy(excluded).to(dev)]
-        build_ms = cuda_ms(lambda: sd.build_target_planes(
-            *frames, thr=20, zgap_mode=mode, grad_is_rgb=False,
-            device=dev), 3)
-        query_dev = torch.from_numpy(query).to(dev)
+        cdm_d = torch.from_numpy(np.stack([r[0] for r in raws])).to(dev)
+        grad_d = torch.from_numpy(np.stack([r[1][0] for r in raws]
+                                           ).view(np.int16)).to(dev)
+        ex_d = torch.from_numpy(excluded).to(dev)
+        query_d = torch.from_numpy(query).to(dev)
+        fns = {"shape_rows": (
+            lambda: sk.shape_rows(*q, *lists, r0=r0, r1=r1, mirror=True),
+            lambda: sk.shape_rows_plain(*q, *lists, r0=r0, r1=r1,
+                                        mirror=True))}
+        if zgap_files:
+            z_d = torch.from_numpy(np.stack([r[2] for r in raws])).to(dev)
+            dil = {r: sd.dilate_rgb(query_d[None], r, excluded=ex_d)[0]
+                   for r in (60.0, 20.0)}
+            fns["query_dilations"] = (
+                lambda: [sd.dilate_rgb(query_d[None], r, excluded=ex_d)
+                         for r in (60.0, 20.0)],
+                lambda: [sd.dilate_rgb_plain(sd.dilate_input_plain(
+                    query_d[None], ex_d), r) for r in (60.0, 20.0)])
+            fns["query_planes"] = (
+                lambda: sd.query_planes(query_d, ex_d, dil[60.0], dil[20.0],
+                                        0),
+                lambda: sd.query_planes_plain(query_d, ex_d, dil[60.0],
+                                              dil[20.0], 0))
+        else:
+            fns["dilate_rgb"] = (
+                lambda: sd.dilate_rgb(cdm_d, 10.0, excluded=ex_d, thr=20),
+                lambda: sd.dilate_rgb_plain(sd.dilate_input_plain(
+                    cdm_d, ex_d, 20), 10.0))
+            z_d = fns["dilate_rgb"][0]()
+        fns["target_planes"] = (
+            lambda: stacked_sets(sd.target_planes(
+                cdm_d, grad_d, z_d, ex_d, thr=20, grad_is_rgb=False)),
+            lambda: sd.target_planes_plain(cdm_d, grad_d, z_d, ex_d, thr=20,
+                                           grad_is_rgb=False))
+        # G4 is timed as the path calls it, without the check's stack
+        launch_only = {"target_planes": lambda: sd.target_planes(
+            cdm_d, grad_d, z_d, ex_d, thr=20, grad_is_rgb=False)}
+        bounds = shape_bounds(batch, h, w, r1 - r0, batch, mode)
+        measured = {}
+        for name, (kernel_fn, plain_fn) in fns.items():
+            check_shape(checks, "dilate_rgb" if name == "query_dilations"
+                        else name, f"{config} at size", kernel_fn, plain_fn)
+            ops_ms, bytes_ms = bounds[name]
+            call = launch_only.get(name, kernel_fn)
+            measured[name] = {
+                "ms": profiled_ms(call, SHAPE_SYMBOLS.get(
+                    name, SHAPE_SYMBOLS["dilate_rgb"])),
+                "call_ms": cuda_ms(call, 5),
+                "plain_ms": cuda_ms(plain_fn, 3),
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+                "library_ms": None}
+            measured[name]["share"] = (measured[name]["bound_ms"]
+                                       / measured[name]["ms"])
+        zgap_in = z_d if zgap_files else None
+        build_ms = cuda_ms(lambda: sd.build_target_plane_sets(
+            cdm_d, grad_d, zgap_in, ex_d, thr=20, zgap_mode=mode,
+            grad_is_rgb=False, device=dev), 3)
         query_ms = cuda_ms(lambda: sd.build_query_planes(
-            query_dev, frames[3], 0, device=dev), 5)
-        rows = r1 - r0
-        bounds = {
-            "build_target_planes": plane_bytes(batch, h, w, mode),
-            "build_query_planes": h * w * (3 + 1 + 2 + 1 + 1),
-            # query crops read once (5 B/px), target crops (6 B/px), the
-            # four int32 row sums written once
-            "shape_score_rows": rows * w * (5 + 6 * batch) + 16 * batch * rows,
-        }
+            query_d, ex_d, 0, device=dev), 5)
+        for name in SHAPE_KERNELS:
+            if name in measured and name not in timing:
+                timing[name] = measured[name]
         report[config] = {
             "targets": n_targets, "batch": batch, "frame": [h, w],
             "row_band": [r0, r1],
@@ -1273,19 +1528,22 @@ def phase_gradient_at_size(dev, ws, n_targets=128, batch=128):
             "cold_planes_s_per_target": [round(s["planes"] / n_targets, 6)
                                          for _, s in cold_s],
             "warm_matches_per_s": [round(r, 1) for r in warm_rates],
-            "scorer_ms_per_batch": round(score_ms, 4),
+            "warm_mask_host_split_s": splits,
+            "kernels": {k: {kk: (round(vv, 4) if isinstance(vv, float)
+                                 else vv) for kk, vv in v.items()}
+                        for k, v in measured.items()},
             "build_target_planes_ms_per_batch": round(build_ms, 4),
             "build_query_planes_ms": round(query_ms, 4),
-            "bound_ms": {k: round(1e3 * b / PEAK_BYTES, 4)
-                         for k, b in bounds.items()},
-            "calls_per_round": calls,
+            "launches": ran,
             "peak_device_gib": round(peak / 2**30, 3),
             "host_plane_builds": host_builds,
             "cpu_run_s": round(cpu_s, 2),
             "mask0_head": scores0[:3],
         }
-        log(f"[phase 6] {config}: " + json.dumps(report[config]))
-    return report
+        log(f"[phase 6c] {config}: " + json.dumps(report[config]))
+    for name, n in launches.items():
+        timing[name]["launches"] = n
+    return report, timing
 
 
 # ---- phase 7 ---------------------------------------------------------------
@@ -1782,14 +2040,20 @@ def pipeline_chain(ws, out, device, backend):
 
 
 def path_kernels():
-    """{name: wrapper} of the kernels colorDepthSearch's default path can
-    launch: the exact kernels of both predicates and the bound's two."""
+    """{name: wrapper} of the kernels the production pipeline can launch:
+    colorDepthSearch's exact kernels of both predicates and the bound's
+    two, and gradientScores' four (G1-G4)."""
     from colormipsearch_torch.cds import multimask as mm
     from colormipsearch_torch.cds import prescreen as ps
     return {"multimask_ratio": mm.PREDICATE_KERNELS["ratio"][0],
             "multimask_words": mm.PREDICATE_KERNELS["words"][0],
             "prescreen_cells": ps.prescreen_cells,
-            "prescreen_capped": ps.prescreen_capped}
+            "prescreen_capped": ps.prescreen_capped, **shape_wrappers()}
+
+
+def ran_shape_path(launches):
+    """gradientScores ran through G1-G4."""
+    return all(launches[k] > 0 for k in SHAPE_KERNELS)
 
 
 def ran_k1_path(launches):
@@ -1803,8 +2067,8 @@ def phase_pipeline_fixtures(ws):
     """(a) The production pipeline on the golden fixtures through the
     CLI's entry points on --device cuda, over one SQLite store: the
     stored pixel scores and gaps, the exported normalized scores, the
-    bound's two kernels and K1 launched and K3a not (counted from 0 just
-    before the chain); the same chain on the CPU and on per-mask JSON
+    bound's two kernels, K1 and G1-G4 launched and K3a not (counted from 0
+    just before the chain); the same chain on the CPU and on per-mask JSON
     files exports the same bytes."""
     from colormipsearch_torch.dataio import DataSourceParam
     from colormipsearch_torch.dataio.db import (DBNeuronMatchesReader,
@@ -1835,9 +2099,9 @@ def phase_pipeline_fixtures(ws):
     if pixels != CDS_GOLDENS or gaps != GAP_GOLDENS \
             or scores != EXPORT_GOLDENS or list(exported) != ["em-12191.json"]:
         raise SystemExit("the pipeline's goldens are wrong")
-    if not ran_k1_path(launches):
+    if not ran_k1_path(launches) or not ran_shape_path(launches):
         raise SystemExit(f"the pipeline did not run through the bound's "
-                         f"kernels and K1 alone: {launches}")
+                         f"kernels and K1 alone, and G1-G4: {launches}")
     for device, backend in (("cpu", "sqlite"), ("cuda", "json")):
         t0 = time.perf_counter()
         got = pipeline_chain(ws, os.path.join(root, f"{device}_{backend}"),
@@ -2288,8 +2552,8 @@ def phase_ingest(ws, device="cuda"):
     CLI's entry points: the MIP lists of createColorDepthSearchDataInput,
     copyToMipsStore, then search, gradient, normalize, PPP import, both
     exports, tag, validate and delete over one SQLite store on `device`;
-    the goldens of the fixture pairs, the bound's two kernels and K1
-    launched and K3a not (counted from 0 just before the chain), and the
+    the goldens of the fixture pairs, the bound's two kernels, K1 and
+    G1-G4 launched and K3a not (counted from 0 just before the chain), and the
     exports, the validation report
     and the rows deleted equal to the same chain's on the CPU over a copy
     of the same ingested store."""
@@ -2363,9 +2627,10 @@ def phase_ingest(ws, device="cuda"):
     if not copied or not repointed or not main["tagged"] \
             or not main["report"] or not main["deleted"]:
         raise SystemExit("copy, tag, validate or delete did nothing")
-    if device != "cpu" and not ran_k1_path(main["launches"]):
+    if device != "cpu" and not (ran_k1_path(main["launches"])
+                                and ran_shape_path(main["launches"])):
         raise SystemExit(f"phase 9a did not run through the bound's kernels "
-                         f"and K1 alone: {main['launches']}")
+                         f"and K1 alone, and G1-G4: {main['launches']}")
     for key in ("export_cd", "export_ppp", "report", "deleted"):
         if main[key] != chains[1][key]:
             raise SystemExit(f"phase 9a: the CPU chain's {key} differs")
@@ -2537,7 +2802,7 @@ def main():
     card = phase_card()
     checks = {name: Check(name) for name in
               ("multimask_ratio", "multimask_words", "prescreen_cells",
-               "prescreen_capped")}
+               "prescreen_capped", *SHAPE_KERNELS)}
     phase_kernel_vs_plain(checks, dev)
     with tempfile.TemporaryDirectory() as ws:
         phase_cli(ws, "1")
@@ -2545,9 +2810,11 @@ def main():
         timing, library = phase_at_size(checks, dev, opts.profile)
         timing["op_chain"] = phase_microbench(dev)
         t6 = time.perf_counter()
-        phase_planes(dev)
-        phase_gradient_cli(ws)
-        gradient = phase_gradient_at_size(dev, ws)
+        phase_planes(checks, dev)
+        gradient = {"cli_launches": phase_gradient_cli(ws)}
+        gradient["at_size"], shape_timing = phase_gradient_at_size(
+            checks, dev, ws)
+        timing.update(shape_timing)
         log(f"[phase 6] gradientScores in {time.perf_counter() - t6:.1f}s")
         t7 = time.perf_counter()
         scale_out = {"dense_fixtures": phase_dense_fixtures(dev),

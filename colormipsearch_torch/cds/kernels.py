@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_PTRS = ctypes.POINTER(ctypes.c_ulonglong)  # a host array of device pointers
 # library name -> {C entry point: argument types}; every entry returns
 # the launch's cudaError_t as an int (0 on success)
 BINDINGS = {
@@ -70,6 +71,28 @@ BINDINGS = {
             _I, _I, _I,          # mask group, band cells, bands
             _P, _P, _I, _I, _I,  # bits, cnt, variants, cells, targets
             _P, _P, _I]},        # out, stream, device
+    "shape_score": {"cms_shape_rows": [
+        _PTRS, _P, _I,           # plane pointers (host), their copy, targets
+        _P, _P, _P, _P,          # q_nonzero, q_slice, q_mask, high_expr
+        _I, _I, _I, _I,          # rows, w, mirror, flip_z
+        _P, _P, _I]},            # out, stream, device
+    "shape_planes": {
+        "cms_dilate_rgb": [
+            _P, _P, _I, _I,      # x, excluded, has_thr, thr
+            _I, _I, _I,          # frames, h, w
+            _I, ctypes.POINTER(_I),  # footprint rows, their extents
+            _P, _P, _I],         # out, stream, device
+        "cms_query_planes": [
+            _P, _P, _P, _P,      # rgb, excluded, d60, d20
+            _P, _I, _I, _I, _I,  # slice table, its size, h, w, border
+            _P, _P, _P, _P, _P,  # q_nonzero, q_slice, q_mask, high, row_any
+            _P, _I],             # stream, device
+        "cms_target_planes": [
+            _P, _P, _I, _P,      # cdm, grad, grad_is_rgb, z-gap frames
+            _P, _I, _P, _I,      # excluded, thr, slice table, its size
+            _I, _I, _I,          # frames, h, w
+            _PTRS, _P,           # output pointers (host), their copy
+            _P, _I]},            # stream, device
 }
 LIBRARIES = tuple(BINDINGS)
 

@@ -1,4 +1,4 @@
-"""The shape/gradient scorer as torch ops on the device.
+"""The shape/gradient scorer on the device: G1, a hand-written kernel.
 
 Counterpart of `colormipsearch_tpu/cds/shape_kernel.py`, an XLA program
 (no Pallas kernel) re-designing Shape2DMatchColorDepthSearchAlgorithm
@@ -6,6 +6,14 @@ Counterpart of `colormipsearch_tpu/cds/shape_kernel.py`, an XLA program
 elementwise passes and row sums over precomputed integer planes, the
 query's planes once per mask and the target's once per target
 (`shape_device.py`, or the host builds of `shape_oracle.py`).
+
+`shape_rows` scores a list of targets' [H, W] planes, where they lie, in
+the query's row band: CPU tensors run its plain version
+(`shape_rows_plain`, the eager torch ops: stack, crop, score); CUDA
+tensors launch `cms_shape_rows` (`csrc/shape_score.cu`, built at first
+use) with a table of the planes' pointers, or raise. `shape_score_rows`
+(stacked [T, R, W] planes) and `shape_score_stacked` keep the JAX
+package's interfaces over it.
 
 Mirror-pass equivalence (proof in shape_oracle.py): the mirrored
 orientation only flips the gradient plane (gap sum) and the target plane
@@ -15,33 +23,41 @@ planes.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .shape_device import grad_values
+from . import kernels
+from .multimask import _on_cuda
+from .shape_device import QUERY_PLANE_DTYPES, TARGET_PLANE_DTYPES, grad_values
 
 GAP_THRESHOLD = 3
 
 
-def shape_score_rows(q_nonzero, q_slice, q_mask, high_expr,
+def score_rows_plain(q_nonzero, q_slice, q_mask, high_expr,
                      grad, z_nonzero, z_slice, t_above, *,
-                     mirror: bool) -> Tuple[torch.Tensor, ...]:
-    """Batched shape scores: query planes [R, W], target planes
-    [T, R, W], all on one device (counterpart of `shape_score_kernel`).
+                     mirror: bool, flip_z: bool = False
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Batched shape scores as eager torch ops: query planes [R, W],
+    target planes [T, R, W], all on one device (counterpart of
+    `shape_score_kernel`); with flip_z the z planes are read at column
+    W-1-x (the ROI-mask path's mirrored-query pass).
 
     Returns per-ROW int32 sums [T, R] for (gaps_id, high_id, gaps_m,
     high_m). A per-pixel gap is at most max(slice gap 216, grad 65535),
     so a row sum fits int32 (1210 * 65535 < 2**31) but a whole-image sum
     may not; finish_shape_scores adds the rows in int64.
     """
-    shape_score_rows.calls += 1
     q_nonzero = q_nonzero.to(torch.bool)[None]
     q_slice = q_slice.to(torch.int32)[None]
     q_mask = q_mask.to(torch.bool)[None]
     high_expr = high_expr.to(torch.bool)[None]
+    z_nonzero = z_nonzero.to(torch.bool)
     z_slice = z_slice.to(torch.int32)
+    if flip_z:
+        z_nonzero, z_slice = z_nonzero.flip(2), z_slice.flip(2)
 
     # calculateSliceGap (GradientAreaGapUtils.java:100-104): 0 where the
     # target has no slice, the target's slice where the query has none
@@ -50,7 +66,7 @@ def shape_score_rows(q_nonzero, q_slice, q_mask, high_expr,
     # PIXEL_GAP_OP (Shape2DMatchColorDepthSearchAlgorithm.java:28-42):
     # both images present and slices >= 80 apart -> sg - 40, else
     # queryMask * grad; zeroed unless > GAP_THRESHOLD
-    use_slice = q_nonzero & z_nonzero.to(torch.bool) & (sg >= 80)
+    use_slice = q_nonzero & z_nonzero & (sg >= 80)
     slice_gap = sg - 40
 
     def gap_rows(grad_plane):
@@ -71,6 +87,118 @@ def shape_score_rows(q_nonzero, q_slice, q_mask, high_expr,
     return gaps_id, high_id, gap_rows(grad.flip(2)), high_rows(t_above.flip(2))
 
 
+def shape_rows_plain(q_nonzero, q_slice, q_mask, high_expr,
+                     t_above_list: Sequence[torch.Tensor],
+                     grad_list: Sequence[torch.Tensor],
+                     znz_list: Sequence[torch.Tensor],
+                     zsl_list: Sequence[torch.Tensor],
+                     *, r0: int, r1: int, mirror: bool, flip_z: bool = False):
+    """G1's plain version: crop every plane to the row band [r0, r1),
+    stack the targets' planes and score them with score_rows_plain."""
+
+    def stack(planes):
+        return torch.stack([p[r0:r1] for p in planes])
+
+    return score_rows_plain(q_nonzero[r0:r1], q_slice[r0:r1],
+                            q_mask[r0:r1], high_expr[r0:r1],
+                            stack(grad_list), stack(znz_list),
+                            stack(zsl_list), stack(t_above_list),
+                            mirror=mirror, flip_z=flip_z)
+
+
+def _check_plane(name, t, dtype, hw, device):
+    """Raise unless t is a contiguous dtype plane of shape hw on device
+    (one test first: a 128-target batch checks 512 planes per call)."""
+    if t.dtype is dtype and t.shape == hw and t.is_contiguous() \
+            and t.device == device:
+        return
+    if t.dtype != dtype or t.dim() != 2:
+        raise ValueError(f"{name}: expected a {dtype} [H, W] plane, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    raise ValueError(f"{name}: a contiguous plane of the query's shape "
+                     f"{tuple(hw)} expected, got {tuple(t.shape)} strides "
+                     f"{t.stride()}")
+
+
+def shape_rows(q_nonzero, q_slice, q_mask, high_expr,
+               t_above_list: Sequence[torch.Tensor],
+               grad_list: Sequence[torch.Tensor],
+               znz_list: Sequence[torch.Tensor],
+               zsl_list: Sequence[torch.Tensor],
+               *, r0: int, r1: int, mirror: bool, flip_z: bool = False):
+    """G1: the int32 row sums [T, r1 - r0] (gaps_id, high_id, gaps_m,
+    high_m) of the query's planes [H, W] against each target's four
+    planes (contiguous, of the query's shape), in the row band [r0, r1).
+    CPU tensors run shape_rows_plain; CUDA tensors launch
+    `cms_shape_rows` on their device, reading each target's planes where
+    they lie, or raise. Without mirror the mirrored sums are the direct
+    ones."""
+    lists = (t_above_list, grad_list, znz_list, zsl_list)
+    n_t = len(t_above_list)
+    if any(len(x) != n_t for x in lists):
+        raise ValueError("the four target plane lists differ in length")
+    query = (q_nonzero, q_slice, q_mask, high_expr)
+    if not _on_cuda([*query, *(p for x in lists for p in x)]):
+        return shape_rows_plain(*query, *lists, r0=r0, r1=r1, mirror=mirror,
+                                flip_z=flip_z)
+    dev = q_nonzero.device
+    hw = q_nonzero.shape
+    h, w = hw
+    if not 0 <= r0 <= r1 <= h:
+        raise ValueError(f"row band [{r0}, {r1}) outside {h} rows")
+    for name, t, dt in zip(("q_nonzero", "q_slice", "q_mask", "high_expr"),
+                           query, QUERY_PLANE_DTYPES):
+        _check_plane(name, t, dt, hw, dev)
+    rows = r1 - r0
+    ptrs = []
+    for planes in zip(*lists):
+        for name, t, dt in zip(("t_above", "grad", "z_nonzero", "z_slice"),
+                               planes, TARGET_PLANE_DTYPES):
+            _check_plane(name, t, dt, hw, dev)
+            ptrs.append(t.data_ptr() + r0 * w * t.element_size())
+    out = torch.empty((4 if mirror else 2, n_t, rows), dtype=torch.int32,
+                      device=dev)
+    if n_t and rows:
+        lib = kernels.load_library("shape_score").lib
+        table = torch.empty(len(ptrs), dtype=torch.int64, device=dev)
+        qp = [t.data_ptr() + r0 * w * t.element_size() for t in query]
+        rc = lib.cms_shape_rows(
+            (ctypes.c_ulonglong * len(ptrs))(*ptrs), table.data_ptr(), n_t,
+            *qp, rows, w, int(mirror), int(flip_z), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        if rc != 0:
+            raise RuntimeError(f"shape_rows kernel launch failed: "
+                               f"cudaError {rc}")
+        shape_rows.launches += 1
+    if not mirror:
+        return out[0], out[1], out[0], out[1]
+    return out[0], out[1], out[2], out[3]
+
+
+shape_rows.launches = 0
+
+
+def shape_score_rows(q_nonzero, q_slice, q_mask, high_expr,
+                     grad, z_nonzero, z_slice, t_above, *,
+                     mirror: bool) -> Tuple[torch.Tensor, ...]:
+    """Batched shape scores: query planes [R, W], target planes
+    [T, R, W], all on one device (counterpart of `shape_score_kernel`):
+    score_rows_plain on the CPU, G1 over the stack's [R, W] slices on a
+    card. Returns per-ROW int32 sums [T, R] for (gaps_id, high_id,
+    gaps_m, high_m)."""
+    shape_score_rows.calls += 1
+    stacked = (t_above, grad, z_nonzero, z_slice)
+    if not _on_cuda([q_nonzero, q_slice, q_mask, high_expr, *stacked]):
+        return score_rows_plain(q_nonzero, q_slice, q_mask, high_expr,
+                                grad, z_nonzero, z_slice, t_above,
+                                mirror=mirror)
+    return shape_rows(q_nonzero, q_slice, q_mask, high_expr,
+                      *(list(x.unbind(0)) for x in stacked),
+                      r0=0, r1=q_nonzero.shape[0], mirror=mirror)
+
+
 shape_score_rows.calls = 0
 
 
@@ -80,18 +208,13 @@ def shape_score_stacked(q_nonzero, q_slice, q_mask, high_expr,
                         znz_list: Sequence[torch.Tensor],
                         zsl_list: Sequence[torch.Tensor],
                         *, r0: int, r1: int, mirror: bool):
-    """Crop every plane to the query's active row band [r0, r1), stack
-    the targets' [H, W] planes and score them (counterpart of
-    `shape_score_stacked`)."""
-
-    def stack(planes):
-        return torch.stack([p[r0:r1] for p in planes])
-
-    return shape_score_rows(q_nonzero[r0:r1], q_slice[r0:r1],
-                            q_mask[r0:r1], high_expr[r0:r1],
-                            stack(grad_list), stack(znz_list),
-                            stack(zsl_list), stack(t_above_list),
-                            mirror=mirror)
+    """Score the targets' [H, W] planes in the query's active row band
+    [r0, r1) (counterpart of `shape_score_stacked`): shape_rows, counted
+    as a call of shape_score_rows."""
+    shape_score_rows.calls += 1
+    return shape_rows(q_nonzero, q_slice, q_mask, high_expr, t_above_list,
+                      grad_list, znz_list, zsl_list, r0=r0, r1=r1,
+                      mirror=mirror)
 
 
 def finish_shape_scores(gaps_id, high_id, gaps_m, high_m, mirror: bool):

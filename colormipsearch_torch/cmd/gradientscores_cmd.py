@@ -52,8 +52,7 @@ import numpy as np
 import torch
 
 from ..cds import shape_device
-from ..cds.shape_kernel import (finish_shape_scores, shape_score_rows,
-                                shape_score_stacked)
+from ..cds.shape_kernel import finish_shape_scores, shape_rows
 from ..cds.shape_oracle import (QueryShapePlanes, TargetShapePlanes,
                                 build_mirrored_query_shape_planes,
                                 build_query_shape_planes,
@@ -277,11 +276,14 @@ def run(args: argparse.Namespace) -> int:
 def _to_device(qp: QueryShapePlanes, device) -> QueryShapePlanes:
     """Host-built query planes on `device`, with their active-rows vector."""
     row_any = qp.q_nonzero.any(axis=1) | qp.high_expr.astype(bool).any(axis=1)
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
+            device)
+
     return QueryShapePlanes(
-        q_nonzero=torch.from_numpy(qp.q_nonzero).to(device),
-        q_slice=torch.from_numpy(qp.q_slice.astype(np.int16)).to(device),
-        q_mask=torch.from_numpy(qp.q_mask.astype(bool)).to(device),
-        high_expr=torch.from_numpy(qp.high_expr.astype(bool)).to(device),
+        q_nonzero=up(qp.q_nonzero, bool), q_slice=up(qp.q_slice, np.int16),
+        q_mask=up(qp.q_mask, bool), high_expr=up(qp.high_expr, bool),
         height=qp.height, width=qp.width, row_any=row_any)
 
 
@@ -333,7 +335,8 @@ class PlaneCache:
         self._planes: OrderedDict = OrderedDict()  # key -> (planes, slot)
         self._nbytes = 0
         self._next = 0
-        self._query = (None, {})  # the last mask's query planes per device
+        # the last mask's query planes (two sets with an ROI mask) per device
+        self._query: dict = {}
         self._lock = threading.RLock()
 
     def __len__(self) -> int:
@@ -393,14 +396,16 @@ class PlaneCache:
 
     def query_on(self, qplanes: QueryShapePlanes, device) -> QueryShapePlanes:
         """A mask's query planes on `device`, copied device to device once
-        per mask (the last mask's copies are kept)."""
+        per mask (the copies of the last two plane sets are kept)."""
         device = torch.device(device)
         if qplanes.q_nonzero.device == device:
             return qplanes
-        src, copies = self._query
-        if src is not qplanes:
-            copies = {}
-            self._query = (qplanes, copies)
+        held = self._query.get(id(qplanes))
+        if held is None or held[0] is not qplanes:
+            if len(self._query) >= 2:  # this mask's two orientations
+                self._query.pop(next(iter(self._query)))
+            held = self._query[id(qplanes)] = (qplanes, {})
+        copies = held[1]
         got = copies.get(device)
         if got is None:
             got = dataclasses.replace(qplanes, **{
@@ -450,8 +455,9 @@ def _build_planes_device(raws, args, excluded, planes_cache: PlaneCache):
     """Batched device plane builds: each group of same-(shape, grad kind,
     zgap mode) raw frames is split into one block per device slot, built
     on the slot's device. Returns [(TargetShapePlanes, slot)] in input
-    order, each target's planes in tensors of their own (a view of the
-    batch would keep the whole batch alive in the cache)."""
+    order, each target's planes in tensors of their own, as the build
+    writes them (a view of the batch would keep the whole batch alive in
+    the cache)."""
     from ..parallel.twophase_sweep import device_blocks
     results = [None] * len(raws)
     groups: dict = {}
@@ -466,16 +472,15 @@ def _build_planes_device(raws, args, excluded, planes_cache: PlaneCache):
                 continue
             slot = (first + d) % n_slots
             block = idxs[off:off + ln]
-            planes = shape_device.build_target_planes(
+            sets = shape_device.build_target_plane_sets(
                 np.stack([raws[i][0] for i in block]),
                 np.stack([raws[i][1][0] for i in block]),
                 np.stack([raws[i][2] for i in block]) if mode == "file"
                 else None, excluded, thr=int(args.maskThreshold),
                 zgap_mode=mode, grad_is_rgb=grad_is_rgb,
                 device=planes_cache.devices[slot])
-            for j, i in enumerate(block):
-                results[i] = (TargetShapePlanes(*(p[j].clone()
-                                                  for p in planes)), slot)
+            for i, planes in zip(block, sets):
+                results[i] = (TargetShapePlanes(*planes), slot)
     return results
 
 
@@ -538,10 +543,10 @@ def score_mask_partitions(mask_matches, qplanes, cache, args, excluded,
 
 def _score_batch(part, qplanes, cache: MIPsCache, args, excluded,
                  planes_cache: PlaneCache, qplanes_m=None):
-    """Batched shape scoring for one mask's matches: one scorer call per
-    device slot over the targets whose planes it holds, all queued before
-    any result is read. qplanes_m carries the mirrored-orientation plane
-    set for the ROI-mask case, which runs on the first device."""
+    """Batched shape scoring for one mask's matches: one scorer launch
+    per device slot over the targets whose planes it holds (two for the
+    ROI-mask case), all queued before any result is read. qplanes_m
+    carries the mirrored-orientation plane set for the ROI-mask case."""
     tplanes = []
     slots = []
     scored_matches = []
@@ -582,58 +587,47 @@ def _score_batch(part, qplanes, cache: MIPsCache, args, excluded,
     # high-expression term is zero (QueryShapePlanes.active_row_range).
     # The mirror pass only flips columns, so the crop is mirror-safe.
     r0, r1 = qplanes.active_row_range()
-    if qplanes_m is None:
-        by_slot: dict = {}
-        for i, slot in enumerate(slots):
-            by_slot.setdefault(slot, []).append(i)
-        queued = []
-        for slot, idxs in by_slot.items():
-            q = planes_cache.query_on(qplanes, planes_cache.devices[slot])
-            sel = [tplanes[i] for i in idxs]
-            queued.append((idxs, shape_score_stacked(
-                q.q_nonzero, q.q_slice, q.q_mask, q.high_expr,
-                [t.t_above for t in sel], [t.grad for t in sel],
-                [t.z_nonzero for t in sel], [t.z_slice for t in sel],
-                r0=r0, r1=r1, mirror=args.mirrorMask)))
-        gaps = np.zeros(len(tplanes), dtype=np.int64)
-        high = np.zeros(len(tplanes), dtype=np.int64)
-        for idxs, out in queued:
-            gaps[idxs], high[idxs], _, _ = finish_shape_scores(
-                *out, mirror=args.mirrorMask)
-    else:
+    if qplanes_m is not None:
         # ROI-mask path: two identity-orientation passes, the second with
         # mirrored-query planes and flipped z planes; the crop covers
         # the active rows of both orientations
         m0, m1 = qplanes_m.active_row_range()
         r0, r1 = min(r0, m0), max(r1, m1)
-        dev0 = qplanes.q_nonzero.device
+    by_slot: dict = {}
+    for i, slot in enumerate(slots):
+        by_slot.setdefault(slot, []).append(i)
 
-        def stack(name):
-            """The cropped planes stacked on the first device: one stack
-            and one copy per device they live on, in target order."""
-            by_dev: dict = {}
-            for i, t in enumerate(tplanes):
-                by_dev.setdefault(getattr(t, name).device, []).append(i)
-            order = [i for idxs in by_dev.values() for i in idxs]
-            moved = torch.cat([torch.stack(
-                [getattr(tplanes[i], name)[r0:r1] for i in idxs]).to(dev0)
-                for idxs in by_dev.values()])
-            return moved[torch.from_numpy(np.argsort(order)).to(dev0)]
+    def score(qp, idxs, device, mirror, flip_z=False):
+        q = planes_cache.query_on(qp, device)
+        sel = [tplanes[i] for i in idxs]
+        return shape_rows(q.q_nonzero, q.q_slice, q.q_mask, q.high_expr,
+                          [t.t_above for t in sel], [t.grad for t in sel],
+                          [t.z_nonzero for t in sel],
+                          [t.z_slice for t in sel], r0=r0, r1=r1,
+                          mirror=mirror, flip_z=flip_z)
 
-        grad, znz, zsl, tab = (stack(n) for n in ("grad", "z_nonzero",
-                                                  "z_slice", "t_above"))
-
-        def one_pass(qp, znz_, zsl_):
-            out = shape_score_rows(qp.q_nonzero[r0:r1], qp.q_slice[r0:r1],
-                                   qp.q_mask[r0:r1], qp.high_expr[r0:r1],
-                                   grad, znz_, zsl_, tab, mirror=False)
-            return finish_shape_scores(*out, mirror=False)
-
-        g_i, h_i, s_i, _ = one_pass(qplanes, znz, zsl)
-        g_m, h_m, s_m, _ = one_pass(qplanes_m, znz.flip(2), zsl.flip(2))
+    # every slot's launches are queued before any result is read
+    queued = []
+    for slot, idxs in by_slot.items():
+        device = planes_cache.devices[slot]
+        if qplanes_m is None:
+            queued.append((idxs, score(qplanes, idxs, device,
+                                       args.mirrorMask)))
+        else:
+            queued.append((idxs, score(qplanes, idxs, device, False),
+                           score(qplanes_m, idxs, device, False, True)))
+    gaps = np.zeros(len(tplanes), dtype=np.int64)
+    high = np.zeros(len(tplanes), dtype=np.int64)
+    for idxs, out, *out_m in queued:
+        if not out_m:
+            gaps[idxs], high[idxs], _, _ = finish_shape_scores(
+                *out, mirror=args.mirrorMask)
+            continue
+        g_i, h_i, s_i, _ = finish_shape_scores(*out, mirror=False)
+        g_m, h_m, s_m, _ = finish_shape_scores(*out_m[0], mirror=False)
         use_m = s_m < s_i
-        gaps = np.where(use_m, g_m, g_i)
-        high = np.where(use_m, h_m, h_i)
+        gaps[idxs] = np.where(use_m, g_m, g_i)
+        high[idxs] = np.where(use_m, h_m, h_i)
     for i, m in enumerate(scored_matches):
         m.gradient_area_gap = int(gaps[i])
         m.high_expression_area = int(high[i])

@@ -1,7 +1,9 @@
 """On a CUDA card: the exact multi-mask kernels (ratio and packed-word
-predicates), the two prescreen-bound kernels and the op-chain kernel
-equal their plain PyTorch versions, and the two-phase sweep on the card
-equals the sweep on the CPU.
+predicates), the two prescreen-bound kernels, the op-chain kernel and
+gradientScores' four kernels (the shape scorer, the dilation, the query
+and the target planes) equal their plain PyTorch versions, and the
+two-phase sweep and gradientScores' batches (over two device slots, and
+on the ROI-mask path) on the card equal their runs on the CPU.
 
 These tests import no JAX, so they run on a machine that has only the
 port's dependencies:
@@ -16,6 +18,8 @@ torch.set_num_threads(2)
 
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
 from colormipsearch_torch.cds import prescreen as ps  # noqa: E402
+from colormipsearch_torch.cds import shape_device as sd  # noqa: E402
+from colormipsearch_torch.cds import shape_kernel as sk  # noqa: E402
 from colormipsearch_torch.cds.oracle import shift_ring_offsets  # noqa: E402
 from colormipsearch_torch.cds.pixel_active import (  # noqa: E402
     ActiveTilePixelEngine, drain_deferred)
@@ -245,3 +249,226 @@ def test_prescreen_capped_without_survivors(card):
             ps.prescreen_capped.launches) == (before[0] + 1, before[1] + 1)
     assert got.shape == (6, 40) and not got.any()
     assert torch.equal(got, ps.capped_bounds_plain(rows, bits, cnt))
+
+
+def _launched(fn, call):
+    """call()'s result, checking it launched fn's kernel once."""
+    before = fn.launches
+    out = call()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    return out
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _shape_planes(rng, t, h, w, dev):
+    """Query and target planes in the kernels' dtypes, with slice gaps
+    around 80, gaps of 3 and 4 and gradients past 32767."""
+    q_nonzero = rng.random((h, w)) < 0.6
+    q_slice = np.where(q_nonzero, rng.integers(0, 257, (h, w)), 0)
+    q_mask = q_nonzero & (rng.random((h, w)) < 0.7)
+    high = rng.random((h, w)) < 0.3
+    grad = rng.integers(0, 65536, (t, h, w)).astype(np.uint16)
+    grad[rng.random((t, h, w)) < 0.3] = rng.integers(2, 6)
+    z_nonzero = rng.random((t, h, w)) < 0.6
+    z_slice = np.where(z_nonzero, np.clip(
+        q_slice[None] + rng.choice([-81, -80, -79, 0, 79, 80, 81],
+                                   (t, h, w)), 0, 256), 0)
+    t_above = rng.random((t, h, w)) < 0.4
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(dev)
+
+    query = [up(q_nonzero, bool), up(q_slice, np.int16), up(q_mask, bool),
+             up(high, bool)]
+    planes = [up(t_above, bool), up(grad.view(np.int16), np.int16),
+              up(z_nonzero, bool), up(z_slice, np.int16)]
+    return query, [list(p.unbind(0)) for p in planes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [45, 1210])
+@pytest.mark.parametrize("mirror,flip_z", [(True, False), (False, False),
+                                           (False, True)])
+def test_shape_rows_equals_plain(card, w, mirror, flip_z):
+    """G1 over per-target planes (views of one stack, and tensors of
+    their own) in a band with r0 > 0 == its plain version."""
+    rng = np.random.default_rng(w + 2 * mirror + flip_z)
+    query, lists = _shape_planes(rng, 5, 40, w, card)
+    lists = [[p.clone() if i % 2 else p for i, p in enumerate(x)]
+             for x in lists]
+    got = _launched(sk.shape_rows, lambda: sk.shape_rows(
+        *query, *lists, r0=3, r1=37, mirror=mirror, flip_z=flip_z))
+    want = sk.shape_rows_plain(*query, *lists, r0=3, r1=37, mirror=mirror,
+                               flip_z=flip_z)
+    _same(got, want)
+    cpu = sk.shape_rows(*[q.cpu() for q in query],
+                        *[[p.cpu() for p in x] for x in lists], r0=3,
+                        r1=37, mirror=mirror, flip_z=flip_z)
+    _same([g.cpu() for g in got], cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius,h,w", [(10.0, 40, 150), (20.0, 7, 131),
+                                        (60.0, 70, 1210)])
+@pytest.mark.parametrize("prologue", ["none", "excluded", "excluded+thr"])
+def test_dilate_rgb_equals_plain(card, radius, h, w, prologue):
+    """G2 == its plain version, on frames shorter than the radius too,
+    clearing and masking its input on the fly."""
+    rng = np.random.default_rng(int(radius) + h)
+    x = rng.integers(0, 256, (3, h, w, 3), dtype=np.uint8)
+    x[rng.random((3, h, w)) < 0.97] = 0
+    x = torch.from_numpy(x).to(card)
+    excluded = (torch.from_numpy(rng.random((h, w)) < 0.2).to(card)
+                if prologue != "none" else None)
+    thr = 20 if prologue == "excluded+thr" else None
+    got = _launched(sd.dilate_rgb, lambda: sd.dilate_rgb(
+        x, radius, excluded=excluded, thr=thr))
+    want = sd.dilate_rgb_plain(sd.dilate_input_plain(x, excluded, thr),
+                               radius)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("border", [0, 4])
+@pytest.mark.parametrize("use_excluded", [False, True])
+def test_query_planes_equal_plain(card, border, use_excluded):
+    """G3 == its plain version, and build_query_planes on the card (G2
+    twice, then G3) == its run on the CPU."""
+    rng = np.random.default_rng(border + 10 * use_excluded)
+    h, w = 90, 333
+    rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    rgb[rng.random((h, w)) < 0.9] = 0
+    excluded = rng.random((h, w)) < 0.1 if use_excluded else None
+    planes = sd.build_query_planes(rgb, excluded, border, device=card)
+    cpu = sd.build_query_planes(rgb, excluded, border, device="cpu")
+    names = ("q_nonzero", "q_slice", "q_mask", "high_expr")
+    _same([getattr(planes, n).cpu() for n in names],
+          [getattr(cpu, n) for n in names])
+    np.testing.assert_array_equal(planes.row_any, cpu.row_any)
+    x = torch.from_numpy(rgb).to(card)
+    ex = torch.from_numpy(excluded).to(card) if use_excluded else None
+    d60 = sd.dilate_rgb(x[None], 60.0, excluded=ex)[0]
+    d20 = sd.dilate_rgb(x[None], 20.0, excluded=ex)[0]
+    got = _launched(sd.query_planes, lambda: sd.query_planes(
+        x, ex, d60, d20, border))
+    _same(got, sd.query_planes_plain(x, ex, d60, d20, border))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0, 20, 255, 300])
+@pytest.mark.parametrize("grad_is_rgb", [False, True])
+def test_target_planes_equal_plain(card, thr, grad_is_rgb):
+    """G4 == its plain version, each target's planes in tensors of their
+    own, and build_target_plane_sets in both z-gap modes == the CPU's."""
+    rng = np.random.default_rng(thr + grad_is_rgb)
+    t, h, w = 3, 50, 201
+    pool = np.array([0, 1, 19, 20, 21, 127, 254, 255], dtype=np.uint8)
+    cdm = pool[rng.integers(0, len(pool), (t, h, w, 3))]
+    zgap = pool[rng.integers(0, len(pool), (t, h, w, 3))]
+    grad = (rng.integers(0, 256, (t, h, w, 3), dtype=np.uint8) if grad_is_rgb
+            else rng.integers(0, 65536, (t, h, w)).astype(np.uint16))
+    excluded = rng.random((h, w)) < 0.1
+    for mode in ("file", "otf"):
+        zg = zgap if mode == "file" else None
+        got = sd.build_target_plane_sets(cdm, grad, zg, excluded, thr=thr,
+                                         zgap_mode=mode,
+                                         grad_is_rgb=grad_is_rgb,
+                                         device=card)
+        cpu = sd.build_target_plane_sets(cdm, grad, zg, excluded, thr=thr,
+                                         zgap_mode=mode,
+                                         grad_is_rgb=grad_is_rgb,
+                                         device="cpu")
+        for g, c in zip(got, cpu):
+            _same([p.cpu() for p in g], c)
+    args = [torch.from_numpy(a).to(card) for a in (
+        cdm, grad if grad_is_rgb else grad.view(np.int16), zgap, excluded)]
+    got = _launched(sd.target_planes, lambda: sd.target_planes(
+        *args, thr=thr, grad_is_rgb=grad_is_rgb))
+    want = sd.target_planes_plain(*args, thr=thr, grad_is_rgb=grad_is_rgb)
+    _same([torch.stack(p) for p in zip(*got)], want)
+
+
+def _gradient_batch(device_slots, roi):
+    """gradientScores' score_mask_partitions on the golden fixtures (the
+    three LM targets, 40 matches each, in batches of 64) over the given
+    device slots: [(gap, high expression)] per match and the plane
+    cache."""
+    import argparse
+    import pathlib
+
+    from colormipsearch_torch.cmd import gradientscores_cmd as gc
+    from colormipsearch_torch.cds.shape_oracle import \
+        build_mirrored_query_shape_planes
+    from colormipsearch_torch.imageproc.io import image_from_array, load_image
+    from colormipsearch_torch.mips import MIPsCache
+    from colormipsearch_torch.model import (CDMatchEntity, ComputeFileType,
+                                            EMNeuronEntity, FileData,
+                                            LMNeuronEntity)
+    fx = pathlib.Path(__file__).parent / "fixtures" / "cdsearch"
+    mask_img = load_image(str(fx / "ems" / "12191_JRC2018U.tif"))
+    h, w = mask_img.height, mask_img.width
+    excluded = np.zeros((h, w), dtype=bool)
+    excluded[:100, :330] = True
+    em = EMNeuronEntity(entity_id=1, mip_id="em-0")
+    names = sorted(p.stem for p in (fx / "grad").glob("*.png"))
+    matches = []
+    for i in range(120):
+        name = names[i % len(names)]
+        lm = LMNeuronEntity(entity_id=100 + i, mip_id=f"lm-{i}")
+        files = {ComputeFileType.InputColorDepthImage: fx / "lms" /
+                 f"{name}.tif",
+                 ComputeFileType.GradientImage: fx / "grad" / f"{name}.png"}
+        if i % 3 and (fx / "zgap" / f"{name}.tif").exists():
+            files[ComputeFileType.ZGapImage] = fx / "zgap" / f"{name}.tif"
+        for cft, path in files.items():
+            lm.compute_files[cft] = FileData.from_string(str(path))
+        m = CDMatchEntity()
+        m.mask_image, m.matched_image = em, lm
+        matches.append(m)
+    args = argparse.Namespace(maskThreshold=20, mirrorMask=True,
+                              computeZGapOnTheFly=True, targetsPerBatch=64,
+                              planes_threads=2)
+    roi_img = qplanes_m = None
+    if roi:
+        roi_px = np.zeros((h, w, 3), dtype=np.uint8)
+        roi_px[:, : w // 2] = 255
+        roi_img = image_from_array(roi_px)
+    qplanes = gc._build_qplanes(mask_img, excluded, roi_img, 0,
+                                device_slots[0])
+    if roi:
+        qplanes_m = gc._to_device(build_mirrored_query_shape_planes(
+            mask_img, excluded, roi_img, 0), device_slots[0])
+    planes_cache = gc.PlaneCache(device_slots)
+    scored = gc.score_mask_partitions(matches, qplanes, MIPsCache(256),
+                                      args, excluded, planes_cache, qplanes_m)
+    return [(m.gradient_area_gap, m.high_expression_area)
+            for m in scored], planes_cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("roi", [False, True])
+def test_gradient_batch_over_two_slots(card, roi):
+    """A batch whose target planes lie on two device slots (two cards
+    where the machine has them, else two slots of one) scores, on the
+    device of each slot, what the CPU scores; with an ROI mask (two
+    passes, the second with flipped z planes) too. G1 and G4 launch, and
+    G2 and G3 where the query planes are built on the card."""
+    other = torch.device("cuda", 1) if torch.cuda.device_count() > 1 \
+        else card
+    counters = (sk.shape_rows, sd.dilate_rgb, sd.query_planes,
+                sd.target_planes)
+    before = [fn.launches for fn in counters]
+    got, cache = _gradient_batch([card, other], roi)
+    launched = [fn.launches - b for fn, b in zip(counters, before)]
+    want, _ = _gradient_batch(["cpu"], roi)
+    assert got == want and len(got) == 120
+    assert {cache.slot(100 + i) for i in range(120)} == {0, 1}
+    assert launched[0] >= 2 * (2 if roi else 1) and launched[3] >= 2
+    assert launched[1] >= 2 and (launched[2] == 0 if roi
+                                 else launched[2] == 1)

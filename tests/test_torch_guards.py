@@ -127,11 +127,12 @@ def test_one_library_per_source(monkeypatch, tmp_path):
     """Each csrc/<name>.cu builds into its own library, named by the hash
     of its source, of the local headers it includes and of the flags."""
     assert set(kernels.LIBRARIES) == {"multimask_ratio", "multimask_words",
-                                      "op_chain", "prescreen_bound"}
+                                      "op_chain", "prescreen_bound",
+                                      "shape_score", "shape_planes"}
     for name in kernels.LIBRARIES:
         assert os.path.exists(kernels.source_path(name))
     paths = {kernels.library_path(n) for n in kernels.LIBRARIES}
-    assert len(paths) == 4
+    assert len(paths) == 6
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     monkeypatch.setattr(kernels, "CSRC", str(csrc))

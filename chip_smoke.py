@@ -299,7 +299,7 @@ def phase_card():
                          f"run its NumPy path")
     log(f"[build] native word packer (g++) ready in "
         f"{time.perf_counter() - t0:.2f}s: {mipops.library_path()}")
-    return card
+    return card, libs
 
 
 # ---- phase 2 ---------------------------------------------------------------
@@ -1248,37 +1248,73 @@ def target_library(ws, n, zgap_files):
 
 # the host functions of a warm mask (gradientscores_cmd), timed apart in
 # phase 6c: the query planes (their device work ends in the row vector's
-# copy), the plane cache's lookups, G1's launch with its pointer table,
-# and the row sums' copy to the host (which waits for G1)
-HOST_SPLIT = ("_build_qplanes", "_prefetch_planes", "shape_rows",
+# copy), the plane cache's lookups, G1's launch with the table of its
+# cached pointers, and the row sums' copy to the host (which waits for G1)
+HOST_SPLIT = ("_build_qplanes", "_prefetch_planes", "shape_rows_cached",
               "finish_shape_scores")
 
 
-# each kernel's function name in the profiler's records
-SHAPE_SYMBOLS = {"shape_rows": "shape_rows_kernel",
-                 "dilate_rgb": "dilate_kernel",
-                 "query_planes": "query_kernel",
-                 "target_planes": "target_kernel"}
+# each kernel's function names in the profiler's records (G2: the compiled
+# footprints' kernel and the partials' combine, or the generic kernel)
+SHAPE_SYMBOLS = {"shape_rows": ("shape_rows_kernel",),
+                 "dilate_rgb": ("ring_kernel", "combine_kernel",
+                                "dilate_kernel"),
+                 "query_planes": ("query_kernel",),
+                 "target_planes": ("target_kernel",)}
 
 
-def profiled_ms(fn, symbol, reps=5):
+def ptxas_report(libs, symbols=SHAPE_SYMBOLS):
+    """{kernel: {registers, spill_stores, spill_loads}} of the shape
+    kernels, from the libraries' nvcc logs (-Xptxas -v); a template
+    kernel is named with its arguments (ring_kernel<101, 0>: r = 10's
+    footprint, one group)."""
+    import re
+    wanted = [sym for syms in symbols.values() for sym in syms]
+    out, entry, cur = {}, None, None
+    for kl in libs.values():
+        for line in kl.build_log.splitlines():
+            if "Compiling entry function" in line:
+                mangled = line.split("'")[1]
+                name = next((w for w in wanted if w in mangled), None)
+                if name and "ILi" in mangled:
+                    args = mangled[mangled.find("ILi") + 3:
+                                   mangled.find("EE")]
+                    name += "<" + args.replace("ELb", ", ") + ">"
+                entry = (mangled, name) if name else None
+            elif "Function properties for" in line:
+                cur = entry[1] if entry and entry[0] in line else None
+            elif cur and "spill stores" in line:
+                st, ld = re.findall(r"(\d+) bytes spill", line)
+                out.setdefault(cur, {}).update(spill_stores=int(st),
+                                               spill_loads=int(ld))
+            elif entry and "Used" in line and "registers" in line:
+                out.setdefault(entry[1], {})["registers"] = int(
+                    re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def profiled_ms(fn, symbols, reps=5, sessions=3):
     """Device milliseconds per fn() call in the kernels whose name holds
-    `symbol`, by torch.profiler over `reps` calls after a warm-up: the
-    kernel's time without its wrapper's host work."""
+    one of `symbols`, by torch.profiler over `reps` calls after a warm-up:
+    the kernels' time without their wrapper's host work. A session whose
+    trace holds no record of them (CUPTI drops one now and then) is taken
+    again, up to `sessions` in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ms = sum(t for k, (t, _) in device_kernel_ms(prof).items()
-             if symbol in k)
-    if ms == 0:
-        raise SystemExit(f"the profiler saw no device time in {symbol}")
-    return ms / reps
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(t for k, (t, _) in device_kernel_ms(prof).items()
+                 if any(sym in k for sym in symbols))
+        if ms > 0:
+            return ms / reps
+    raise SystemExit(f"the profiler saw no device time in {symbols} in "
+                     f"{sessions} sessions")
 
 
 def host_split(gc, fn):
@@ -1345,6 +1381,78 @@ def shape_bounds(n, h, w, rows, batch, mode):
     if mode == "file":
         del out["dilate_rgb"]
     return out
+
+
+def shape_edges(checks, dev):
+    """G1 and G2 against their plain versions where their designs break
+    (tests/test_torch_cuda.py holds the same cases): G2 at the compiled
+    radii and two generic ones, every prologue, widths 1-1211, heights 1,
+    7, k, 2k + 1, the ring's stage and group sizes +- 1 and 566, 1, 2 and 5
+    frames, frames that are not 16-byte aligned; G1 at widths 1-1211,
+    bands from odd and even rows, 1-128 targets, both orientations and
+    flipped z planes, through plane lists and cached pointers. Returns
+    the number of cases."""
+    import torch
+    from colormipsearch_torch.cds import shape_device as sd
+    from colormipsearch_torch.cds import shape_kernel as sk
+    from colormipsearch_torch.cds.shape_oracle import TargetShapePlanes
+    from colormipsearch_torch.imageproc.filters import make_line_radii
+    rng = np.random.default_rng(12)
+    cases = 0
+    for radius in (10.0, 20.0, 60.0, 5.0, 30.0):
+        k = len(make_line_radii(radius)) // 2
+        shapes = [(1, 1, 1, 0), (2, 7, 15, 0), (1, k, 16, 0),
+                  (1, 2 * k + 1, 17, 0), (5, 20, 33, 0), (1, 21, 1211, 0),
+                  (1, 22, 1210, 0), (2, 3, 130, 0), (1, 5, 257, 0),
+                  (2, 9, 45, 1), (1, 566, 1210, 0)]
+        for prologue in ("none", "excluded", "excluded+thr"):
+            for n_t, h, w, offset in shapes:
+                x = rng.integers(0, 256, (n_t + offset, h, w, 3),
+                                 dtype=np.uint8)
+                x[rng.random((n_t + offset, h, w)) < 0.97] = 0
+                x[x == 19] = 20
+                x = torch.from_numpy(x).to(dev)[offset:]
+                ex = (torch.from_numpy(rng.random((h, w)) < 0.2).to(dev)
+                      if prologue != "none" else None)
+                thr = 20 if prologue == "excluded+thr" else None
+                check_shape(
+                    checks, "dilate_rgb", f"edge r = {radius:g}, "
+                    f"{prologue}, {n_t} x {h} x {w}"
+                    + (", unaligned" if offset else ""),
+                    lambda: sd.dilate_rgb(x, radius, excluded=ex, thr=thr),
+                    lambda: sd.dilate_rgb_plain(
+                        sd.dilate_input_plain(x, ex, thr), radius))
+                cases += 1
+    for n_t, h, w, r0, r1 in [(1, 1, 1, 0, 1), (5, 7, 15, 1, 6),
+                              (5, 9, 16, 2, 9), (1, 6, 17, 3, 4),
+                              (128, 12, 33, 1, 12), (9, 10, 1210, 3, 9),
+                              (128, 8, 1211, 2, 7), (5, 566, 1210, 0, 566)]:
+        q = [torch.from_numpy(a).to(dev) for a in (
+            rng.random((h, w)) < 0.6,
+            rng.integers(0, 257, (h, w)).astype(np.int16),
+            rng.random((h, w)) < 0.5, rng.random((h, w)) < 0.3)]
+        stacks = [torch.from_numpy(a).to(dev) for a in (
+            rng.random((n_t, h, w)) < 0.4,
+            rng.integers(0, 65536, (n_t, h, w)).astype(np.uint16).view(
+                np.int16),
+            rng.random((n_t, h, w)) < 0.6,
+            rng.integers(0, 257, (n_t, h, w)).astype(np.int16))]
+        lists = [[p.clone() if i % 3 == 1 else p
+                  for i, p in enumerate(x.unbind(0))] for x in stacks]
+        entries = [sk.CheckedPlanes(TargetShapePlanes(*(x[i] for x in lists)))
+                   for i in range(n_t)]
+        for mirror, flip_z in ((True, False), (False, False), (False, True)):
+            kw = dict(r0=r0, r1=r1, mirror=mirror, flip_z=flip_z)
+            label = f"edge {n_t} x {h} x {w}, rows {r0}-{r1}, mirror " \
+                    f"{mirror}, flip_z {flip_z}"
+            check_shape(checks, "shape_rows", label + ", plane lists",
+                        lambda: sk.shape_rows(*q, *lists, **kw),
+                        lambda: sk.shape_rows_plain(*q, *lists, **kw))
+            check_shape(checks, "shape_rows", label + ", cached pointers",
+                        lambda: sk.shape_rows_cached(*q, entries, **kw),
+                        lambda: sk.shape_rows_plain(*q, *lists, **kw))
+            cases += 2
+    return cases
 
 
 def phase_gradient_at_size(checks, dev, ws, n_targets=128, batch=128):
@@ -1460,8 +1568,11 @@ def phase_gradient_at_size(checks, dev, ws, n_targets=128, batch=128):
                                            ).view(np.int16)).to(dev)
         ex_d = torch.from_numpy(excluded).to(dev)
         query_d = torch.from_numpy(query).to(dev)
+        # G1 as the path calls it: the cache's checked planes and pointers
+        entries = [planes_cache.entry(t.entity_id) for t in targets[:batch]]
         fns = {"shape_rows": (
-            lambda: sk.shape_rows(*q, *lists, r0=r0, r1=r1, mirror=True),
+            lambda: sk.shape_rows_cached(*q, entries, r0=r0, r1=r1,
+                                         mirror=True),
             lambda: sk.shape_rows_plain(*q, *lists, r0=r0, r1=r1,
                                         mirror=True))}
         if zgap_files:
@@ -1509,6 +1620,12 @@ def phase_gradient_at_size(checks, dev, ws, n_targets=128, batch=128):
                 "library_ms": None}
             measured[name]["share"] = (measured[name]["bound_ms"]
                                        / measured[name]["ms"])
+        # G1 through plain tensor lists (a check and a pointer per plane)
+        lists_fn = (lambda: sk.shape_rows(*q, *lists, r0=r0, r1=r1,
+                                          mirror=True))
+        check_shape(checks, "shape_rows", f"{config} at size, plane lists",
+                    lists_fn, fns["shape_rows"][1])
+        measured["shape_rows"]["lists_call_ms"] = cuda_ms(lists_fn, 5)
         zgap_in = z_d if zgap_files else None
         build_ms = cuda_ms(lambda: sd.build_target_plane_sets(
             cdm_d, grad_d, zgap_in, ex_d, thr=20, zgap_mode=mode,
@@ -1543,6 +1660,11 @@ def phase_gradient_at_size(checks, dev, ws, n_targets=128, batch=128):
         log(f"[phase 6c] {config}: " + json.dumps(report[config]))
     for name, n in launches.items():
         timing[name]["launches"] = n
+    t0 = time.perf_counter()
+    report["edge_cases"] = shape_edges(checks, dev)
+    log(f"[phase 6c] G1 and G2 == their plain versions at "
+        f"{report['edge_cases']} edge shapes "
+        f"({time.perf_counter() - t0:.1f}s)")
     return report, timing
 
 
@@ -2799,7 +2921,7 @@ def main():
         return 2
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
-    card = phase_card()
+    card, libs = phase_card()
     checks = {name: Check(name) for name in
               ("multimask_ratio", "multimask_words", "prescreen_cells",
                "prescreen_capped", *SHAPE_KERNELS)}
@@ -2811,7 +2933,8 @@ def main():
         timing["op_chain"] = phase_microbench(dev)
         t6 = time.perf_counter()
         phase_planes(checks, dev)
-        gradient = {"cli_launches": phase_gradient_cli(ws)}
+        gradient = {"cli_launches": phase_gradient_cli(ws),
+                    "ptxas": ptxas_report(libs)}
         gradient["at_size"], shape_timing = phase_gradient_at_size(
             checks, dev, ws)
         timing.update(shape_timing)

@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PTRS = ctypes.POINTER(ctypes.c_ulonglong)  # a host array of device pointers
 # library name -> {C entry point: argument types}; every entry returns
-# the launch's cudaError_t as an int (0 on success)
+# the launch's cudaError_t as an int (0 on success), or a count where the
+# comment says so (RESTYPES: the counts wider than an int)
 BINDINGS = {
     "multimask_ratio": {"cms_multimask_ratio": [
         _P, _P, _P, _P,          # rf, fw, rf_m, fw_m
@@ -74,14 +75,18 @@ BINDINGS = {
     "shape_score": {"cms_shape_rows": [
         _PTRS, _P, _I,           # plane pointers (host), their copy, targets
         _P, _P, _P, _P,          # q_nonzero, q_slice, q_mask, high_expr
-        _I, _I, _I, _I,          # rows, w, mirror, flip_z
+        _I, _I, _I,              # band's first row, rows, w
+        _I, _I,                  # mirror, flip_z
         _P, _P, _I]},            # out, stream, device
     "shape_planes": {
+        "cms_dilate_plan": [
+            _I, ctypes.POINTER(_I),  # footprint rows, their extents
+            _I, _I, _I],         # frames, h, w (returns scratch words)
         "cms_dilate_rgb": [
             _P, _P, _I, _I,      # x, excluded, has_thr, thr
             _I, _I, _I,          # frames, h, w
             _I, ctypes.POINTER(_I),  # footprint rows, their extents
-            _P, _P, _I],         # out, stream, device
+            _P, _P, _P, _I],     # out, scratch, stream, device
         "cms_query_planes": [
             _P, _P, _P, _P,      # rgb, excluded, d60, d20
             _P, _I, _I, _I, _I,  # slice table, its size, h, w, border
@@ -95,6 +100,8 @@ BINDINGS = {
             _P, _I]},            # stream, device
 }
 LIBRARIES = tuple(BINDINGS)
+# entry points that return a count, not an error
+RESTYPES = {"cms_dilate_plan": ctypes.c_longlong}
 
 
 @dataclass
@@ -103,7 +110,8 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: str
     build_seconds: float  # 0.0 when an existing build was loaded
-    build_log: str        # nvcc's output (-Xptxas -v: registers, smem)
+    build_log: str        # nvcc's output (-Xptxas -v: registers, smem),
+                          # kept beside the library for later loads
 
 
 _locks = {name: threading.Lock() for name in LIBRARIES}
@@ -162,6 +170,9 @@ def load_library(name: str) -> KernelLibrary:
                 "kernels of colormipsearch_torch cannot be built")
         path = library_path(name)
         seconds, log = 0.0, ""
+        if os.path.exists(path) and os.path.exists(f"{path}.log"):
+            with open(f"{path}.log") as f:
+                log = f.read()
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp"
@@ -175,12 +186,15 @@ def load_library(name: str) -> KernelLibrary:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {name}.cu "
                                    f"({proc.returncode}):\n{log}")
+            with open(f"{tmp}.log", "w") as f:
+                f.write(log)
+            os.replace(f"{tmp}.log", f"{path}.log")
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         for fn_name, argtypes in BINDINGS[name].items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(fn_name, ctypes.c_int)
         got = KernelLibrary(name, lib, path, seconds, log)
         _loaded[name] = got
         return got

@@ -44,6 +44,7 @@ it); z_slice and q_slice are int16 (0..256).
 from __future__ import annotations
 
 import ctypes
+import re
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -195,6 +196,18 @@ def dilate_input_plain(x_u8: torch.Tensor, excluded=None,
     return x_u8
 
 
+def compiled_footprints() -> dict:
+    """{radius: extents} of the footprints compiled into G2's kernel (the
+    EXT_R<r> tables of csrc/shape_planes.cu, read from the source): the
+    radii the system dilates with. A footprint equal to one of them runs
+    the compiled kernel, any other the generic one."""
+    with open(kernels.source_path("shape_planes")) as f:
+        src = f.read()
+    return {float(r): tuple(int(v) for v in body.replace(",", " ").split())
+            for r, body in re.findall(
+                r"constexpr int EXT_R(\d+)\[\d+\] = \{([^}]*)\}", src)}
+
+
 def dilate_rgb(x_u8: torch.Tensor, radius: float, *, excluded=None,
                thr: Optional[int] = None) -> torch.Tensor:
     """G2: the circular-footprint dilation of u8 [T, H, W, 3] (borders
@@ -223,11 +236,18 @@ def dilate_rgb(x_u8: torch.Tensor, radius: float, *, excluded=None,
     out = torch.empty_like(x_u8)
     if out.numel() == 0:
         return out
+    if x_u8.data_ptr() % 16:
+        x_u8 = x_u8.clone()  # the kernel reads the frames as aligned words
     lib = kernels.load_library("shape_planes").lib
+    ext_c = (ctypes.c_int * len(ext))(*ext)
+    words = lib.cms_dilate_plan(len(ext), ext_c, n_t, h, w)
+    scratch = (torch.empty(words, dtype=torch.int32, device=dev)
+               if words > 0 else None)
     rc = lib.cms_dilate_rgb(
         x_u8.data_ptr(), excluded.data_ptr() if excluded is not None
         else None, int(thr is not None), _clamp_thr(thr or 0), n_t, h, w,
-        len(ext), (ctypes.c_int * len(ext))(*ext), out.data_ptr(),
+        len(ext), ext_c, out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     if rc != 0:
         raise RuntimeError(f"dilate_rgb kernel launch failed: cudaError {rc}")

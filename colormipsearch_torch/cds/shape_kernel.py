@@ -122,6 +122,70 @@ def _check_plane(name, t, dtype, hw, device):
                      f"{t.stride()}")
 
 
+TARGET_PLANE_NAMES = ("t_above", "grad", "z_nonzero", "z_slice")
+
+
+class CheckedPlanes:
+    """A target's four planes (TargetShapePlanes: t_above bool, grad
+    int16, z_nonzero bool, z_slice int16), checked once, here: each a
+    contiguous [H, W] tensor, all of one shape on one device. Holds their
+    data pointers for G1's pointer table (`shape_rows_cached`) and keeps
+    the tensors alive as long as the object lives, so a table built from
+    it never names freed memory."""
+
+    __slots__ = ("planes", "ptrs", "device", "shape")
+
+    def __init__(self, planes):
+        tensors = [getattr(planes, n) for n in TARGET_PLANE_NAMES]
+        if tensors[0].dim() != 2:
+            raise ValueError(f"t_above: expected an [H, W] plane, got "
+                             f"{tuple(tensors[0].shape)}")
+        hw, dev = tensors[0].shape, tensors[0].device
+        for name, t, dt in zip(TARGET_PLANE_NAMES, tensors,
+                               TARGET_PLANE_DTYPES):
+            _check_plane(name, t, dt, hw, dev)
+        self.planes = planes
+        self.ptrs = np.array([t.data_ptr() for t in tensors],
+                             dtype=np.uint64)
+        self.device = dev
+        self.shape = tuple(hw)
+
+
+def _check_query(query, hw, dev, r0, r1):
+    h, w = hw
+    if not 0 <= r0 <= r1 <= h:
+        raise ValueError(f"row band [{r0}, {r1}) outside {h} rows")
+    for name, t, dt in zip(("q_nonzero", "q_slice", "q_mask", "high_expr"),
+                           query, QUERY_PLANE_DTYPES):
+        _check_plane(name, t, dt, hw, dev)
+
+
+def _launch_rows(query, table: np.ndarray, n_t: int, r0: int, r1: int,
+                 mirror: bool, flip_z: bool):
+    """Launch `cms_shape_rows` over the checked query planes and a host
+    table of 4 n_t plane pointers (uint64, each plane at row 0)."""
+    dev = query[0].device
+    w = query[0].shape[1]
+    rows = r1 - r0
+    out = torch.empty((4 if mirror else 2, n_t, rows), dtype=torch.int32,
+                      device=dev)
+    if n_t and rows:
+        lib = kernels.load_library("shape_score").lib
+        dev_table = torch.empty(4 * n_t, dtype=torch.int64, device=dev)
+        rc = lib.cms_shape_rows(
+            table.ctypes.data_as(ctypes.POINTER(ctypes.c_ulonglong)),
+            dev_table.data_ptr(), n_t, *(t.data_ptr() for t in query), r0,
+            rows, w, int(mirror), int(flip_z), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        if rc != 0:
+            raise RuntimeError(f"shape_rows kernel launch failed: "
+                               f"cudaError {rc}")
+        shape_rows.launches += 1
+    if not mirror:
+        return out[0], out[1], out[0], out[1]
+    return out[0], out[1], out[2], out[3]
+
+
 def shape_rows(q_nonzero, q_slice, q_mask, high_expr,
                t_above_list: Sequence[torch.Tensor],
                grad_list: Sequence[torch.Tensor],
@@ -134,7 +198,8 @@ def shape_rows(q_nonzero, q_slice, q_mask, high_expr,
     CPU tensors run shape_rows_plain; CUDA tensors launch
     `cms_shape_rows` on their device, reading each target's planes where
     they lie, or raise. Without mirror the mirrored sums are the direct
-    ones."""
+    ones. Every plane is checked on every call; `shape_rows_cached` takes
+    planes checked once."""
     lists = (t_above_list, grad_list, znz_list, zsl_list)
     n_t = len(t_above_list)
     if any(len(x) != n_t for x in lists):
@@ -145,39 +210,47 @@ def shape_rows(q_nonzero, q_slice, q_mask, high_expr,
                                 flip_z=flip_z)
     dev = q_nonzero.device
     hw = q_nonzero.shape
-    h, w = hw
-    if not 0 <= r0 <= r1 <= h:
-        raise ValueError(f"row band [{r0}, {r1}) outside {h} rows")
-    for name, t, dt in zip(("q_nonzero", "q_slice", "q_mask", "high_expr"),
-                           query, QUERY_PLANE_DTYPES):
-        _check_plane(name, t, dt, hw, dev)
-    rows = r1 - r0
+    _check_query(query, hw, dev, r0, r1)
     ptrs = []
     for planes in zip(*lists):
-        for name, t, dt in zip(("t_above", "grad", "z_nonzero", "z_slice"),
-                               planes, TARGET_PLANE_DTYPES):
+        for name, t, dt in zip(TARGET_PLANE_NAMES, planes,
+                               TARGET_PLANE_DTYPES):
             _check_plane(name, t, dt, hw, dev)
-            ptrs.append(t.data_ptr() + r0 * w * t.element_size())
-    out = torch.empty((4 if mirror else 2, n_t, rows), dtype=torch.int32,
-                      device=dev)
-    if n_t and rows:
-        lib = kernels.load_library("shape_score").lib
-        table = torch.empty(len(ptrs), dtype=torch.int64, device=dev)
-        qp = [t.data_ptr() + r0 * w * t.element_size() for t in query]
-        rc = lib.cms_shape_rows(
-            (ctypes.c_ulonglong * len(ptrs))(*ptrs), table.data_ptr(), n_t,
-            *qp, rows, w, int(mirror), int(flip_z), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream, dev.index)
-        if rc != 0:
-            raise RuntimeError(f"shape_rows kernel launch failed: "
-                               f"cudaError {rc}")
-        shape_rows.launches += 1
-    if not mirror:
-        return out[0], out[1], out[0], out[1]
-    return out[0], out[1], out[2], out[3]
+            ptrs.append(t.data_ptr())
+    return _launch_rows(query, np.array(ptrs, dtype=np.uint64), n_t, r0,
+                        r1, mirror, flip_z)
 
 
 shape_rows.launches = 0
+
+
+def shape_rows_cached(q_nonzero, q_slice, q_mask, high_expr,
+                      targets: Sequence[CheckedPlanes], *, r0: int, r1: int,
+                      mirror: bool, flip_z: bool = False):
+    """shape_rows over targets whose planes were checked once
+    (CheckedPlanes, as the plane cache holds them): on a card the
+    pointer table is the targets' cached pointers, so a call checks the
+    query's four planes and each target's device and shape, not its 512
+    planes. CPU planes run shape_rows_plain. Counted as shape_rows'
+    launches."""
+    query = (q_nonzero, q_slice, q_mask, high_expr)
+    if not _on_cuda(query):
+        if any(t.device.type != "cpu" for t in targets):
+            raise ValueError("CPU query planes against CUDA target planes")
+        lists = [[getattr(t.planes, n) for t in targets]
+                 for n in TARGET_PLANE_NAMES]
+        return shape_rows_plain(*query, *lists, r0=r0, r1=r1, mirror=mirror,
+                                flip_z=flip_z)
+    dev = q_nonzero.device
+    hw = tuple(q_nonzero.shape)
+    _check_query(query, q_nonzero.shape, dev, r0, r1)
+    for t in targets:
+        if t.device != dev or t.shape != hw:
+            raise ValueError(f"target planes {t.shape} on {t.device}: "
+                             f"expected {hw} on {dev}")
+    table = (np.concatenate([t.ptrs for t in targets]) if targets
+             else np.zeros(0, dtype=np.uint64))
+    return _launch_rows(query, table, len(targets), r0, r1, mirror, flip_z)
 
 
 def shape_score_rows(q_nonzero, q_slice, q_mask, high_expr,

@@ -52,7 +52,8 @@ import numpy as np
 import torch
 
 from ..cds import shape_device
-from ..cds.shape_kernel import finish_shape_scores, shape_rows
+from ..cds.shape_kernel import (CheckedPlanes, finish_shape_scores,
+                                shape_rows_cached)
 from ..cds.shape_oracle import (QueryShapePlanes, TargetShapePlanes,
                                 build_mirrored_query_shape_planes,
                                 build_query_shape_planes,
@@ -299,9 +300,10 @@ def _build_qplanes(mask_img, excluded, roi_mask, border: int, device):
 
 # ---- target planes ---------------------------------------------------------
 
-def _planes_nbytes(planes) -> int:
-    if planes is None:
+def _planes_nbytes(entry) -> int:
+    if entry is None:
         return 0  # a target with missing files
+    planes = entry.planes
     return sum(t.numel() * t.element_size()
                for t in (planes.t_above, planes.grad, planes.z_nonzero,
                          planes.z_slice))
@@ -316,7 +318,10 @@ class PlaneCache:
     devices: a device or a list of them; plane builds take them in turn
     (`next_slot`), and `slot(key)` is the index of the device that holds
     a target's planes. An entry may repeat: the slots still split the
-    work. `seconds` accumulates the host seconds of the cold path:
+    work. Each target's planes are checked once, at insert, and held as
+    `CheckedPlanes` with their data pointers (`entry`), from which G1's
+    pointer table is built. `seconds` accumulates the host seconds of the
+    cold path:
     "decode" (thread-pooled image decode) and "planes" (upload and device
     build; with `sync` set, the build's device work too). `host_builds`
     counts targets whose planes were built on the host (non-RGB
@@ -332,7 +337,8 @@ class PlaneCache:
         self.sync = False
         self.host_builds = 0
         self.seconds = {"decode": 0.0, "planes": 0.0}
-        self._planes: OrderedDict = OrderedDict()  # key -> (planes, slot)
+        # key -> (CheckedPlanes or None, slot)
+        self._planes: OrderedDict = OrderedDict()
         self._nbytes = 0
         self._next = 0
         # the last mask's query planes (two sets with an ROI mask) per device
@@ -357,8 +363,8 @@ class PlaneCache:
         self._next = (self._next + 1) % len(self.devices)
         return slot
 
-    def get(self, key):
-        """The planes of `key` (None if missing), refreshed as most
+    def entry(self, key):
+        """The CheckedPlanes of `key` (None if missing), refreshed as most
         recently used."""
         with self._lock:
             got = self._planes.get(key)
@@ -367,21 +373,30 @@ class PlaneCache:
             self._planes.move_to_end(key)
             return got[0]
 
+    def get(self, key):
+        """The planes of `key` (None if missing), refreshed as most
+        recently used."""
+        entry = self.entry(key)
+        return entry.planes if entry is not None else None
+
     def slot(self, key) -> int:
         """Index into `devices` of the device holding key's planes."""
         with self._lock:
             return self._planes[key][1]
 
     def insert(self, key, planes, slot: int = 0) -> None:
+        """Cache a target's planes (None for missing files), checked here
+        (CheckedPlanes raises on a plane G1 cannot read)."""
+        entry = CheckedPlanes(planes) if planes is not None else None
         with self._lock:
             old = self._planes.pop(key, None)
             self._nbytes -= _planes_nbytes(old and old[0])
-            size = _planes_nbytes(planes)
+            size = _planes_nbytes(entry)
             while self._planes and (len(self._planes) >= self.max_entries
                                     or self._nbytes + size > self.max_bytes):
                 _, evicted = self._planes.popitem(last=False)
                 self._nbytes -= _planes_nbytes(evicted[0])
-            self._planes[key] = (planes, slot)
+            self._planes[key] = (entry, slot)
             self._nbytes += size
         from ..utils.memguard import shared_guard
         shared_guard().relieve(self._evict_half, "plane-cache")
@@ -555,29 +570,28 @@ def _score_batch(part, qplanes, cache: MIPsCache, args, excluded,
                      cache, args, excluded, planes_cache)
     for m in part:
         target = m.matched_image
-        planes = None
+        entry = None
         if target is not None:
             key = target.entity_id or target.mip_id
             if key not in planes_cache:  # evicted since the prefetch
                 _prefetch_planes([target], cache, args, excluded,
                                  planes_cache)
-            planes = planes_cache.get(key)
-        if planes is None:
+            entry = planes_cache.entry(key)
+        if entry is None:
             # no negative score possible
             # (Shape2DMatchColorDepthSearchAlgorithm.java:155-158)
             m.gradient_area_gap = -1
             m.high_expression_area = -1
             continue
-        if tuple(planes.grad.shape) != want_shape:
+        if entry.shape != want_shape:
             # size mismatch vs the mask frame: skip rather than fail the
             # whole batch (per-pair failure isolation)
             LOG.warning("target %s planes %s mismatch mask frame %s — "
-                        "skipped", target.mip_id, tuple(planes.grad.shape),
-                        want_shape)
+                        "skipped", target.mip_id, entry.shape, want_shape)
             m.gradient_area_gap = -1
             m.high_expression_area = -1
             continue
-        tplanes.append(planes)
+        tplanes.append(entry)
         slots.append(planes_cache.slot(key))
         scored_matches.append(m)
     if not tplanes:
@@ -598,13 +612,12 @@ def _score_batch(part, qplanes, cache: MIPsCache, args, excluded,
         by_slot.setdefault(slot, []).append(i)
 
     def score(qp, idxs, device, mirror, flip_z=False):
+        # the entries hold their planes' tensors until the launch is
+        # queued, and their pointers are the table's
         q = planes_cache.query_on(qp, device)
-        sel = [tplanes[i] for i in idxs]
-        return shape_rows(q.q_nonzero, q.q_slice, q.q_mask, q.high_expr,
-                          [t.t_above for t in sel], [t.grad for t in sel],
-                          [t.z_nonzero for t in sel],
-                          [t.z_slice for t in sel], r0=r0, r1=r1,
-                          mirror=mirror, flip_z=flip_z)
+        return shape_rows_cached(q.q_nonzero, q.q_slice, q.q_mask,
+                                 q.high_expr, [tplanes[i] for i in idxs],
+                                 r0=r0, r1=r1, mirror=mirror, flip_z=flip_z)
 
     # every slot's launches are queued before any result is read
     queued = []

@@ -19,24 +19,32 @@
 // Integer arithmetic only: a row sum is at most 1210 x 65535 < 2^31.
 //
 // The targets' planes are not stacked: a device table holds each target's
-// four plane pointers (t_above, grad, z_nonzero, z_slice), already at the
-// band's first row, so the cache's [H, W] tensors are read where they lie.
+// four plane pointers (t_above, grad, z_nonzero, z_slice, at row 0), so the
+// cache's [H, W] tensors are read where they lie.
 //
 // Bound: the bytes. Each target pixel (6 B: grad 2, z_slice 2, z_nonzero
 // and t_above 1 each) is needed once; the query's band (5 B/px) is shared by
-// every target and comes from L2. The eager version made ~30 passes over
-// [T, R, W] int32 temporaries. Here a warp takes one row of one target and
-// walks it from both ends at once: lane l loads the pixels x and W-1-x of
-// every plane (a reversed run of addresses still falls in the same
-// sectors), which is all that the direct and the mirrored sums of both
-// pixels need, so every byte is read once, into registers, with no shared
-// memory and no barrier. The four sums are reduced with one warp REDUX each.
+// every target. The eager version made ~30 passes over [T, R, W] int32
+// temporaries. A block takes one band row and SR_WARPS targets, one per
+// warp: it stages the query's row once for its targets (so the query's
+// traffic is 1 / SR_WARPS of the targets' share) and each warp stages its
+// target's four plane rows, all with 16-byte asynchronous copies (cp.async)
+// of the aligned chunks that hold each row, into shared memory. The rows
+// are staged rather than read straight into registers because a band row
+// starts wherever the band does (1,210-byte and 2,420-byte plane rows: 2-
+// or 4-byte aligned at best) and the mirror pairs column x with W-1-x: from
+// shared memory each lane reads the pixels x and W-1-x of every plane
+// (x = lane, lane + 32, ..), which is all that the direct and the mirrored
+// sums of both pixels need, with no byte reversal. The middle column of an
+// odd width is counted once. The four sums are reduced with one warp REDUX
+// each.
 
 #include "multimask_common.cuh"
 
 namespace {
 
-constexpr int ROW_WARPS = 8;  // rows (one per warp) of a block
+constexpr int SR_WARPS = 8;  // targets of a block, one per warp
+constexpr int SR_THREADS = SR_WARPS * 32;
 constexpr int GAP_THRESHOLD = 3;
 
 struct Query {
@@ -57,40 +65,90 @@ __device__ __forceinline__ int gap(int q_nz, int q_sl, int q_mask, int z_nz,
   return g > GAP_THRESHOLD ? g : 0;
 }
 
-// Grid (row blocks, targets). table: per target the four plane pointers
-// at row r0; out: [4][T][R] int32 (gaps_id, high_id, gaps_m, high_m; the
-// last two only with mirror).
-__global__ void __launch_bounds__(ROW_WARPS * 32)
+// Shared-memory bytes of a staged row of w elements of es bytes: its
+// 16-byte chunks, one more for the row's misalignment.
+__host__ __device__ inline int row_bytes(int w, int es) {
+  return 16 * ((w * es + 15) / 16 + 1);
+}
+
+// Start the copy of the 16-byte chunks that hold nbytes from src into dst,
+// chunks k = k0, k0 + step, ..; returns where the row starts in dst.
+__device__ __forceinline__ int stage_row(unsigned char* dst, const void* src,
+                                         int nbytes, int k0, int step) {
+  const uintptr_t s = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t al = s & ~uintptr_t(15);
+  const int delta = static_cast<int>(s - al);
+  const int n = (delta + nbytes + 15) / 16;
+  for (int k = k0; k < n; k += step)
+    cms::cp_async<16>(dst + 16 * k,
+                      reinterpret_cast<const void*>(al + 16 * k));
+  return delta;
+}
+
+// Grid (band rows, target groups of SR_WARPS). table: per target the four
+// plane pointers at row 0; q: the query's planes at row 0; out: [4][T][R]
+// int32 (gaps_id, high_id, gaps_m, high_m; the last two only with mirror).
+__global__ void __launch_bounds__(SR_THREADS)
     shape_rows_kernel(const unsigned long long* __restrict__ table, Query q,
-                      int n_t, int rows, int w, int mirror, int flip_z,
-                      int* __restrict__ out) {
-  const int t = blockIdx.y;
-  const int row = blockIdx.x * ROW_WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const long long off = static_cast<long long>(row) * w;
-  const unsigned char* tab =
-      reinterpret_cast<const unsigned char*>(table[4 * t]) + off;
+                      int n_t, int r0, int rows, int w, int mirror,
+                      int flip_z, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char sr_smem[];
+  const int row = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = blockIdx.y * SR_WARPS + warp;
+  const long long off = static_cast<long long>(r0 + row) * w;
+  const int b1 = row_bytes(w, 1), b2 = row_bytes(w, 2);
+  unsigned char* q_nz = sr_smem;
+  unsigned char* q_sl = q_nz + b1;
+  unsigned char* q_mk = q_sl + b2;
+  unsigned char* q_hi = q_mk + b1;
+  unsigned char* t_ab = q_hi + b1 + warp * (2 * b1 + 2 * b2);
+  unsigned char* t_gr = t_ab + b1;
+  unsigned char* t_zn = t_gr + b2;
+  unsigned char* t_zs = t_zn + b1;
+  // the query's row, by the whole block
+  const int tid = threadIdx.x;
+  const int dq_nz = stage_row(q_nz, q.nz + off, w, tid, SR_THREADS);
+  const int dq_sl = stage_row(q_sl, q.slice + off, 2 * w, tid, SR_THREADS);
+  const int dq_mk = stage_row(q_mk, q.mask + off, w, tid, SR_THREADS);
+  const int dq_hi = stage_row(q_hi, q.high + off, w, tid, SR_THREADS);
+  // the target's rows, by its warp
+  int d_ab = 0, d_gr = 0, d_zn = 0, d_zs = 0;
+  if (t < n_t) {
+    const unsigned long long* p = table + 4 * t;
+    d_ab = stage_row(t_ab, reinterpret_cast<const unsigned char*>(p[0]) + off,
+                     w, lane, 32);
+    d_gr = stage_row(t_gr, reinterpret_cast<const short*>(p[1]) + off,
+                     2 * w, lane, 32);
+    d_zn = stage_row(t_zn, reinterpret_cast<const unsigned char*>(p[2]) + off,
+                     w, lane, 32);
+    d_zs = stage_row(t_zs, reinterpret_cast<const short*>(p[3]) + off,
+                     2 * w, lane, 32);
+  }
+  cms::cp_async_commit();
+  cms::cp_async_wait<0>();
+  __syncthreads();
+  if (t >= n_t) return;
+  const unsigned char* qnz = q_nz + dq_nz;
+  const short* qsl = reinterpret_cast<const short*>(q_sl + dq_sl);
+  const unsigned char* qmask = q_mk + dq_mk;
+  const unsigned char* qhigh = q_hi + dq_hi;
+  const unsigned char* tab = t_ab + d_ab;
   const unsigned short* grad =
-      reinterpret_cast<const unsigned short*>(table[4 * t + 1]) + off;
-  const unsigned char* znz =
-      reinterpret_cast<const unsigned char*>(table[4 * t + 2]) + off;
-  const short* zsl = reinterpret_cast<const short*>(table[4 * t + 3]) + off;
-  const unsigned char* qnz = q.nz + off;
-  const short* qsl = q.slice + off;
-  const unsigned char* qmask = q.mask + off;
-  const unsigned char* qhigh = q.high + off;
+      reinterpret_cast<const unsigned short*>(t_gr + d_gr);
+  const unsigned char* znz = t_zn + d_zn;
+  const short* zsl = reinterpret_cast<const short*>(t_zs + d_zs);
   int gaps_id = 0, high_id = 0, gaps_m = 0, high_m = 0;
   for (int a = lane; a < (w + 1) / 2; a += 32) {
     const int b = w - 1 - a;
-    const int qa_nz = __ldg(qnz + a), qb_nz = __ldg(qnz + b);
-    const int qa_sl = __ldg(qsl + a), qb_sl = __ldg(qsl + b);
-    const int qa_m = __ldg(qmask + a), qb_m = __ldg(qmask + b);
-    const int qa_h = __ldg(qhigh + a), qb_h = __ldg(qhigh + b);
-    const int ga = __ldg(grad + a), gb = __ldg(grad + b);
-    const int ta = __ldg(tab + a), tb = __ldg(tab + b);
-    int za_nz = __ldg(znz + a), zb_nz = __ldg(znz + b);
-    int za_sl = __ldg(zsl + a), zb_sl = __ldg(zsl + b);
+    const int qa_nz = qnz[a], qb_nz = qnz[b];
+    const int qa_sl = qsl[a], qb_sl = qsl[b];
+    const int qa_m = qmask[a], qb_m = qmask[b];
+    const int qa_h = qhigh[a], qb_h = qhigh[b];
+    const int ga = grad[a], gb = grad[b];
+    const int ta = tab[a], tb = tab[b];
+    int za_nz = znz[a], zb_nz = znz[b];
+    int za_sl = zsl[a], zb_sl = zsl[b];
     if (flip_z) {
       const int nz = za_nz, sl = za_sl;
       za_nz = zb_nz;
@@ -135,31 +193,38 @@ __global__ void __launch_bounds__(ROW_WARPS * 32)
 }  // namespace
 
 // host_table: 4 n_t plane pointers (t_above, grad, z_nonzero, z_slice per
-// target, each at the band's first row), copied on `stream` into
-// dev_table (4 n_t words); the query planes start at the band's first row
-// too; every plane has row stride w.
+// target, each at row 0), copied on `stream` into dev_table (4 n_t words);
+// the query planes at row 0 too; every plane has row stride w; the band is
+// rows r0 .. r0 + rows - 1.
 extern "C" int cms_shape_rows(const unsigned long long* host_table,
                               void* dev_table, int n_t, const void* q_nz,
                               const void* q_slice, const void* q_mask,
-                              const void* q_high, int rows, int w, int mirror,
-                              int flip_z, void* out, void* stream,
+                              const void* q_high, int r0, int rows, int w,
+                              int mirror, int flip_z, void* out, void* stream,
                               int device) {
   if (n_t <= 0 || rows <= 0) return 0;
-  if (w <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 3 * row_bytes(w, 1) + row_bytes(w, 2) +
+                   SR_WARPS * (2 * row_bytes(w, 1) + 2 * row_bytes(w, 2));
+  if (w <= 0 || r0 < 0 || smem > 227 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return cms::on_device(device, [&] {
-    cudaError_t err = cudaMemcpyAsync(
-        dev_table, host_table, sizeof(unsigned long long) * 4 * n_t,
-        cudaMemcpyHostToDevice, s);
+    cudaError_t err = cudaFuncSetAttribute(
+        shape_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    err = cudaMemcpyAsync(dev_table, host_table,
+                          sizeof(unsigned long long) * 4 * n_t,
+                          cudaMemcpyHostToDevice, s);
     if (err != cudaSuccess) return err;
     const Query q{static_cast<const unsigned char*>(q_nz),
                   static_cast<const short*>(q_slice),
                   static_cast<const unsigned char*>(q_mask),
                   static_cast<const unsigned char*>(q_high)};
-    const dim3 grid((rows + ROW_WARPS - 1) / ROW_WARPS, n_t);
-    shape_rows_kernel<<<grid, ROW_WARPS * 32, 0, s>>>(
-        static_cast<const unsigned long long*>(dev_table), q, n_t, rows, w,
-        mirror, flip_z, static_cast<int*>(out));
+    const dim3 grid(rows, (n_t + SR_WARPS - 1) / SR_WARPS);
+    shape_rows_kernel<<<grid, SR_THREADS, smem, s>>>(
+        static_cast<const unsigned long long*>(dev_table), q, n_t, r0, rows,
+        w, mirror, flip_z, static_cast<int*>(out));
     return cudaGetLastError();
   });
 }

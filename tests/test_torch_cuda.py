@@ -335,6 +335,81 @@ def test_dilate_rgb_equals_plain(card, radius, h, w, prologue):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mirror,flip_z", [(True, False), (False, False),
+                                           (False, True)])
+def test_shape_rows_edges_equal_plain(card, mirror, flip_z):
+    """G1 == its plain version where its design breaks: widths 1, 15, 16,
+    17, 33, 1210 and 1211 (odd widths have a middle column), bands that
+    start on odd and even rows, 1, 5, 9 and 128 targets (blocks take 8),
+    planes that are views of one stack (rows at any alignment) and tensors
+    of their own; through shape_rows and the cached-pointer
+    shape_rows_cached."""
+    from colormipsearch_torch.cds.shape_oracle import TargetShapePlanes
+    rng = np.random.default_rng(90 + 2 * mirror + flip_z)
+    cases = [(1, 1, 1, 0, 1), (5, 7, 15, 1, 6), (5, 9, 16, 2, 9),
+             (1, 6, 17, 3, 4), (128, 12, 33, 1, 12), (9, 10, 1210, 3, 9),
+             (128, 8, 1211, 2, 7), (5, 566, 1210, 0, 566)]
+    for n_t, h, w, r0, r1 in cases:
+        query, lists = _shape_planes(rng, n_t, h, w, card)
+        lists = [[p.clone() if i % 3 == 1 else p for i, p in enumerate(x)]
+                 for x in lists]
+        kw = dict(r0=r0, r1=r1, mirror=mirror, flip_z=flip_z)
+        want = sk.shape_rows_plain(*query, *lists, **kw)
+        _same(_launched(sk.shape_rows, lambda: sk.shape_rows(
+            *query, *lists, **kw)), want)
+        entries = [sk.CheckedPlanes(TargetShapePlanes(*(x[i] for x in lists)))
+                   for i in range(n_t)]
+        _same(_launched(sk.shape_rows, lambda: sk.shape_rows_cached(
+            *query, entries, **kw)), want)
+
+
+def _dilate_case(rng, radius, n_t, h, w, prologue, dev, offset=False):
+    """G2 on n_t random frames of h x w (sparse, with channels at the
+    threshold) against its plain version; with offset, the frames are a
+    view that starts one frame into a larger tensor."""
+    x = rng.integers(0, 256, (n_t + offset, h, w, 3), dtype=np.uint8)
+    x[rng.random((n_t + offset, h, w)) < 0.97] = 0
+    x[x == 19] = 20
+    x = torch.from_numpy(x).to(dev)[int(offset):]
+    excluded = (torch.from_numpy(rng.random((h, w)) < 0.2).to(dev)
+                if prologue != "none" else None)
+    thr = 20 if prologue == "excluded+thr" else None
+    got = _launched(sd.dilate_rgb, lambda: sd.dilate_rgb(
+        x, radius, excluded=excluded, thr=thr))
+    want = sd.dilate_rgb_plain(sd.dilate_input_plain(x, excluded, thr),
+                               radius)
+    assert torch.equal(got, want), (radius, n_t, h, w, prologue, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [10.0, 20.0, 60.0, 5.0, 30.0])
+@pytest.mark.parametrize("prologue", ["none", "excluded", "excluded+thr"])
+def test_dilate_rgb_edges_equal_plain(card, radius, prologue):
+    """G2 == its plain version where the compiled kernel's strips, row
+    chunks, stages and ring period break: widths 1, 15, 16, 17, 33, 1210
+    and 1211; heights 1, 7, k, 2k + 1, the ring period (21) and a stage
+    (7) +- 1, and 566; 1, 2 and 5 frames; a frame view that is not
+    16-byte aligned. The compiled radii (10, 20, 60) take the compiled
+    kernel, the others (5, 30) the generic one."""
+    from colormipsearch_torch.cds import kernels
+    from colormipsearch_torch.imageproc.filters import make_line_radii
+    import ctypes
+    ext = [int(e) for e in make_line_radii(radius)]
+    k = len(ext) // 2
+    lib = kernels.load_library("shape_planes").lib
+    words = lib.cms_dilate_plan(len(ext), (ctypes.c_int * len(ext))(*ext),
+                                1, 8, 8)
+    assert (words >= 0) == (radius in sd.compiled_footprints())
+    rng = np.random.default_rng(int(radius) * 3 + len(prologue))
+    shapes = [(1, 1, 1), (2, 7, 15), (1, k, 16), (1, 2 * k + 1, 17),
+              (5, 20, 33), (1, 21, 1211), (1, 22, 1210), (2, 6, 130),
+              (1, 8, 257), (1, 43, 131), (1, 566, 1210)]
+    for n_t, h, w in shapes:
+        _dilate_case(rng, radius, n_t, h, w, prologue, card)
+    _dilate_case(rng, radius, 2, 9, 45, prologue, card, offset=True)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("border", [0, 4])
 @pytest.mark.parametrize("use_excluded", [False, True])
 def test_query_planes_equal_plain(card, border, use_excluded):

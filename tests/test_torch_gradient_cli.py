@@ -285,3 +285,77 @@ def test_score_batch_edge_targets(tmp_path):
         gc._score_batch(matches(model, [3]), qplanes, MIPsCache(16), args,
                         None, planes_cache)
     assert planes_cache.host_builds == 1
+
+
+def test_score_batch_after_eviction(tmp_path, monkeypatch):
+    """A batch larger than the plane cache: targets evicted since the
+    prefetch are rebuilt, and the scorer gets, for each target, an entry
+    whose pointers are those of the planes it holds; the scores equal the
+    JAX command's."""
+    import argparse
+
+    from PIL import Image
+
+    from colormipsearch_tpu import model as ref_model
+    from colormipsearch_tpu.cds.shape_device import build_query_planes_device
+    from colormipsearch_tpu.cmd import gradientscores_cmd as ref_gc
+    from colormipsearch_tpu.mips import MIPsCache as RefCache
+    from colormipsearch_torch import model
+    from colormipsearch_torch.cds import shape_kernel as sk
+    from colormipsearch_torch.cmd import gradientscores_cmd as gc
+    from colormipsearch_torch.imageproc.io import image_from_array
+    from colormipsearch_torch.mips import MIPsCache
+    rng = np.random.default_rng(41)
+    h, w = 64, 96
+    query = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+    query[rng.random((h, w)) < 0.7] = 0
+    files = []
+    for i in range(5):
+        px = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        px[rng.random((h, w)) < 0.5] = 0
+        cdm, grad = tmp_path / f"t{i}.png", tmp_path / f"t{i}_g.png"
+        Image.fromarray(px).save(cdm)
+        Image.fromarray(rng.integers(0, 255, size=(h, w), dtype=np.uint8),
+                        mode="L").save(grad)
+        files.append((cdm, grad))
+    args = argparse.Namespace(maskThreshold=20, mirrorMask=True,
+                              computeZGapOnTheFly=True, targetsPerBatch=8,
+                              planes_threads=2)
+
+    def matches(pkg):
+        em = pkg.EMNeuronEntity(entity_id=1, mip_id="em")
+        out = []
+        for i, (cdm, grad) in enumerate(files):
+            lm = pkg.LMNeuronEntity(entity_id=10 + i, mip_id=f"lm-{i}")
+            lm.compute_files[pkg.ComputeFileType.InputColorDepthImage] = \
+                pkg.FileData.from_string(str(cdm))
+            lm.compute_files[pkg.ComputeFileType.GradientImage] = \
+                pkg.FileData.from_string(str(grad))
+            m = pkg.CDMatchEntity()
+            m.mask_image, m.matched_image = em, lm
+            out.append(m)
+        return out
+
+    seen = []
+    scorer = gc.shape_rows_cached
+
+    def spy(*a, **k):
+        for e in a[4]:
+            seen.append(e.ptrs.tolist() == [
+                getattr(e.planes, n).data_ptr()
+                for n in sk.TARGET_PLANE_NAMES])
+        return scorer(*a, **k)
+
+    monkeypatch.setattr(gc, "shape_rows_cached", spy)
+    qplanes = gc._build_qplanes(image_from_array(query), None, None, 0,
+                                "cpu")
+    planes_cache = gc.PlaneCache("cpu", max_entries=2)
+    got = matches(model)
+    scored = gc._score_batch(got, qplanes, MIPsCache(16), args, None,
+                             planes_cache)
+    want = matches(ref_model)
+    ref_gc._score_batch(want, build_query_planes_device(query), RefCache(16),
+                        args, None, {})
+    assert len(scored) == 5 and seen == [True] * 5 and len(planes_cache) == 2
+    assert [(m.gradient_area_gap, m.high_expression_area) for m in got] == \
+        [(m.gradient_area_gap, m.high_expression_area) for m in want]

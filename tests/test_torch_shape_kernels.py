@@ -122,6 +122,99 @@ def test_shape_rows_flip_z_equals_jax(w):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
 
 
+def _checked(lists, i):
+    from colormipsearch_torch.cds.shape_oracle import TargetShapePlanes
+    return sk.CheckedPlanes(TargetShapePlanes(*(x[i] for x in lists)))
+
+
+@pytest.mark.parametrize("mirror,flip_z", [(True, False), (False, False),
+                                           (False, True)])
+def test_shape_rows_cached_equals_jax(mirror, flip_z):
+    """The cached-pointer path (planes checked once, CheckedPlanes)
+    equals the JAX scorer, and each entry's pointers are its planes'."""
+    rng = np.random.default_rng(60 + 2 * mirror + flip_z)
+    t, h, w, r0, r1 = 5, 30, 61, 4, 27
+    query, target = _score_inputs(rng, t, h, w)
+    q = [torch.from_numpy(a) for a in query]
+    lists = _target_lists(target)
+    entries = [_checked(lists, i) for i in range(t)]
+    for i, e in enumerate(entries):
+        assert e.ptrs.tolist() == [x[i].data_ptr() for x in lists]
+        assert e.shape == (h, w) and e.device == CPU
+    got = sk.shape_rows_cached(*q, entries, r0=r0, r1=r1, mirror=mirror,
+                               flip_z=flip_z)
+    t_above, grad, z_nonzero, z_slice = (a[:, r0:r1] for a in target)
+    if flip_z:
+        z_nonzero, z_slice = z_nonzero[:, :, ::-1], z_slice[:, :, ::-1]
+    want = ref_sk.shape_score_kernel(*[a[r0:r1] for a in query], grad,
+                                     z_nonzero, z_slice, t_above,
+                                     mirror=mirror)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    for g, s in zip(got, sk.shape_rows(*q, *lists, r0=r0, r1=r1,
+                                       mirror=mirror, flip_z=flip_z)):
+        assert torch.equal(g, s)
+
+
+def test_checked_planes_refuse_what_g1_cannot_read():
+    """CheckedPlanes (the plane cache's check at insert) refuses a plane
+    of another dtype, shape or layout, as shape_rows' per-call checks
+    do."""
+    from colormipsearch_torch.cds.shape_oracle import TargetShapePlanes
+    good = [torch.zeros((6, 9), dtype=dt) for dt in sd.TARGET_PLANE_DTYPES]
+    sk.CheckedPlanes(TargetShapePlanes(*good))
+    bad = [
+        (1, torch.zeros((6, 9), dtype=torch.int32), "grad"),
+        (2, torch.zeros((6, 8), dtype=torch.bool), "z_nonzero"),
+        (3, torch.zeros((9, 6), dtype=torch.int16).t(), "z_slice"),
+        (0, torch.zeros((2, 6, 9), dtype=torch.bool), "t_above"),
+    ]
+    for i, plane, name in bad:
+        planes = list(good)
+        planes[i] = plane
+        with pytest.raises(ValueError, match=name):
+            sk.CheckedPlanes(TargetShapePlanes(*planes))
+
+
+def test_plane_cache_pointers_after_eviction():
+    """The plane cache's entries after eviction and a rebuild: a rebuilt
+    target's pointers are its new planes', an entry evicted while held
+    still holds its own planes (so a queued table never names freed
+    memory), and scoring the cache's entries equals the JAX scorer."""
+    from colormipsearch_torch.cds.shape_oracle import TargetShapePlanes
+    from colormipsearch_torch.cmd.gradientscores_cmd import PlaneCache
+    rng = np.random.default_rng(61)
+    t, h, w = 4, 20, 33
+    query, target = _score_inputs(rng, t, h, w)
+    lists = _target_lists(target)
+
+    def planes(i):  # a fresh build of target i's planes
+        return TargetShapePlanes(*(x[i].clone() for x in lists))
+
+    cache = PlaneCache("cpu", max_entries=2)
+    for i in range(t):
+        cache.insert(i, planes(i))
+    assert len(cache) == 2 and 0 not in cache
+    held = cache.entry(3)
+    cache.insert(0, planes(0))   # evicts 2
+    cache.insert(3, planes(3))   # 3 rebuilt while `held` is in use
+    assert 2 not in cache
+    fresh = cache.entry(3)
+    assert fresh is not held
+    for e in (held, fresh):
+        assert e.ptrs.tolist() == [getattr(e.planes, n).data_ptr()
+                                   for n in sk.TARGET_PLANE_NAMES]
+    assert fresh.ptrs.tolist() != held.ptrs.tolist()
+    got = sk.shape_rows_cached(*[torch.from_numpy(a) for a in query],
+                               [cache.entry(0), fresh, held], r0=0, r1=h,
+                               mirror=True)
+    pick = [0, 3, 3]
+    want = ref_sk.shape_score_kernel(*query, *(target[j][pick] for j in
+                                               (1, 2, 3, 0)), mirror=True)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+
+
 # ---- G2 --------------------------------------------------------------------
 
 def _sparse_frames(rng, t, h, w, keep=0.03):
@@ -133,11 +226,12 @@ def _sparse_frames(rng, t, h, w, keep=0.03):
     return x
 
 
-@pytest.mark.parametrize("radius", [10.0, 20.0, 60.0])
+@pytest.mark.parametrize("radius", [10.0, 20.0, 60.0, 5.0, 30.0])
 @pytest.mark.parametrize("prologue", ["none", "excluded", "excluded+thr"])
 def test_dilate_rgb_equals_jax(radius, prologue):
     """dilate_rgb, with the clearing and masking it applies to its input,
-    equals the JAX dilation of the cleared (and masked) frames."""
+    equals the JAX dilation of the cleared (and masked) frames, at the
+    compiled radii (10, 20, 60) and at two the generic kernel takes."""
     rng = np.random.default_rng(int(radius) * 7 + len(prologue))
     h, w = 66, 97
     x = _sparse_frames(rng, 2, h, w, keep=0.05)
@@ -155,6 +249,25 @@ def test_dilate_rgb_equals_jax(radius, prologue):
                                   if excluded is not None else None), thr=thr)
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(_ref_dilate(want_in, radius)))
+
+
+def test_compiled_footprints_equal_make_line_radii():
+    """G2's compiled footprints (the EXT_R<r> tables of
+    csrc/shape_planes.cu) are makeLineRadii at the radii the plane builds
+    dilate with (the query's 60 and 20, the z-gap's 10), in both
+    packages; 5 and 30 are not compiled (the generic kernel's radii in
+    the tests)."""
+    from colormipsearch_torch.imageproc.filters import make_line_radii
+    from colormipsearch_tpu.imageproc.filters import \
+        make_line_radii as ref_radii
+    got = sd.compiled_footprints()
+    assert sorted(got) == [10.0, 20.0, 60.0]
+    for radius, ext in got.items():
+        assert ext == tuple(int(e) for e in make_line_radii(radius))
+        assert ext == tuple(int(e) for e in ref_radii(radius))
+    for radius in (5.0, 30.0):
+        assert tuple(int(e) for e in make_line_radii(radius)) not in \
+            set(got.values())
 
 
 # ---- G3 --------------------------------------------------------------------
@@ -307,7 +420,8 @@ def test_stage_scores_equal_jax():
 
 def test_shape_wrappers_never_fall_back(monkeypatch, tmp_path):
     """With tensors taken for CUDA ones and no buildable kernel, each of
-    G1-G4 raises before any launch; its plain version never runs."""
+    G1-G4 raises before any launch (G1 on both its paths, per-call checks
+    and cached pointers); its plain version never runs."""
     monkeypatch.setattr(kernels, "find_nvcc", lambda: None)
     monkeypatch.setattr(kernels, "_loaded", {})
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
@@ -328,9 +442,13 @@ def test_shape_wrappers_never_fall_back(monkeypatch, tmp_path):
     frames = torch.from_numpy(_sparse_frames(rng, 2, h, w))
     rgb = frames[0]
     grad = torch.from_numpy(target[1].view(np.int16))
+    lists = _target_lists(target)
     calls = [
         (sk.shape_rows, lambda: sk.shape_rows(
-            *q, *_target_lists(target), r0=2, r1=h, mirror=True)),
+            *q, *lists, r0=2, r1=h, mirror=True)),
+        (sk.shape_rows, lambda: sk.shape_rows_cached(
+            *q, [_checked(lists, i) for i in range(2)], r0=2, r1=h,
+            mirror=True)),
         (sd.dilate_rgb, lambda: sd.dilate_rgb(frames, 20.0)),
         (sd.query_planes, lambda: sd.query_planes(rgb, None, rgb, rgb, 0)),
         (sd.target_planes, lambda: sd.target_planes(

@@ -105,9 +105,9 @@ microbench:
    exported files equal
    to the same chain's on the CPU and on per-mask JSON files; (b) at
    size, the port's script (one search block, two gradient processes on
-   the card and the store) over 256 of phase 4's masks (cut from 1024 to
-   keep the phase near 150 s) against 512 targets built from the three
-   fixtures with a gradient file (rolled and banded with their
+   the card and the store) over 128 of phase 4's masks (cut from 1024 to
+   keep the script under 600 s with phase 10) against 512 targets built
+   from the three fixtures with a gradient file (rolled and banded with their
    gradients), written as TIFF/PNG files: every stored pixel
    score equal to an in-memory `TwoPhaseSweep` on every pair, the golden
    pairs' scores and gaps, one export file per mask with a match, and
@@ -140,7 +140,24 @@ microbench:
    each equal to its CPU run on a slice, exact <= capped <= feature on
    every pair, and each bound's ms (the capped one through the kernels
    and as the dense products), survivor rate, peak memory and bound. Its
-   numbers are one JSON line `{"ingest": ...}` before the kernels line.
+   numbers are one JSON line `{"ingest": ...}` before the kernels line;
+10. the port's dress rehearsal (`python -m
+   colormipsearch_torch.scripts.dress_rehearsal`) on the card at 256 masks
+   x 1024 targets, cut in depth from its 2048 x 2048 (REHEARSAL_CUT): its
+   production-shaped library, then one process per stage over one SQLite
+   store (EM and LM ingest with grad and zgap variants, colorDepthSearch
+   --mips-storage db -ps 500, two full partitions and a ragged 24,
+   gradientScores --nBestLines 300 in four process blocks, normalize,
+   export). Every stage exits 0, every stored pixel score equals an
+   in-memory `TwoPhaseSweep` on every pair, each mask's best 300 lines
+   are gradient-scored, the gradient and normalized scores of 4 masks
+   equal a `--device cpu` run over a copy of the store, every mask with a
+   match has one export file, and the launches each command logs show the
+   bound's two kernels and K1 (not K3a) in colorDepthSearch and G1-G4 in
+   the gradient blocks, G2 twice per query (r = 60, 20) and never at r =
+   10. Each stage's seconds and peak RSS, the device stages' peak device
+   memory, pairs/s, gradient matches/s, the store's bytes and counts are
+   one JSON line `{"rehearsal": ...}` before the kernels line.
 
 `python3 chip_smoke.py --profile DIR` adds a torch.profiler round of the
 phase-4 ratio sweep: device busy share, the bound's (its two kernels
@@ -2161,18 +2178,6 @@ def pipeline_chain(ws, out, device, backend):
     return file_tree(export)
 
 
-def path_kernels():
-    """{name: wrapper} of the kernels the production pipeline can launch:
-    colorDepthSearch's exact kernels of both predicates and the bound's
-    two, and gradientScores' four (G1-G4)."""
-    from colormipsearch_torch.cds import multimask as mm
-    from colormipsearch_torch.cds import prescreen as ps
-    return {"multimask_ratio": mm.PREDICATE_KERNELS["ratio"][0],
-            "multimask_words": mm.PREDICATE_KERNELS["words"][0],
-            "prescreen_cells": ps.prescreen_cells,
-            "prescreen_capped": ps.prescreen_capped, **shape_wrappers()}
-
-
 def ran_shape_path(launches):
     """gradientScores ran through G1-G4."""
     return all(launches[k] > 0 for k in SHAPE_KERNELS)
@@ -2195,10 +2200,11 @@ def phase_pipeline_fixtures(ws):
     from colormipsearch_torch.dataio import DataSourceParam
     from colormipsearch_torch.dataio.db import (DBNeuronMatchesReader,
                                                 SqliteStore)
+    from colormipsearch_torch.cds import kernels
     root = os.path.join(ws, "pipeline")
     seconds = {}
     t0 = time.perf_counter()
-    counters = path_kernels()
+    counters = kernels.path_wrappers()
     for fn in counters.values():
         fn.launches = 0
     exported = pipeline_chain(ws, os.path.join(root, "cuda_sqlite"), "cuda",
@@ -2380,11 +2386,14 @@ def store_columns(db, columns):
 
 
 # phase 8b ran far over ~150 s at 1024 masks, held back by the serial
-# prescreen query features of the command (PERF.md, section 5): cut to 256
-PIPELINE_CUT = "masks cut from 1024 to 256: phase 8b ran over ~150 s at 1024"
+# prescreen query features of the command (PERF.md, section 5): cut to
+# 256, then to 128 when phase 10 brought the script to 593 s at 256 (an
+# H100 80GB HBM3 at 700 W)
+PIPELINE_CUT = ("masks cut from 1024 to 128: phase 8b ran over ~150 s at "
+                "1024, and the script with phase 10 came to 593 s at 256")
 
 
-def phase_pipeline_at_size(ws, dev, library, n_masks=256, n_targets=512,
+def phase_pipeline_at_size(ws, dev, library, n_masks=128, n_targets=512,
                            cut=PIPELINE_CUT):
     """(b) The port's run_full_precompute.sh at size: phase 4's masks
     against targets built from the gradient fixtures, one search block and
@@ -2680,6 +2689,7 @@ def phase_ingest(ws, device="cuda"):
     and the rows deleted equal to the same chain's on the CPU over a copy
     of the same ingested store."""
     import shutil
+    from colormipsearch_torch.cds import kernels
     root = os.path.join(ws, "ingest")
     t0 = time.perf_counter()
     lists = ingest_lists(root)
@@ -2698,7 +2708,7 @@ def phase_ingest(ws, device="cuda"):
         croot = os.path.join(root, f"chain{i}-{dev}")
         os.makedirs(croot)
         shutil.copy(os.path.join(root, "nb.db"), croot)  # the same lists
-        counters = path_kernels()
+        counters = kernels.path_wrappers()
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
@@ -2902,6 +2912,237 @@ def phase_bounds_at_size(checks, dev, library, n_cpu=4):
     return report
 
 
+# ---- phase 10 --------------------------------------------------------------
+
+REHEARSAL = "colormipsearch_torch.scripts.dress_rehearsal"
+# the rehearsal's own size is 2048 masks x 2048 targets (its run at that
+# size: PERF.md section 5); here cut in depth so that the whole script
+# stays under 600 s, keeping both 500-target partitions and a ragged one
+REHEARSAL_CUT = ("masks x targets cut from 2048 x 2048 to 256 x 1024 (two "
+                 "500-target partitions and a ragged 24): the whole script "
+                 "stays under 600 s")
+# the gradientScores arguments of the rehearsal's process blocks
+REHEARSAL_GA = ["--maskThreshold", "20", "--mirrorMask", "--nBestLines",
+                "300", "--targetsPerBatch", "128", "--processing-tag",
+                "rehearsal-ga"]
+REHEARSAL_STAGES = ("import_em", "import_lm", "cds", "normalize", "export")
+
+
+def rehearsal_store(db):
+    """(names by entity id: (library, index of its file), rows by (mask
+    index, target index): (pixels, mirrored, gap, high expression area,
+    normalized score), mask ids by index) of the rehearsal's store."""
+    import sqlite3
+    con = sqlite3.connect(db)
+    try:
+        neurons = con.execute("SELECT entity_id, mip_id, library_name, "
+                              "published_name FROM neuron_metadata").fetchall()
+        matches = con.execute(
+            "SELECT mask_ref, matched_ref, matching_pixels, mirrored, "
+            "gradient_area_gap, high_expression_area, normalized_score FROM "
+            "cd_matches").fetchall()
+    finally:
+        con.close()
+    # EM published names are 90000000 + i, LM ones LINE<i:05d>
+    index = {eid: int(pub[4:]) if lib == "flylight_rehearsal"
+             else int(pub) - 90000000 for eid, _, lib, pub in neurons}
+    mip_ids = {int(pub) - 90000000: mip for _, mip, lib, pub in neurons
+               if lib == "flyem_rehearsal"}
+    rows = {(index[m], index[t]): (p, bool(mir), *rest)
+            for m, t, p, mir, *rest in matches}
+    return rows, mip_ids
+
+
+def stage_log(root, stage):
+    with open(os.path.join(root, f"{stage}.log")) as f:
+        return f.read().splitlines()
+
+
+def logged_launches(lines):
+    """The kernel launches a command logged at its end (its process's)."""
+    found = [json.loads(ln.split("kernel launches ", 1)[1])
+             for ln in lines if "kernel launches " in ln]
+    if len(found) != 1:
+        raise SystemExit(f"expected one kernel launch line, found "
+                         f"{len(found)}")
+    return found[0]
+
+
+def phase_rehearsal(ws, dev, n_masks=256, n_targets=1024, cut=REHEARSAL_CUT,
+                    n_sample=4):
+    """The port's dress rehearsal on the card: the library generator, then
+    each stage as its own process over one SQLite store (ingest of the EM
+    and the LM library with its grad and zgap variants, colorDepthSearch
+    --mips-storage db -ps 500, gradientScores --nBestLines 300 in four
+    process blocks, normalize, export). Every stage exits 0; every stored
+    pixel score equals an in-memory TwoPhaseSweep of the same files on
+    every pair; the gradient and normalized scores of n_sample masks equal
+    a --device cpu run over a copy of the store; every mask with a match
+    has one export file; colorDepthSearch launched the bound's two kernels
+    and K1 and not K3a, the gradient blocks G1-G4, G2 twice per query
+    (r = 60 and 20; the z-gap files leave r = 10 out), as each command
+    logs its own process's launches."""
+    import sqlite3
+    from collections import Counter
+    import torch
+    from colormipsearch_torch.cds.pixel_active import ActiveTilePixelEngine
+    from colormipsearch_torch.cds.prescreen import PairPrescreen
+    from colormipsearch_torch.parallel.twophase_sweep import TwoPhaseSweep
+    root = os.path.join(ws, "rehearsal")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("CMS_")}
+    t0 = time.perf_counter()
+    rc, lines = run_logged([sys.executable, "-m", REHEARSAL, root, "--masks",
+                            str(n_masks), "--targets", str(n_targets)], env,
+                           os.path.join(ws, "rehearsal.log"), timeout=600)
+    report = {"masks": n_masks, "targets": n_targets, "frame": [566, 1210],
+              "cut": cut, "script_s": round(time.perf_counter() - t0, 2)}
+    if rc != 0:
+        raise SystemExit(f"the rehearsal exited {rc}:\n" + "\n".join(
+            ln for _, ln in lines[-60:]))
+    with open(os.path.join(root, "rehearsal.json")) as f:
+        done = json.load(f)
+    blocks = [f"ga_b{b}" for b in range(done["ga"]["blocks"])]
+    failed = [s for s in (*REHEARSAL_STAGES, *blocks) if done[s]["rc"] != 0]
+    if failed:
+        raise SystemExit(f"rehearsal stages failed: {failed}")
+    report["stages"] = {s: {k: done[s][k] for k in ("wall_s", "peak_rss_gb")}
+                        for s in (*REHEARSAL_STAGES, *blocks)}
+    report["generate_s"] = done["generate"]["wall_s"]
+    report["library_bytes"] = done["generate"]["library_bytes"]
+    for key in ("store_bytes", "matches_written", "ga_matches_scored"):
+        report[key] = done[key]
+    report["cds_pairs_per_s"] = done["cds"]["pairs_per_s"]
+    report["ga_s"] = done["ga"]["wall_s"]
+    report["ga_matches_per_s"] = done["ga"]["matches_per_s"]
+    report["export_files"] = done["export"]["files_written"]
+    cds_lines = stage_log(root, "cds")
+    report["cds_command_s"] = log_numbers(
+        r"found \d+ matches \(\d+ masks\) in ([\d.]+)s", cds_lines)[0][0]
+    report["cds_prep_s"] = log_numbers(
+        r"prepared \d+ mask engines in ([\d.]+)s", cds_lines)[0][0]
+    report["cds_stage_times"] = next(
+        json.loads(ln.split("stage times: ", 1)[1].replace("'", '"'))
+        for ln in cds_lines if "stage times: " in ln)
+    report["peak_device_gib"] = {
+        s: log_numbers(r"peak device memory ([\d.]+) GiB",
+                       stage_log(root, s))[0][0] for s in ("cds", *blocks)}
+    # the kernels each device stage's process launched
+    launches = {s: logged_launches(stage_log(root, s))
+                for s in ("cds", *blocks)}
+    report["launches"] = launches
+    ga = {k: sum(launches[b][k] for b in blocks) for k in launches["cds"]}
+    if not ran_k1_path(launches["cds"]) or any(
+            launches["cds"][k] for k in SHAPE_KERNELS):
+        raise SystemExit(f"colorDepthSearch did not run through the bound's "
+                         f"kernels and K1 alone: {launches['cds']}")
+    if not ran_shape_path(ga) or any(
+            launches[b]["dilate_rgb"] != 2 * launches[b]["query_planes"]
+            or launches[b]["multimask_ratio"] or launches[b]["prescreen_cells"]
+            for b in blocks):
+        raise SystemExit(f"the gradient blocks did not run through G1-G4 "
+                         f"with G2 at the query's two radii alone: "
+                         f"{launches}")
+    db = os.path.join(root, "store.db")
+    stored, mip_ids = rehearsal_store(db)
+    masked = sorted({i for i, _ in stored})
+    if ga["query_planes"] != len(masked):
+        raise SystemExit(f"{ga['query_planes']} query plane builds for "
+                         f"{len(masked)} masks with a match")
+    # the same files in memory through the CLI's engines, 500 per partition
+    t0 = time.perf_counter()
+    masks = [load_rgb(os.path.join(root, "ems", n))
+             for n in sorted(os.listdir(os.path.join(root, "ems")))]
+    lm_names = sorted(os.listdir(os.path.join(root, "lms")))
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        targets = np.stack(list(pool.map(
+            lambda n: load_rgb(os.path.join(root, "lms", n)), lm_names)))
+        h, w = masks[0].shape[:2]
+        excluded = label_regions(h, w)
+        engines = list(pool.map(
+            lambda m: ActiveTilePixelEngine(m, 20, True, 20, 1.0, 2,
+                                            excluded), masks))
+        screen = PairPrescreen(engines[0].zt9, 2, h, w)
+        u_matrix = np.stack(list(pool.map(
+            lambda e: screen.query_features(e.planes.words), engines)))
+    q = np.array([e.tiles.query_size for e in engines])
+    thr = np.maximum(0.01 * q, 0.5)
+    sweep = TwoPhaseSweep(engines, [dev], screen, u_matrix, thr)
+    swept = list(sweep.sweep_parts(
+        (i, targets[i:i + 500]) for i in range(0, n_targets, 500)))
+    torch.cuda.synchronize(dev)
+    scores = np.concatenate([s for _, s, _ in swept], axis=1)
+    mirrored = np.concatenate([m for _, _, m in swept], axis=1)
+    report["reference_sweep_s"] = round(time.perf_counter() - t0, 2)
+    want = (scores > 0) & (scores / np.maximum(q, 1)[:, None] > 0.01)
+    expected = {(int(i), int(t)): (int(scores[i, t]), bool(mirrored[i, t]))
+                for i, t in zip(*np.nonzero(want))}
+    got = {pair: row[:2] for pair, row in stored.items()}
+    exported = sorted(os.listdir(os.path.join(root, "export")))
+    with_rows = sorted(f"{mip_ids[i]}.json" for i in masked)
+    # nBestLines 300: each mask's 300 best lines (one per target here)
+    per_mask = Counter(i for i, _ in stored)
+    scored = Counter(i for (i, _), row in stored.items() if row[2] is not None)
+    unscored = [i for i in masked if scored[i] != min(per_mask[i], 300)]
+    log(f"[phase 10] the rehearsal, {n_masks} masks x {n_targets} targets: "
+        f"{len(stored)} rows stored == an in-memory TwoPhaseSweep on every "
+        f"pair: {got == expected}; {len(exported)} export files for "
+        f"{len(masked)} masks with a match; {sum(scored.values())} rows "
+        f"gradient-scored, at most 300 per mask: {not unscored}; kernel "
+        f"launches {launches}")
+    if got != expected:
+        raise SystemExit(f"the stored pixel scores differ from the sweep's: "
+                         f"{len(got)} rows, {len(expected)} expected")
+    if exported != with_rows:
+        raise SystemExit("the export files do not match the masks with "
+                         "matches")
+    if unscored or report["ga_matches_scored"] != sum(scored.values()):
+        raise SystemExit(f"the gradient blocks did not score each mask's "
+                         f"best 300 lines: masks {unscored[:10]}")
+    # n_sample masks spread over those with a match, scored again on the
+    # CPU (the plain versions) over a copy of the store whose gradient and
+    # normalized scores of those masks are cleared first
+    sample = masked[::max(1, len(masked) // n_sample)][:n_sample]
+    ids = [mip_ids[i] for i in sample]
+    cpu_db = os.path.join(root, "cpu.db")
+    src, dst = sqlite3.connect(db), sqlite3.connect(cpu_db)
+    try:
+        src.backup(dst)
+        refs = dst.execute(
+            f"SELECT entity_id FROM neuron_metadata WHERE mip_id IN "
+            f"({','.join('?' * len(ids))})", ids).fetchall()
+        with dst:
+            dst.execute(
+                f"UPDATE cd_matches SET gradient_area_gap = NULL, "
+                f"high_expression_area = NULL, normalized_score = NULL, doc = "
+                f"json_remove(doc, '$.gradientAreaGap', "
+                f"'$.highExpressionArea', '$.normalizedScore') WHERE "
+                f"mask_ref IN ({','.join('?' * len(refs))})",
+                [r[0] for r in refs])
+    finally:
+        src.close()
+        dst.close()
+    t0 = time.perf_counter()
+    run_cli(["gradientScores", "--db", cpu_db, *REHEARSAL_GA,
+             "--masks-mip-ids", *ids, "--device", "cpu"])
+    run_cli(["normalizeGradientScores", "--db", cpu_db, "--masks-mip-ids",
+             *ids])
+    report["cpu_sample_s"] = round(time.perf_counter() - t0, 2)
+    cpu_rows, _ = rehearsal_store(cpu_db)
+    picked = {k: v for k, v in stored.items() if k[0] in sample}
+    same = {k: cpu_rows[k] for k in picked} == picked
+    report["cpu_sample"] = {"masks": sample, "rows": len(picked)}
+    log(f"[phase 10] gradient and normalized scores of masks {sample} "
+        f"({len(picked)} rows) == a --device cpu run over a copy of the "
+        f"store: {same} ({report['cpu_sample_s']}s)")
+    if not same or not picked:
+        raise SystemExit("the card's gradient or normalized scores differ "
+                         "from the CPU's")
+    log(f"[phase 10] " + json.dumps({k: report[k] for k in (
+        "stages", "cds_pairs_per_s", "ga_matches_per_s", "peak_device_gib",
+        "store_bytes", "matches_written", "ga_matches_scored")}))
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -2962,6 +3203,10 @@ def main():
             f"{ingest['phase_s']}s")
         for name, measured in ingest["bounds"]["kernels"].items():
             timing[name].update(measured)
+        t10 = time.perf_counter()
+        rehearsal = phase_rehearsal(ws, dev)
+        rehearsal["phase_s"] = round(time.perf_counter() - t10, 2)
+        log(f"[phase 10] the rehearsal on the card in {rehearsal['phase_s']}s")
     for name, check in checks.items():
         timing[name]["max_abs_err"] = check.max_abs_err
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f}s")
@@ -2970,6 +3215,7 @@ def main():
     print(json.dumps({"scale_out": scale_out}))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"ingest": ingest}))
+    print(json.dumps({"rehearsal": rehearsal}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: timing[name][k] for k in (

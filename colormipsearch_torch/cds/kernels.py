@@ -118,6 +118,27 @@ _locks = {name: threading.Lock() for name in LIBRARIES}
 _loaded: Dict[str, KernelLibrary] = {}
 
 
+def path_wrappers() -> Dict[str, object]:
+    """{kernel: wrapper} of every kernel the production pipeline can
+    launch: colorDepthSearch's exact kernels of both predicates and the
+    prescreen bound's two, and gradientScores' four (G1-G4). Each
+    wrapper's `.launches` counts its kernel's launches in this process."""
+    from . import multimask, prescreen, shape_device, shape_kernel
+    return {"multimask_ratio": multimask.multimask_counts,
+            "multimask_words": multimask.multimask_words_counts,
+            "prescreen_cells": prescreen.prescreen_cells,
+            "prescreen_capped": prescreen.prescreen_capped,
+            "shape_rows": shape_kernel.shape_rows,
+            "dilate_rgb": shape_device.dilate_rgb,
+            "query_planes": shape_device.query_planes,
+            "target_planes": shape_device.target_planes}
+
+
+def launch_counts() -> Dict[str, int]:
+    """{kernel: launches in this process} of path_wrappers()."""
+    return {name: fn.launches for name, fn in path_wrappers().items()}
+
+
 def find_nvcc() -> Optional[str]:
     found = shutil.which("nvcc")
     if found:

@@ -59,6 +59,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import getpass
+import json
 import logging
 import os
 import signal
@@ -68,6 +69,7 @@ from typing import List
 
 import numpy as np
 
+from ..cds import kernels
 from ..cds.oracle import shift_ring_offsets
 from ..cds.pixel_kernel import (pack_targets, prepare_query_planes,
                                 z_tolerance_to_zt9)
@@ -566,6 +568,7 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
     peak = peak_memory_gib(devices)
     if peak is not None:
         LOG.info("peak device memory %.3f GiB", peak)
+    LOG.info("kernel launches %s", json.dumps(kernels.launch_counts()))
     return 0
 
 

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import os
 import signal
@@ -51,7 +52,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..cds import shape_device
+from ..cds import kernels, shape_device
 from ..cds.shape_kernel import (CheckedPlanes, finish_shape_scores,
                                 shape_rows_cached)
 from ..cds.shape_oracle import (QueryShapePlanes, TargetShapePlanes,
@@ -269,6 +270,7 @@ def run(args: argparse.Namespace) -> int:
     peak = peak_memory_gib(devices)
     if peak is not None:
         LOG.info("peak device memory %.3f GiB", peak)
+    LOG.info("kernel launches %s", json.dumps(kernels.launch_counts()))
     return 0
 
 

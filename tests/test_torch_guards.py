@@ -50,7 +50,7 @@ def test_port_imports_no_jax():
     for name in ("ppp", "ppp.raw_reader", "cmd.mipstores",
                  "cmd.createdatainput_cmd", "cmd.copymips_cmd",
                  "cmd.importppp_cmd", "cmd.tag_cmd", "cmd.validate_cmd",
-                 "cmd.delete_cmd"):
+                 "cmd.delete_cmd", "scripts.dress_rehearsal"):
         assert f"colormipsearch_torch.{name}" in walked, name
 
 

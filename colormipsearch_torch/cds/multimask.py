@@ -40,6 +40,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import kernels
 from .oracle import shift_ring_offsets
 from .pixel_active import (POS_SHIFT, TILE_H, TILE_W, DeferredScore,
@@ -396,8 +397,9 @@ def signal_ranges_from_words(words: torch.Tensor) -> np.ndarray:
     extents per packed target frame (raw-frame coordinates); (0, -1) for
     empty targets."""
     r, c = _sel_any_rowcol(words)
-    return np.concatenate([_first_last(r.cpu().numpy() > 0),
-                           _first_last(c.cpu().numpy() > 0)], axis=1)
+    with trace.span("sweep.wait"):
+        r, c = r.cpu().numpy(), c.cpu().numpy()
+    return np.concatenate([_first_last(r > 0), _first_last(c > 0)], axis=1)
 
 
 def _tile_live_dev(words: torch.Tensor, gh: int, gw: int):
@@ -424,7 +426,8 @@ def tile_live_from_words(words: torch.Tensor) -> tuple:
     neighbourhood that every shift of the tile at (ty, tx) samples?"""
     _, h, w = words.shape
     d, m = _tile_live_dev(words, -(-h // TILE_H), -(-w // TILE_W))
-    return d.cpu().numpy(), m.cpu().numpy()
+    with trace.span("sweep.wait"):
+        return d.cpu().numpy(), m.cpu().numpy()
 
 
 # ---- the scorer ----------------------------------------------------------
@@ -628,7 +631,8 @@ class MultiMaskScorer:
                              f"do not fit masks padded to {self.frame_shape}")
         tsz = packed[0].shape[0]
         surv_np = np.asarray(survivors).astype(np.int32)
-        tab = self.build_table(surv_np, signal_ranges, tile_live)
+        with trace.span("sweep.table"):
+            tab = self.build_table(surv_np, signal_ranges, tile_live)
         out = self.counts(self.kernel_args(packed, tab))
         pendings = [[] for _ in self.engines]
         for pos, (rows, dest) in tab.spans.items():

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..native.mipops import sparse_pack_block
+from ..utils import trace
 from .exact_ratio import c9_split
 from .oracle import shift_ring_offsets
 from .pixel_kernel import (PAIR_K9, QueryPlanes, prepare_query_planes,
@@ -561,7 +562,9 @@ def _to_host(tensors):
         by_dev.setdefault(t.device, []).append(i)
     hosts = [None] * len(tensors)
     for idxs in by_dev.values():
-        flat = torch.cat([tensors[i].reshape(-1) for i in idxs]).cpu().numpy()
+        flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
+        with trace.span("sweep.wait"):
+            flat = flat.cpu().numpy()
         off = 0
         for i in idxs:
             n = tensors[i].numel()

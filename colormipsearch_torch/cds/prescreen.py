@@ -69,6 +69,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import kernels
 from .multimask import _check, _on_cuda
 from .oracle import shift_ring_offsets
@@ -739,4 +740,6 @@ class PairPrescreen:
                 else sparse_query_rows(u_matrix)).to(t_words.device)
         bits, cnt = prescreen_cells(t_words, self.zt9, self.offsets,
                                     self.grid_hw)
-        return prescreen_capped(rows, bits, cnt).cpu().numpy()
+        bounds = prescreen_capped(rows, bits, cnt)
+        with trace.span("sweep.wait"):
+            return bounds.cpu().numpy()

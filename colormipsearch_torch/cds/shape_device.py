@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..imageproc.filters import make_line_radii
+from ..utils import trace
 from . import kernels
 from .lut import slice_number_table
 from .multimask import _check, _on_cuda
@@ -362,23 +363,23 @@ def build_target_plane_sets(cdm, grad, zgap, excluded, *, thr: int,
 
     Arrays are uploaded to `device`. Returns [(t_above bool, grad int16,
     z_nonzero bool, z_slice int16)], each [H, W], one per target: the
-    planes of shape_oracle.build_target_shape_planes (G4). Counted as a
-    call of build_target_planes.
+    planes of shape_oracle.build_target_shape_planes (G4). The uploads
+    are the span ga.upload.
     """
-    build_target_planes.calls += 1
-    cdm = _as_tensor(cdm, device)
-    grad = _as_tensor(grad, device)
+    if zgap_mode not in ("file", "otf"):
+        raise ValueError(f"unknown zgap_mode {zgap_mode!r}")
+    with trace.span("ga.upload"):
+        cdm = _as_tensor(cdm, device)
+        grad = _as_tensor(grad, device)
+        ex = _as_tensor(excluded, device) if excluded is not None else None
+        if zgap_mode == "file":
+            z_rgb = _as_tensor(zgap, device)
     if not grad_is_rgb and grad.dtype != torch.int16:
         raise ValueError(f"a gray gradient must be a uint16 array or an "
                          f"int16 tensor of its bits, not {grad.dtype}")
-    ex = _as_tensor(excluded, device) if excluded is not None else None
-    if zgap_mode == "file":
-        z_rgb = _as_tensor(zgap, device)
-    elif zgap_mode == "otf":
+    if zgap_mode == "otf":
         # compute_zgap_image: clearRegions -> maskRGB(thr) -> dilate(10)
         z_rgb = dilate_rgb(cdm, 10.0, excluded=ex, thr=thr)
-    else:
-        raise ValueError(f"unknown zgap_mode {zgap_mode!r}")
     return target_planes(cdm, grad, z_rgb, ex, thr=thr,
                          grad_is_rgb=grad_is_rgb)
 
@@ -395,9 +396,6 @@ def build_target_planes(cdm, grad, zgap, excluded, *, thr: int,
     if not sets:
         raise ValueError("no target frames")
     return tuple(torch.stack(p) for p in zip(*sets))
-
-
-build_target_planes.calls = 0
 
 
 def query_planes_plain(rgb, excluded, d60, d20, border: int):
@@ -476,19 +474,17 @@ def build_query_planes(rgb, excluded=None, border: int = 0, *,
       q_nonzero = any-channel > 0; q_slice = depth-slice LUT
     then the border frame on q_nonzero and q_mask: two G2 dilations of
     the cleared frame, then G3. The planes stay on the device; only the
-    [H] active-rows vector comes to the host. ROI-mask runs keep the
-    host path (`shape_oracle`)."""
-    build_query_planes.calls += 1
+    [H] active-rows vector comes to the host (its wait is the span
+    ga.wait). ROI-mask runs keep the host path (`shape_oracle`)."""
     rgb = _as_tensor(rgb, device)
     ex = _as_tensor(excluded, device) if excluded is not None else None
     d60 = dilate_rgb(rgb[None], 60.0, excluded=ex)[0]
     d20 = dilate_rgb(rgb[None], 20.0, excluded=ex)[0]
     q_nonzero, q_slice, q_mask, high_expr, row_any = query_planes(
         rgb, ex, d60, d20, border)
+    with trace.span("ga.wait"):
+        row_any = row_any.cpu().numpy()
     return QueryShapePlanes(
         q_nonzero=q_nonzero, q_slice=q_slice, q_mask=q_mask,
         high_expr=high_expr, height=int(rgb.shape[0]),
-        width=int(rgb.shape[1]), row_any=row_any.cpu().numpy())
-
-
-build_query_planes.calls = 0
+        width=int(rgb.shape[1]), row_any=row_any)

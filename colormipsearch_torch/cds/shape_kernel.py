@@ -29,6 +29,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import kernels
 from .multimask import _on_cuda
 from .shape_device import QUERY_PLANE_DTYPES, TARGET_PLANE_DTYPES, grad_values
@@ -261,7 +262,6 @@ def shape_score_rows(q_nonzero, q_slice, q_mask, high_expr,
     score_rows_plain on the CPU, G1 over the stack's [R, W] slices on a
     card. Returns per-ROW int32 sums [T, R] for (gaps_id, high_id,
     gaps_m, high_m)."""
-    shape_score_rows.calls += 1
     stacked = (t_above, grad, z_nonzero, z_slice)
     if not _on_cuda([q_nonzero, q_slice, q_mask, high_expr, *stacked]):
         return score_rows_plain(q_nonzero, q_slice, q_mask, high_expr,
@@ -272,9 +272,6 @@ def shape_score_rows(q_nonzero, q_slice, q_mask, high_expr,
                       r0=0, r1=q_nonzero.shape[0], mirror=mirror)
 
 
-shape_score_rows.calls = 0
-
-
 def shape_score_stacked(q_nonzero, q_slice, q_mask, high_expr,
                         t_above_list: Sequence[torch.Tensor],
                         grad_list: Sequence[torch.Tensor],
@@ -282,9 +279,7 @@ def shape_score_stacked(q_nonzero, q_slice, q_mask, high_expr,
                         zsl_list: Sequence[torch.Tensor],
                         *, r0: int, r1: int, mirror: bool):
     """Score the targets' [H, W] planes in the query's active row band
-    [r0, r1) (counterpart of `shape_score_stacked`): shape_rows, counted
-    as a call of shape_score_rows."""
-    shape_score_rows.calls += 1
+    [r0, r1) (counterpart of `shape_score_stacked`): shape_rows."""
     return shape_rows(q_nonzero, q_slice, q_mask, high_expr, t_above_list,
                       grad_list, znz_list, zsl_list, r0=r0, r1=r1,
                       mirror=mirror)
@@ -298,7 +293,9 @@ def finish_shape_scores(gaps_id, high_id, gaps_m, high_m, mirror: bool):
     (gaps, high, score) and bool use_m, each [T]."""
     rows = [torch.as_tensor(x) for x in (gaps_id, high_id, gaps_m, high_m)]
     totals = torch.stack([x.to(torch.int64).sum(dim=1) for x in rows])
-    gaps_id, high_id, gaps_m, high_m = totals.cpu().numpy()
+    with trace.span("ga.wait"):
+        totals = totals.cpu().numpy()
+    gaps_id, high_id, gaps_m, high_m = totals
     score_id = gaps_id + high_id // 3
     if not mirror:
         return gaps_id, high_id, score_id, np.zeros(len(gaps_id), dtype=bool)

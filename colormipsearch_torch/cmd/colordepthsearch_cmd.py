@@ -82,6 +82,7 @@ from ..model import (CDMatchEntity, CDSSessionEntity, ComputeFileType,
                      ProcessingType)
 from ..persist import TimebasedIdGenerator
 from ..results import partition_collection
+from ..utils import trace
 from .args import (ListArg, add_cds_params, add_common_args, check_grid,
                    excluded_regions_for)
 from .backends import get_store, matches_writer
@@ -406,11 +407,12 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
             args.dataThreshold, args.pixColorFluctuation, args.xyShift,
             excluded, predicate))
 
-    t_prep = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=os.cpu_count() or 2) as pool:
+    prep_s = {}
+    with trace.timed("cds.prep", prep_s, "prep"), \
+            ThreadPoolExecutor(max_workers=os.cpu_count() or 2) as pool:
         prepared = [p for p in pool.map(prep_one, masks) if p is not None]
     LOG.info("prepared %d mask engines in %.1fs", len(prepared),
-             time.perf_counter() - t_prep)
+             prep_s["prep"])
     if not prepared:
         return 0
     query_sizes = [qp.query_size if dense else qp.tiles.query_size
@@ -449,14 +451,15 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
         pending = None
         failed = []
         for pi, part in enumerate(target_parts):
-            t0 = time.perf_counter()
-            if pending is None:
-                t_imgs, t_entities, t_failed = decode(part)
-            else:
-                t_imgs, t_entities, t_failed = pending.result()
-            if pi + 1 < len(target_parts):
-                pending = prefetcher.submit(decode, target_parts[pi + 1])
-            stage_totals["decode"] += time.perf_counter() - t0
+            with trace.timed("cds.decode", stage_totals, "decode"):
+                if pending is None:
+                    t_imgs, t_entities, t_failed = decode(part)
+                else:
+                    with trace.span("cds.decode.wait"):
+                        t_imgs, t_entities, t_failed = pending.result()
+                if pi + 1 < len(target_parts):
+                    pending = prefetcher.submit(decode,
+                                                target_parts[pi + 1])
             failed.extend(t_failed)
             if t_imgs:
                 yield (t_entities, failed), np.stack(t_imgs)
@@ -472,11 +475,10 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
         nonlocal flushed
         if writes and args.db and args.write_batch_size > 0 \
                 and len(all_matches) - flushed >= args.write_batch_size:
-            t0 = time.perf_counter()
-            matches_writer(args.db, None,
-                           update_scores_only=args.update_matches).write(
-                all_matches[flushed:])
-            stage_totals["write"] += time.perf_counter() - t0
+            with trace.timed("cds.write", stage_totals, "write"):
+                matches_writer(args.db, None,
+                               update_scores_only=args.update_matches).write(
+                    all_matches[flushed:])
             flushed = len(all_matches)
             _test_kill_hook()
 
@@ -486,15 +488,14 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
     else:
         screen = u_matrix = thresholds = None
         if args.prescreen == "on":
-            t0 = time.perf_counter()
-            first = prepared[0][1]
-            screen = PairPrescreen(zt9, args.xyShift, first.tiles.height,
-                                   first.tiles.width)
-            u_matrix = np.stack([screen.query_features(eng.planes.words)
-                                 for _, eng in prepared])
-            thresholds = np.array(
-                [max(ratio_threshold * q, 0.5) for q in query_sizes])
-            stage_totals["features"] = time.perf_counter() - t0
+            with trace.timed("cds.features", stage_totals, "features"):
+                first = prepared[0][1]
+                screen = PairPrescreen(zt9, args.xyShift, first.tiles.height,
+                                       first.tiles.width)
+                u_matrix = np.stack([screen.query_features(eng.planes.words)
+                                     for _, eng in prepared])
+                thresholds = np.array(
+                    [max(ratio_threshold * q, 0.5) for q in query_sizes])
         sweep = TwoPhaseSweep([eng for _, eng in prepared], devices, screen,
                               u_matrix, thresholds)
         # pipelined: partition p+1 is launched before p's matches are built
@@ -505,59 +506,58 @@ def _search(args: argparse.Namespace, devices, multi: bool) -> int:
 
     try:
         for (t_entities, failed), scores, mirrored in scored:
-            t0 = time.perf_counter()
-            record_pair_errors(failed)
-            for bi, (mask, _) in enumerate(prepared):
-                query_size = query_sizes[bi]
-                qsize = max(query_size, 1)
-                for ti, target in enumerate(t_entities):
-                    pixels = int(scores[bi, ti]) if query_size else 0
-                    ratio = pixels / qsize if query_size else 0.0
-                    # isMatch (ColorMIPSearch.java:42-46)
-                    if not (pixels > 0 and ratio > ratio_threshold):
-                        continue
-                    m = CDMatchEntity()
-                    m.mask_image = mask
-                    m.matched_image = target
-                    m.session_ref_id = str(session_id)
-                    m.matching_pixels = pixels
-                    m.matching_pixels_ratio = float(np.float32(ratio))
-                    m.mirrored = bool(mirrored[bi, ti])
-                    m.match_found = True
-                    m.tags.add(run_tag)
-                    mask.add_processed_tag(ProcessingType.ColorDepthSearch,
-                                           run_tag)
-                    target.add_processed_tag(ProcessingType.ColorDepthSearch,
-                                             run_tag)
-                    all_matches.append(m)
-            stage_totals["matches"] += time.perf_counter() - t0
+            with trace.timed("cds.matches", stage_totals, "matches"):
+                record_pair_errors(failed)
+                for bi, (mask, _) in enumerate(prepared):
+                    query_size = query_sizes[bi]
+                    qsize = max(query_size, 1)
+                    for ti, target in enumerate(t_entities):
+                        pixels = int(scores[bi, ti]) if query_size else 0
+                        ratio = pixels / qsize if query_size else 0.0
+                        # isMatch (ColorMIPSearch.java:42-46)
+                        if not (pixels > 0 and ratio > ratio_threshold):
+                            continue
+                        m = CDMatchEntity()
+                        m.mask_image = mask
+                        m.matched_image = target
+                        m.session_ref_id = str(session_id)
+                        m.matching_pixels = pixels
+                        m.matching_pixels_ratio = float(np.float32(ratio))
+                        m.mirrored = bool(mirrored[bi, ti])
+                        m.match_found = True
+                        m.tags.add(run_tag)
+                        mask.add_processed_tag(
+                            ProcessingType.ColorDepthSearch, run_tag)
+                        target.add_processed_tag(
+                            ProcessingType.ColorDepthSearch, run_tag)
+                        all_matches.append(m)
             maybe_flush()
     finally:
         prefetcher.shutdown(wait=True)
     record_pair_errors(unscored_failures)
 
     n_groups = 0
-    t0 = time.perf_counter()
     if writes:
-        per_masks = per_targets = None
-        if args.output_dir:
-            per_masks = os.path.join(args.output_dir, args.perMaskSubdir)
-            if args.perTargetSubdir:
-                per_targets = os.path.join(args.output_dir,
-                                           args.perTargetSubdir)
-        if flushed < len(all_matches) or not flushed:
-            n_groups = matches_writer(
-                args.db, per_masks, per_targets,
-                update_scores_only=args.update_matches).write(
-                all_matches[flushed:])
-        if args.db:
-            # stamp EVERY searched MIP with the run's processing tag,
-            # matched or not, so that restartable selection by "lacks tag
-            # X" sees the whole processed block (ColorDepthSearchCmd.java:
-            # 346-358)
-            DBCDMIPsWriter(get_store(args.db)).add_processing_tags(
-                masks + targets, ProcessingType.ColorDepthSearch, {run_tag})
-        stage_totals["write"] += time.perf_counter() - t0
+        with trace.timed("cds.write", stage_totals, "write"):
+            per_masks = per_targets = None
+            if args.output_dir:
+                per_masks = os.path.join(args.output_dir, args.perMaskSubdir)
+                if args.perTargetSubdir:
+                    per_targets = os.path.join(args.output_dir,
+                                               args.perTargetSubdir)
+            if flushed < len(all_matches) or not flushed:
+                n_groups = matches_writer(
+                    args.db, per_masks, per_targets,
+                    update_scores_only=args.update_matches).write(
+                    all_matches[flushed:])
+            if args.db:
+                # stamp EVERY searched MIP with the run's processing tag,
+                # matched or not, so that restartable selection by "lacks tag
+                # X" sees the whole processed block (ColorDepthSearchCmd.java:
+                # 346-358)
+                DBCDMIPsWriter(get_store(args.db)).add_processing_tags(
+                    masks + targets, ProcessingType.ColorDepthSearch,
+                    {run_tag})
     elif multi and (args.output_dir or args.db):
         LOG.info("process %d: results written by process 0",
                  process_index())
@@ -619,22 +619,19 @@ def _dense_parts(args, parts, prepared, devices, zt9: int, stage_totals):
     shifts = shift_ring_offsets(args.xyShift)
     pad = max(args.xyShift, 1)
     for key, t_stack in parts:
-        t0 = time.perf_counter()
-        planes = distribute(mesh, ("target", None, None, None),
-                            t_stack).map(lambda t: pack_targets(
-                                t, args.dataThreshold, pad))
-        t_padded = planes.map(lambda p: p[0])
-        t_flipped = planes.map(lambda p: p[1])
-        stage_totals["pack"] = stage_totals.get("pack", 0.0) \
-            + time.perf_counter() - t0
-        t0 = time.perf_counter()
+        with trace.timed("dense.pack", stage_totals, "pack"):
+            planes = distribute(mesh, ("target", None, None, None),
+                                t_stack).map(lambda t: pack_targets(
+                                    t, args.dataThreshold, pad))
+            t_padded = planes.map(lambda p: p[0])
+            t_flipped = planes.map(lambda p: p[1])
         scores, mirrored = [], []
-        for block in partition_collection(prepared, args.maskBatchSize):
-            q_words = np.stack([qp.words for _, qp in block])
-            s, m, _ = sharded_pixel_sweep(mesh, q_words, t_padded, t_flipped,
-                                          shifts, zt9, args.mirrorMask)
-            scores.append(s)
-            mirrored.append(m)
-        stage_totals["score"] = stage_totals.get("score", 0.0) \
-            + time.perf_counter() - t0
+        with trace.timed("dense.score", stage_totals, "score"):
+            for block in partition_collection(prepared, args.maskBatchSize):
+                q_words = np.stack([qp.words for _, qp in block])
+                s, m, _ = sharded_pixel_sweep(mesh, q_words, t_padded,
+                                              t_flipped, shifts, zt9,
+                                              args.mirrorMask)
+                scores.append(s)
+                mirrored.append(m)
         yield key, np.concatenate(scores), np.concatenate(mirrored)

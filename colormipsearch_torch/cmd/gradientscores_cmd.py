@@ -66,6 +66,7 @@ from ..mips import MIPsCache
 from ..model import CDMatchEntity, ComputeFileType, ProcessingType
 from ..results import (group_matches_by_mask, normalize_match_scores,
                        partition_collection, select_best_matches)
+from ..utils import trace
 from .args import (add_cds_params, add_common_args, check_grid,
                    excluded_regions_for)
 from .backends import matches_reader, matches_writer
@@ -74,6 +75,12 @@ LOG = logging.getLogger(__name__)
 
 PLANES_CACHE_BYTES = 4 << 30
 PLANES_CACHE_ENTRIES = 2048
+
+# plane cache lookups that found a target's planes, that built them, and
+# entries dropped (the LRU bound, memory-pressure halvings)
+_HITS = trace.counter("ga.planes.hits")
+_MISSES = trace.counter("ga.planes.misses")
+_EVICTIONS = trace.counter("ga.planes.evictions")
 
 _FLUSH_COUNT = 0
 
@@ -152,7 +159,15 @@ def run(args: argparse.Namespace) -> int:
                          "-md/--matchesDir or of the --db store")
     check_grid(args)
     devices = resolve_devices(args.device)
+    with trace.span("ga.job"):
+        return _rescore(args, devices)
+
+
+def _rescore(args: argparse.Namespace, devices) -> int:
+    """run()'s body: every selected mask's best matches scored,
+    normalized and written back."""
     t_start = time.time()
+    counts0 = trace.counts()
     reader = matches_reader(args.db, args.matchesDir)
     ptags = {}
     for spec in args.masks_processing_tags or []:
@@ -205,7 +220,8 @@ def run(args: argparse.Namespace) -> int:
             return
         if force or (args.write_batch_size > 0
                      and len(pending_updates) >= args.write_batch_size):
-            writer.write_updates(pending_updates, update_fields)
+            with trace.span("ga.write"):
+                writer.write_updates(pending_updates, update_fields)
             pending_updates.clear()
             _test_kill_hook()
 
@@ -213,9 +229,10 @@ def run(args: argparse.Namespace) -> int:
         sel = DataSourceParam(mip_ids=[mip_id],
                               tags=mask_selector.tags,
                               processing_tags=mask_selector.processing_tags)
-        matches = reader.read_matches_by_mask(
-            sel,
-            scores_filter=None if scores_filter.empty else scores_filter)
+        with trace.span("ga.read"):
+            matches = reader.read_matches_by_mask(
+                sel,
+                scores_filter=None if scores_filter.empty else scores_filter)
         if not matches:
             continue
         if args.cancel_previous_gradient_scores:
@@ -249,7 +266,8 @@ def run(args: argparse.Namespace) -> int:
                 planes_cache, qplanes_m))
         # normalization runs over the selected+scored matches only
         # (CalculateGradientScoresCmd.java:213-247)
-        normalize_match_scores(scored_for_mask)
+        with trace.span("ga.normalize"):
+            normalize_match_scores(scored_for_mask)
         updated.extend(scored_for_mask)
         tag = args.processing_tag or "gradientScore"
         for m in scored_for_mask:
@@ -262,11 +280,14 @@ def run(args: argparse.Namespace) -> int:
         pending_updates.extend(matches)
         flush_updates()
     flush_updates(force=True)
+    counted = trace.counts(since=counts0)
     LOG.info("updated %d matches in %.1fs (target planes: %d cached, "
-             "%d built on the host; decode %.2fs, plane builds %.2fs)",
+             "%d built on the host; decode %.2fs, plane builds %.2fs; "
+             "plane cache %d hits, %d misses, %d evictions)",
              len(updated), time.time() - t_start, len(planes_cache),
              planes_cache.host_builds, planes_cache.seconds["decode"],
-             planes_cache.seconds["planes"])
+             planes_cache.seconds["planes"], counted[_HITS.name],
+             counted[_MISSES.name], counted[_EVICTIONS.name])
     peak = peak_memory_gib(devices)
     if peak is not None:
         LOG.info("peak device memory %.3f GiB", peak)
@@ -293,11 +314,12 @@ def _to_device(qp: QueryShapePlanes, device) -> QueryShapePlanes:
 def _build_qplanes(mask_img, excluded, roi_mask, border: int, device):
     """Per-mask query shape planes on the device; the host path for
     ROI-mask runs and non-RGB masks, as the reference's."""
-    if roi_mask is None and mask_img.kind == ImageKind.RGB:
-        return shape_device.build_query_planes(mask_img.pixels, excluded,
-                                               border, device=device)
-    return _to_device(build_query_shape_planes(mask_img, excluded, roi_mask,
-                                               border), device)
+    with trace.span("ga.query_planes"):
+        if roi_mask is None and mask_img.kind == ImageKind.RGB:
+            return shape_device.build_query_planes(mask_img.pixels, excluded,
+                                                   border, device=device)
+        return _to_device(build_query_shape_planes(mask_img, excluded,
+                                                   roi_mask, border), device)
 
 
 # ---- target planes ---------------------------------------------------------
@@ -323,11 +345,13 @@ class PlaneCache:
     work. Each target's planes are checked once, at insert, and held as
     `CheckedPlanes` with their data pointers (`entry`), from which G1's
     pointer table is built. `seconds` accumulates the host seconds of the
-    cold path:
-    "decode" (thread-pooled image decode) and "planes" (upload and device
-    build; with `sync` set, the build's device work too). `host_builds`
-    counts targets whose planes were built on the host (non-RGB
-    images)."""
+    cold path, those of its spans: "decode" (ga.decode_pool, the
+    thread-pooled image decode) and "planes" (ga.plane_build, upload and
+    device build; with `sync` set, the build's device work too).
+    `host_builds` counts targets whose planes were built on the host
+    (non-RGB images). The counters ga.planes.hits and ga.planes.misses
+    count lookups (`_prefetch_planes`), ga.planes.evictions the entries
+    that the LRU bound or a memory-pressure halving dropped."""
 
     def __init__(self, devices, max_bytes: int = PLANES_CACHE_BYTES,
                  max_entries: int = PLANES_CACHE_ENTRIES):
@@ -398,6 +422,7 @@ class PlaneCache:
                                     or self._nbytes + size > self.max_bytes):
                 _, evicted = self._planes.popitem(last=False)
                 self._nbytes -= _planes_nbytes(evicted[0])
+                _EVICTIONS.add()
             self._planes[key] = (entry, slot)
             self._nbytes += size
         from ..utils.memguard import shared_guard
@@ -409,6 +434,7 @@ class PlaneCache:
             for _ in range(n):
                 _, evicted = self._planes.popitem(last=False)
                 self._nbytes -= _planes_nbytes(evicted[0])
+        _EVICTIONS.add(n)
         return n
 
     def query_on(self, qplanes: QueryShapePlanes, device) -> QueryShapePlanes:
@@ -437,21 +463,26 @@ def _decode_raw(target, cache: MIPsCache, args):
     (cdm u8 [H,W,3], (grad_arr, grad_is_rgb), zgap u8 [H,W,3] | None)
     or None when required files are missing, or the string "host" when
     the images need the host path (non-RGB CDM/zgap)."""
-    cdm = cache.load_mip(target, ComputeFileType.InputColorDepthImage).image
-    grad = cache.load_mip(target, ComputeFileType.GradientImage).image
-    zgap = cache.load_mip(target, ComputeFileType.ZGapImage).image
-    if cdm is None or grad is None or \
-            (zgap is None and not args.computeZGapOnTheFly):
-        return None
-    if cdm.kind != ImageKind.RGB or \
-            (zgap is not None and zgap.kind != ImageKind.RGB):
-        return "host"
-    if grad.kind == ImageKind.RGB:
-        grad_raw = (grad.pixels, True)
-    else:
-        grad_raw = (grad.pixels.astype(np.uint16), False)
-    zgap_px = zgap.pixels if zgap is not None else None
-    return (cdm.pixels, grad_raw, zgap_px)
+    with trace.span("ga.decode"):
+        with trace.span("ga.decode.cdm"):
+            cdm = cache.load_mip(target,
+                                 ComputeFileType.InputColorDepthImage).image
+        with trace.span("ga.decode.grad"):
+            grad = cache.load_mip(target, ComputeFileType.GradientImage).image
+        with trace.span("ga.decode.zgap"):
+            zgap = cache.load_mip(target, ComputeFileType.ZGapImage).image
+        if cdm is None or grad is None or \
+                (zgap is None and not args.computeZGapOnTheFly):
+            return None
+        if cdm.kind != ImageKind.RGB or \
+                (zgap is not None and zgap.kind != ImageKind.RGB):
+            return "host"
+        if grad.kind == ImageKind.RGB:
+            grad_raw = (grad.pixels, True)
+        else:
+            grad_raw = (grad.pixels.astype(np.uint16), False)
+        zgap_px = zgap.pixels if zgap is not None else None
+        return (cdm.pixels, grad_raw, zgap_px)
 
 
 def _planes_host(target, cache: MIPsCache, args, excluded, device):
@@ -512,37 +543,38 @@ def _prefetch_planes(targets, cache, args, excluded,
         if key not in planes_cache and key not in seen:
             seen.add(key)
             missing.append((key, t))
+    _HITS.add(len(targets) - len(missing))
+    _MISSES.add(len(missing))
     if not missing:
         return
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=args.planes_threads
-                            or os.cpu_count() or 2) as pool:
-        raws = list(pool.map(lambda kt: _decode_raw(kt[1], cache, args),
-                             missing))
-    t1 = time.perf_counter()
-    planes_cache.seconds["decode"] += t1 - t0
-    device_keys, device_raws = [], []
-    for (key, t), raw in zip(missing, raws):
-        if raw is None:
-            planes_cache.insert(key, None)
-        elif isinstance(raw, str):  # "host": non-RGB edge case
-            planes_cache.host_builds += 1
-            slot = planes_cache.next_slot()
-            planes_cache.insert(key, _planes_host(
-                t, cache, args, excluded, planes_cache.devices[slot]), slot)
-        else:
-            device_keys.append(key)
-            device_raws.append(raw)
-    if device_raws:
-        built = _build_planes_device(device_raws, args, excluded,
-                                     planes_cache)
-        for key, (planes, slot) in zip(device_keys, built):
-            planes_cache.insert(key, planes, slot)
-    if planes_cache.sync:
-        for device in set(planes_cache.devices):
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-    planes_cache.seconds["planes"] += time.perf_counter() - t1
+    with trace.timed("ga.decode_pool", planes_cache.seconds, "decode"), \
+            ThreadPoolExecutor(max_workers=args.planes_threads
+                               or os.cpu_count() or 2) as pool:
+        raws = list(pool.map(trace.bind(
+            lambda kt: _decode_raw(kt[1], cache, args)), missing))
+    with trace.timed("ga.plane_build", planes_cache.seconds, "planes"):
+        device_keys, device_raws = [], []
+        for (key, t), raw in zip(missing, raws):
+            if raw is None:
+                planes_cache.insert(key, None)
+            elif isinstance(raw, str):  # "host": non-RGB edge case
+                planes_cache.host_builds += 1
+                slot = planes_cache.next_slot()
+                planes_cache.insert(key, _planes_host(
+                    t, cache, args, excluded, planes_cache.devices[slot]),
+                    slot)
+            else:
+                device_keys.append(key)
+                device_raws.append(raw)
+        if device_raws:
+            built = _build_planes_device(device_raws, args, excluded,
+                                         planes_cache)
+            for key, (planes, slot) in zip(device_keys, built):
+                planes_cache.insert(key, planes, slot)
+        if planes_cache.sync:
+            for device in set(planes_cache.devices):
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
 
 
 # ---- scoring ---------------------------------------------------------------
@@ -552,9 +584,12 @@ def score_mask_partitions(mask_matches, qplanes, cache, args, excluded,
     """Score one mask's matches in targetsPerBatch partitions. Used by the
     CLI run loop and by chip_smoke.py at size."""
     scored_all = []
-    for part in partition_collection(mask_matches, args.targetsPerBatch):
-        scored_all.extend(_score_batch(part, qplanes, cache, args,
-                                       excluded, planes_cache, qplanes_m))
+    with trace.span("ga.mask"):
+        for part in partition_collection(mask_matches, args.targetsPerBatch):
+            with trace.span("ga.batch"):
+                scored_all.extend(_score_batch(part, qplanes, cache, args,
+                                               excluded, planes_cache,
+                                               qplanes_m))
     return scored_all
 
 
@@ -623,26 +658,28 @@ def _score_batch(part, qplanes, cache: MIPsCache, args, excluded,
 
     # every slot's launches are queued before any result is read
     queued = []
-    for slot, idxs in by_slot.items():
-        device = planes_cache.devices[slot]
-        if qplanes_m is None:
-            queued.append((idxs, score(qplanes, idxs, device,
-                                       args.mirrorMask)))
-        else:
-            queued.append((idxs, score(qplanes, idxs, device, False),
-                           score(qplanes_m, idxs, device, False, True)))
+    with trace.span("ga.score"):
+        for slot, idxs in by_slot.items():
+            device = planes_cache.devices[slot]
+            if qplanes_m is None:
+                queued.append((idxs, score(qplanes, idxs, device,
+                                           args.mirrorMask)))
+            else:
+                queued.append((idxs, score(qplanes, idxs, device, False),
+                               score(qplanes_m, idxs, device, False, True)))
     gaps = np.zeros(len(tplanes), dtype=np.int64)
     high = np.zeros(len(tplanes), dtype=np.int64)
-    for idxs, out, *out_m in queued:
-        if not out_m:
-            gaps[idxs], high[idxs], _, _ = finish_shape_scores(
-                *out, mirror=args.mirrorMask)
-            continue
-        g_i, h_i, s_i, _ = finish_shape_scores(*out, mirror=False)
-        g_m, h_m, s_m, _ = finish_shape_scores(*out_m[0], mirror=False)
-        use_m = s_m < s_i
-        gaps[idxs] = np.where(use_m, g_m, g_i)
-        high[idxs] = np.where(use_m, h_m, h_i)
+    with trace.span("ga.finish"):
+        for idxs, out, *out_m in queued:
+            if not out_m:
+                gaps[idxs], high[idxs], _, _ = finish_shape_scores(
+                    *out, mirror=args.mirrorMask)
+                continue
+            g_i, h_i, s_i, _ = finish_shape_scores(*out, mirror=False)
+            g_m, h_m, s_m, _ = finish_shape_scores(*out_m[0], mirror=False)
+            use_m = s_m < s_i
+            gaps[idxs] = np.where(use_m, g_m, g_i)
+            high[idxs] = np.where(use_m, h_m, h_i)
     for i, m in enumerate(scored_matches):
         m.gradient_area_gap = int(gaps[i])
         m.high_expression_area = int(high[i])

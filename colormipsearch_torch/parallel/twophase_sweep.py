@@ -12,7 +12,6 @@ copy per device.
 
 from __future__ import annotations
 
-import time
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -22,6 +21,7 @@ from ..cds.multimask import (MultiMaskScorer, launch_params,
                              signal_ranges_from_words, tile_live_from_words)
 from ..cds.pixel_active import drain_deferred, pad_for_predicate
 from ..cds.prescreen import sparse_query_rows
+from ..utils import trace
 
 
 def device_blocks(n: int, n_devices: int) -> List[Tuple[int, int]]:
@@ -78,42 +78,47 @@ class TwoPhaseSweep:
     def launch(self, targets_u8: np.ndarray, stage: Optional[dict] = None,
                sync: bool = False):
         """Queue the full two-phase sweep of one target batch on every
-        device; returns a handle for collect(). Only the bounds copy to
-        the host waits for a device.
+        device; returns a handle for collect(). Only the bounds copy and
+        the live tiles' copies to the host wait for a device.
 
         stage: optional dict that accumulates host seconds per stage
-        (pack, pad, bound, live, launch) and the count of screened-out
-        pairs. sync: end each stage with a device synchronize, so that
-        its seconds include its device work (a profiling aid: it stops
-        the device work of one stage from overlapping the next)."""
+        (pack, pad, bound, live, launch: the seconds of the spans
+        sweep.pack, sweep.pad, sweep.bound, sweep.live and
+        sweep.exact_launch) and the count of screened-out pairs. sync:
+        end each stage with a device synchronize, so that its seconds
+        include its device work (a profiling aid: it stops the device
+        work of one stage from overlapping the next)."""
         tsz = targets_u8.shape[0]
         launched = []  # (offset, length, [DeferredScore per mask])
-        clock = [time.perf_counter()]
+        with trace.span("sweep.part") as part:
+            for dev, (off, ln) in zip(self.devices,
+                                      device_blocks(tsz, len(self.devices))):
+                if ln == 0:
+                    continue
+                launched.append((off, ln, self._launch_block(
+                    targets_u8[off:off + ln], dev, stage, sync and stage
+                    is not None and dev.type == "cuda")))
+        return tsz, launched, part.job
 
-        def mark(key, dev):
-            if stage is None:
-                return
-            if sync and dev.type == "cuda":
+    def _launch_block(self, targets_u8: np.ndarray, dev, stage, sync):
+        """launch() on one device's block: [DeferredScore per mask]."""
+        def settle():
+            if sync:
                 torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            stage[key] = stage.get(key, 0.0) + now - clock[0]
-            clock[0] = now
 
-        for dev, (off, ln) in zip(self.devices,
-                                  device_blocks(tsz, len(self.devices))):
-            if ln == 0:
-                continue
-            eng0 = self.engines[0]
-            clock[0] = time.perf_counter()
-            words = eng0.pack_raw_words(targets_u8[off:off + ln], dev)
-            mark("pack", dev)
-            # each predicate's padded target planes, once per block
+        ln = targets_u8.shape[0]
+        with trace.timed("sweep.pack", stage, "pack"):
+            words = self.engines[0].pack_raw_words(targets_u8, dev)
+            settle()
+        # each predicate's padded target planes, once per block
+        with trace.timed("sweep.pad", stage, "pad"):
             predicates = {scorer.predicate for _, scorer in self.groups}
             packed = {p: pad_for_predicate(words, p) for p in predicates}
-            mark("pad", dev)
-            if self.screen is None:
-                survivors = np.ones((len(self.engines), ln), np.int32)
-            else:
+            settle()
+        if self.screen is None:
+            survivors = np.ones((len(self.engines), ln), np.int32)
+        else:
+            with trace.timed("sweep.bound", stage, "bound"):
                 bounds = self.screen.bounds_from_words(self._u_for(dev),
                                                        words)  # [B, ln]
                 survivors = (bounds > self.thresholds[:, None]).astype(
@@ -121,37 +126,39 @@ class TwoPhaseSweep:
                 if stage is not None:
                     stage["screened"] = stage.get("screened", 0) + int(
                         (survivors == 0).sum())
-                mark("bound", dev)
+                settle()
+        with trace.timed("sweep.live", stage, "live"):
             ranges = signal_ranges_from_words(words)
             live = tile_live_from_words(words)
             del words
-            mark("live", dev)
-            defs = [None] * len(self.engines)
+            settle()
+        defs = [None] * len(self.engines)
+        with trace.timed("sweep.exact_launch", stage, "launch"):
             for idx, scorer in self.groups:
                 for i, d in zip(idx, scorer.launch_deferred(
                         packed[scorer.predicate], survivors[idx],
                         signal_ranges=ranges, tile_live=live)):
                     defs[i] = d
-            mark("launch", dev)
-            launched.append((off, ln, defs))
-        return tsz, launched
+            settle()
+        return defs
 
     def collect(self, handle):
         """Drain one launch()'s results (all devices, all masks); returns
         (scores int64 [B, T], mirrored bool [B, T]) in target order."""
-        tsz, launched = handle
+        tsz, launched, job = handle
         bsz = len(self.engines)
         scores = np.zeros((bsz, tsz), dtype=np.int64)
         mirrored = np.zeros((bsz, tsz), dtype=bool)
-        results = drain_deferred([d for _, _, defs in launched
-                                  for d in defs])
-        k = 0
-        for off, ln, _ in launched:
-            for i in range(bsz):
-                s, _, m = results[k]
-                scores[i, off:off + ln] = s
-                mirrored[i, off:off + ln] = m
-                k += 1
+        with trace.span("sweep.collect", job=job):
+            results = drain_deferred([d for _, _, defs in launched
+                                      for d in defs])
+            k = 0
+            for off, ln, _ in launched:
+                for i in range(bsz):
+                    s, _, m = results[k]
+                    scores[i, off:off + ln] = s
+                    mirrored[i, off:off + ln] = m
+                    k += 1
         return scores, mirrored
 
     def sweep(self, targets_u8: np.ndarray, stage: Optional[dict] = None):

@@ -547,3 +547,41 @@ def test_gradient_batch_over_two_slots(card, roi):
     assert launched[0] >= 2 * (2 if roi else 1) and launched[3] >= 2
     assert launched[1] >= 2 and (launched[2] == 0 if roi
                                  else launched[2] == 1)
+
+
+@pytest.mark.cuda
+def test_spans_share_the_device_trace_clock(card, tmp_path):
+    """A span around a kernel launch and a synchronize, under
+    torch.profiler's CUDA activity, mapped as the benchmark maps a device
+    trace onto the wall clock (`cdsbench/harness.py:read_trace`): the
+    kernel's device interval lies inside the span, and the span ends
+    within 1 ms of the kernel."""
+    import time
+
+    from cdsbench import harness
+    from colormipsearch_torch.utils import trace
+    x = torch.ones(1 << 24, device=card)
+    torch.cuda.synchronize()
+    window = harness.DeviceTrace(str(tmp_path))
+    trace.enable()
+    try:
+        with window:
+            time.sleep(0.02)
+            with trace.span("launch"):
+                x.mul_(2)
+                torch.cuda.synchronize()
+            time.sleep(0.02)
+        (span,) = trace.drain()["spans"]
+    finally:
+        trace.disable()
+    ms = 1_000_000
+
+    def busy(t0, t1):
+        return harness.read_trace(window.path, t0, t1, [])["busy_s"]
+
+    around = busy(span.start_ns - 15 * ms, span.end_ns + 15 * ms)
+    assert around > 0
+    # all of the device time near the span falls inside it
+    assert busy(span.start_ns, span.end_ns) == around
+    # and the kernel runs in the span's last millisecond
+    assert busy(span.end_ns - ms, span.end_ns) > 0

@@ -16,6 +16,7 @@ torch.set_num_threads(2)
 from colormipsearch_tpu.cmd.main import main as jax_main  # noqa: E402
 
 from colormipsearch_torch.cmd.main import main  # noqa: E402
+from colormipsearch_torch.utils import trace  # noqa: E402
 
 LM_NAMES = [
     "VT033614_127B01_AE_01-20171124_64_H6-f-CH2_01",
@@ -101,6 +102,66 @@ def test_gradient_goldens(scored_masks):
     assert res["lm-0"]["normalizedScore"] == 100.0
     assert res["lm-2"]["normalizedScore"] == float(np.float32(426 / 439 * 100))
     assert res["lm-1"]["normalizedScore"] == float(np.float32(414 / 439 * 100))
+
+
+def test_plane_cache_counts_and_spans(cds_masks, tmp_path, caplog):
+    """gradientScores with the recorder on: every target is one miss, a
+    lookup of each match's target is a hit or a miss, the closing log
+    keeps its decode and plane-build seconds (those of the spans) and adds
+    the cache's counts, and every span, the decode pool's included, is of
+    the run's job."""
+    import logging
+    caplog.set_level(logging.INFO, logger="colormipsearch_torch")
+    masks = _copy(cds_masks, tmp_path / "masks")
+    trace.enable()
+    try:
+        assert main(["gradientScores", "-md", masks, *GRAD_ARGS,
+                     "--device", "cpu"]) == 0
+        got = trace.drain()
+    finally:
+        trace.disable()
+    counted, spans = got["counters"], got["spans"]
+    lookups = len(_results(masks))
+    assert counted["ga.planes.misses"] == len(LM_NAMES) == lookups
+    assert counted.get("ga.planes.hits", 0) + counted["ga.planes.misses"] \
+        == lookups
+    assert "ga.planes.evictions" not in counted
+    closing = [r.args for r in caplog.records
+               if r.msg.startswith("updated %d matches")]
+    assert len(closing) == 1
+    n, _, cached, host, decode_s, planes_s, hits, misses, evictions = \
+        closing[0]
+    assert (n, cached, host, hits, misses, evictions) == (3, 3, 0, 0, 3, 0)
+
+    def seconds(name):
+        total = 0.0
+        for s in spans:
+            if s.name == name:
+                total += (s.end_ns - s.start_ns) / 1e9
+        return total
+
+    assert decode_s == seconds("ga.decode_pool") > 0
+    assert planes_s == seconds("ga.plane_build") > 0
+    by_id = {s.id: s for s in spans}
+    root = [s for s in spans if s.name == "ga.job"]
+    assert len(root) == 1 and root[0].parent is None
+    assert {s.job for s in spans} == {root[0].id}
+    decodes = [s for s in spans if s.name == "ga.decode"]
+    assert len(decodes) == 3
+    assert {by_id[s.parent].name for s in decodes} == {"ga.decode_pool"}
+    files = [by_id[s.parent].name for s in spans
+             if s.name.startswith("ga.decode.")]
+    assert sorted(s.name for s in spans if s.name.startswith("ga.decode.")) \
+        == ["ga.decode.cdm"] * 3 + ["ga.decode.grad"] * 3 + \
+        ["ga.decode.zgap"] * 3
+    assert set(files) == {"ga.decode"}
+    parents = {s.name: by_id[s.parent].name for s in spans
+               if s.parent is not None and s.name != "ga.wait"}
+    assert parents["ga.upload"] == "ga.plane_build"
+    assert parents["ga.mask"] == "ga.job"
+    assert parents["ga.batch"] == "ga.mask"
+    assert {by_id[s.parent].name for s in spans if s.name == "ga.wait"} \
+        == {"ga.query_planes", "ga.finish"}
 
 
 def _roi_file(tmp_path):
@@ -351,8 +412,15 @@ def test_score_batch_after_eviction(tmp_path, monkeypatch):
                                 "cpu")
     planes_cache = gc.PlaneCache("cpu", max_entries=2)
     got = matches(model)
+    before = trace.counts()
     scored = gc._score_batch(got, qplanes, MIPsCache(16), args, None,
                              planes_cache)
+    # the prefetch's 5 lookups miss and its inserts evict 3; each of the
+    # 5 matches then finds its target evicted, looks it up again (a miss)
+    # and evicts one
+    counted = trace.counts(since=before)
+    assert (counted["ga.planes.hits"], counted["ga.planes.misses"],
+            counted["ga.planes.evictions"]) == (0, 10, 8)
     want = matches(ref_model)
     ref_gc._score_batch(want, build_query_planes_device(query), RefCache(16),
                         args, None, {})

@@ -291,3 +291,94 @@ def test_sweep_groups_engines_by_params(library):
         s, _, m = e.score_packed(e.prepare_targets(targets, CPU))
         np.testing.assert_array_equal(got_s[i], s)
         np.testing.assert_array_equal(got_m[i], m)
+
+
+def _seconds(spans, name):
+    """The seconds of a span name, added up in the order they ended, as
+    the stage totals add them (sum() would compensate the rounding)."""
+    total = 0.0
+    for s in spans:
+        if s.name == name:
+            total += (s.end_ns - s.start_ns) / 1e9
+    return total
+
+
+def test_stage_totals_are_the_spans(library):
+    """With the recorder on, each stage of the sweep's dict is the sum of
+    its span's seconds, and every span of a partition, its collect
+    included, carries the partition's job."""
+    from colormipsearch_torch.utils import trace
+    masks, targets = library
+    h, w = targets.shape[1:3]
+    engines = [ActiveTilePixelEngine(q, 20, True, 20, 1.0, 2) for q in masks]
+    screen, u, thr = _screen_inputs(PairPrescreen, engines, h, w,
+                                    lambda e: e.planes.words)
+    sweep = TwoPhaseSweep(engines, [CPU, CPU], screen, u, thr)
+    parts = [("a", targets[:6]), ("b", targets[6:11]), ("c", targets[11:])]
+    stage = {}
+    trace.enable()
+    try:
+        list(sweep.sweep_parts(parts, stage))
+        got = trace.drain()
+    finally:
+        trace.disable()
+    spans = got["spans"]
+    for key, name in (("pack", "sweep.pack"), ("pad", "sweep.pad"),
+                      ("bound", "sweep.bound"), ("live", "sweep.live"),
+                      ("launch", "sweep.exact_launch")):
+        assert stage[key] == _seconds(spans, name), key
+    assert stage["screened"] > 0
+    by_id = {s.id: s for s in spans}
+    roots = [s for s in spans if s.name == "sweep.part"]
+    assert len(roots) == 3 and all(s.parent is None for s in roots)
+    jobs = {s.id for s in roots}
+    assert {s.job for s in spans} == jobs
+    assert sorted(s.job for s in spans if s.name == "sweep.collect") == \
+        sorted(jobs)
+    parent_of = {}
+    for s in spans:
+        if s.parent is not None:
+            parent_of.setdefault(s.name, set()).add(by_id[s.parent].name)
+    assert parent_of["sweep.wait"] == {"sweep.bound", "sweep.live",
+                                       "sweep.collect"}
+    assert parent_of["sweep.table"] == {"sweep.exact_launch"}
+    assert parent_of["sweep.pack"] == {"sweep.part"}
+    # two device blocks a partition: two of each stage span per part
+    assert sum(s.name == "sweep.pack" for s in spans) == 6
+
+
+@pytest.mark.parametrize("prescreen", ["on", "off"])
+def test_cli_stage_times_keep_their_keys(workspace, tmp_path, caplog,
+                                         prescreen):
+    """colorDepthSearch's `stage times` and `prepared ... in` logs keep
+    their keys; with the recorder on each logged stage is its spans'
+    seconds."""
+    import logging
+
+    from colormipsearch_torch.utils import trace
+    caplog.set_level(logging.INFO, logger="colormipsearch_torch")
+    trace.enable()
+    try:
+        assert main(_search_args(str(workspace), str(tmp_path / "out"),
+                                 "--device", "cpu", "--prescreen",
+                                 prescreen)) == 0
+        spans = trace.drain()["spans"]
+    finally:
+        trace.disable()
+    logged = [r.args for r in caplog.records
+              if r.msg == "stage times: %s"]
+    assert len(logged) == 1
+    stages = logged[0] if isinstance(logged[0], dict) else logged[0][0]
+    names = {"decode": "cds.decode", "matches": "cds.matches",
+             "write": "cds.write", "pack": "sweep.pack", "pad": "sweep.pad",
+             "live": "sweep.live", "launch": "sweep.exact_launch"}
+    if prescreen == "on":
+        names.update(features="cds.features", bound="sweep.bound")
+    assert set(stages) == set(names) | ({"screened"} if prescreen == "on"
+                                        else set())
+    for key, name in names.items():
+        assert stages[key] == round(_seconds(spans, name), 2), key
+    prep = [r.args for r in caplog.records
+            if r.msg == "prepared %d mask engines in %.1fs"]
+    assert len(prep) == 1 and prep[0][0] == 1
+    assert prep[0][1] == _seconds(spans, "cds.prep")

@@ -7,11 +7,11 @@ the sources in the checkout and drives the colorDepthSearch path on both
 exact predicates, gradientScores, the production pipeline and the op
 microbench:
 
-1. card: nvidia-smi name and power limit; the six kernel libraries
+1. card: nvidia-smi name and power limit; the seven kernel libraries
    (multimask_ratio, multimask_words, op_chain, prescreen_bound,
-   shape_score, shape_planes) built in
+   shape_score, shape_planes, target_pack) built in
    parallel, with their build seconds, registers and shared memory; the
-   native host word packer of the pack stage (g++), which must build and
+   native host word packer of the CPU's pack (g++), which must build and
    load;
 2. each exact kernel against its plain PyTorch version, exactly, on a
    random library of full 566x1210 frames (16 masks x 64 targets): sparse
@@ -34,13 +34,18 @@ microbench:
    (`dense_capped_bounds`, the port's bound before its two kernels): 439
    among mask 0's scores, each path's exact kernel launched and the other
    not, the bound's two kernels once per partition (none on the dense
-   path), the three paths' scores equal on all 524,288 pairs, each exact
+   path), the target pack kernel once per partition on every path, the
+   three paths' scores equal on all 524,288 pairs, each exact
    kernel equal to its plain version on partition 0's whole table, 32
    masks' one-launch scores equal to the sweep's; pairs/s of the paths in
    turns, survivor rate, stage seconds, peak memory, and each kernel on
    partition 0 over all masks with its work (evaluations that can count,
    staged bytes), its bound and its share of it, and its pixel loop's
-   SASS instructions per evaluation by pipe. The timed round is the
+   SASS instructions per evaluation by pipe; the target pack kernel on a
+   500-target block (the benchmark's partition) equal to its plain version
+   and to the host path, its time beside its bound and the plain
+   version's, and the host seconds of the staged pack against the host
+   sparse feed's. The timed round is the
    pipelined partition loop of the CLI (`TwoPhaseSweep.sweep_parts`);
 5. the op microbench (`python -m colormipsearch_torch.scripts.op_microbench
    --device cuda`): its ten cases, each kernel == plain at 512 and at
@@ -213,6 +218,10 @@ KERNELS = {
                      "colormipsearch_tpu/cds/shape_device.py:211"),
     "target_planes": ("colormipsearch_torch/csrc/shape_planes.cu",
                       "colormipsearch_tpu/cds/shape_device.py:164"),
+    # the sweep's target pack, replacing the host sparse feed and its
+    # device scatter
+    "target_pack": ("colormipsearch_torch/csrc/target_pack.cu",
+                    "colormipsearch_tpu/cds/pixel_pallas.py:746"),
 }
 SHAPE_KERNELS = ("shape_rows", "dilate_rgb", "query_planes", "target_planes")
 # the kernel libraries, one per source (cds/kernels.py)
@@ -306,7 +315,7 @@ def phase_card():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build]   {name}<{fn.replace('ILi', '')}> "
                     f"{line.replace('ptxas info    :', '').strip()}")
-    # the pack stage's host word packer: the native copy, never its NumPy
+    # the CPU's pack (the host path): the native copy, never its NumPy
     # path, on the card's host
     from colormipsearch_torch.native import mipops
     t0 = time.perf_counter()
@@ -726,6 +735,61 @@ def kernel_work(scorer, tab):
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def pack_at_size(checks, dev, engine, block):
+    """The target pack kernel on one raw block (the benchmark's 500-target
+    partition): equal to its plain version and to the host path; its time
+    by CUDA events beside its bound (bytes: 3 B a pixel read by each of
+    its two passes, 4 B written, at 3.35 TB/s) and the plain version's;
+    the host seconds of the whole staged pack (pack_raw_words, synced)
+    against the host sparse feed's (the native pack, its upload and the
+    device scatter, synced), in turns."""
+    import torch
+    from colormipsearch_torch.cds import pixel_active as pa
+    from colormipsearch_torch.scripts.op_microbench import cuda_ms
+    thr = engine.target_threshold
+    raw = pa.stage_frames(block, dev)
+    plain_run = {}
+
+    def plain_once():
+        plain_run["out"], plain_run["ms"] = event_ms(
+            lambda: pa.pack_words_plain(raw, thr))
+        return plain_run["out"]
+
+    px = raw.numel() // 3
+    n_sel = int((raw > thr).any(dim=-1).sum())
+    got = checks["target_pack"].compare(
+        f"{block.shape[0]} targets ({100 * n_sel / px:.2f} % selected)",
+        lambda: pa.pack_words(raw, thr), plain_once)
+    if not torch.equal(got.cpu(), engine.pack_raw_words(block, "cpu")):
+        raise SystemExit("the target pack kernel differs from the host path")
+    del got
+    kernel_ms = cuda_ms(lambda: pa.pack_words(raw, thr), 5)
+    bound_ms = 1e3 * 10 * px / 3.35e12
+
+    def synced(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
+    walls = {"staged": [], "host_sparse": []}
+    for path in ("staged", "host_sparse", "host_sparse", "staged"):
+        walls[path].append(synced(
+            (lambda: engine.pack_raw_words(block, dev)) if path == "staged"
+            else (lambda: engine._pack_block_sparse(block, dev))))
+    log(f"[phase 4] target pack, {block.shape[0]} targets: kernel "
+        f"{kernel_ms:.4f} ms, plain version {plain_run['ms']:.3f} ms, bound "
+        f"{bound_ms:.4f} ms by bytes ({10 * px / 1e9:.3f} GB), kernel at "
+        f"{100 * bound_ms / kernel_ms:.1f} % of its bound; host seconds "
+        f"(synced) staged + kernel " + ", ".join(
+            f"{w:.4f}" for w in walls["staged"]) + ", host sparse feed "
+        + ", ".join(f"{w:.4f}" for w in walls["host_sparse"]))
+    return {"ms": kernel_ms, "plain_ms": plain_run["ms"],
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "staged_s": walls["staged"], "host_sparse_s": walls["host_sparse"]}
+
+
 def dense_capped_bounds(screen, u_matrix, t_words):
     """The count-capped bound as the port computed it before its two
     kernels: the dense fp32 products of
@@ -799,6 +863,7 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
     import torch
     from colormipsearch_torch.cds import kernels
     from colormipsearch_torch.cds import multimask as mm
+    from colormipsearch_torch.cds import pixel_active as pa
     from colormipsearch_torch.cds.pixel_active import (ActiveTilePixelEngine,
                                                        drain_deferred,
                                                        pad_for_predicate)
@@ -839,7 +904,8 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
     parts = [targets[i:i + part] for i in range(0, n_targets, part)]
     wrappers = {p: fns[0] for p, fns in mm.PREDICATE_KERNELS.items()}
     wrappers.update(prescreen_cells=ps.prescreen_cells,
-                    prescreen_capped=ps.prescreen_capped)
+                    prescreen_capped=ps.prescreen_capped,
+                    target_pack=pa.pack_words)
 
     def run(sweep, stage, sync=False):
         """The CLI's partition loop: partition p+1 is launched before p is
@@ -869,6 +935,7 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
         screens = launches[path]["prescreen_cells"], launches[path][
             "prescreen_capped"]
         if launches[path][own] == 0 or launches[path][other] != 0 \
+                or launches[path]["target_pack"] != len(parts) \
                 or screens != ((0, 0) if path == "dense"
                                else (len(parts), len(parts))):
             raise SystemExit(f"the {path} path did not run through its "
@@ -914,6 +981,9 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
                  > thr[:, None]).astype(np.int32)
     timing = {name: {"launches": launches["ratio"][name]}
               for name in ("prescreen_cells", "prescreen_capped")}
+    timing["target_pack"] = pack_at_size(checks, dev, engines[0],
+                                         targets[:500])
+    timing["target_pack"]["launches"] = launches["ratio"]["target_pack"]
     for path in ("ratio", "words"):
         (_, everyone), = sweeps[path].groups  # one param group: every mask
         kernel, plain = mm.PREDICATE_KERNELS[path]
@@ -2184,10 +2254,11 @@ def ran_shape_path(launches):
 
 
 def ran_k1_path(launches):
-    """The default path ran: the bound's kernels and K1, not K3a."""
+    """The default path ran: the pack, the bound's kernels and K1, not
+    K3a."""
     return launches["multimask_words"] == 0 and all(
-        launches[k] > 0 for k in ("multimask_ratio", "prescreen_cells",
-                                  "prescreen_capped"))
+        launches[k] > 0 for k in ("target_pack", "multimask_ratio",
+                                  "prescreen_cells", "prescreen_capped"))
 
 
 def phase_pipeline_fixtures(ws):
@@ -3165,7 +3236,7 @@ def main():
     card, libs = phase_card()
     checks = {name: Check(name) for name in
               ("multimask_ratio", "multimask_words", "prescreen_cells",
-               "prescreen_capped", *SHAPE_KERNELS)}
+               "prescreen_capped", "target_pack", *SHAPE_KERNELS)}
     phase_kernel_vs_plain(checks, dev)
     with tempfile.TemporaryDirectory() as ws:
         phase_cli(ws, "1")

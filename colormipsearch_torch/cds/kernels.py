@@ -98,6 +98,9 @@ BINDINGS = {
             _I, _I, _I,          # frames, h, w
             _PTRS, _P,           # output pointers (host), their copy
             _P, _I]},            # stream, device
+    "target_pack": {"cms_target_pack": [
+        _P, ctypes.c_longlong, _I,   # rgb, pixels, threshold
+        _P, _P, _P, _I]},        # count, out, stream, device
 }
 LIBRARIES = tuple(BINDINGS)
 # entry points that return a count, not an error
@@ -120,11 +123,14 @@ _loaded: Dict[str, KernelLibrary] = {}
 
 def path_wrappers() -> Dict[str, object]:
     """{kernel: wrapper} of every kernel the production pipeline can
-    launch: colorDepthSearch's exact kernels of both predicates and the
-    prescreen bound's two, and gradientScores' four (G1-G4). Each
-    wrapper's `.launches` counts its kernel's launches in this process."""
-    from . import multimask, prescreen, shape_device, shape_kernel
-    return {"multimask_ratio": multimask.multimask_counts,
+    launch: colorDepthSearch's target pack, exact kernels of both
+    predicates and the prescreen bound's two, and gradientScores' four
+    (G1-G4). Each wrapper's `.launches` counts its kernel's launches in
+    this process."""
+    from . import (multimask, pixel_active, prescreen, shape_device,
+                   shape_kernel)
+    return {"target_pack": pixel_active.pack_words,
+            "multimask_ratio": multimask.multimask_counts,
             "multimask_words": multimask.multimask_words_counts,
             "prescreen_cells": prescreen.prescreen_cells,
             "prescreen_capped": prescreen.prescreen_capped,

@@ -16,12 +16,16 @@ touches only the mask's ACTIVE 8x128 tiles. This module holds:
   kernels walk (`compact_selected`): per active tile, the pixels that can
   match under the engine's predicate, with their constants gathered in
   that order;
-- target pack and pad as torch ops on an explicit device: the host
-  sparse pack (`native/mipops.py:sparse_pack_block`, the port's copy) then
-  a scatter with fill word 1, or a dense pack for full blocks; the ring
-  pad and the x-flip of the raw plane; for the ratio predicate, its
-  prepared target planes (`pad_ratio_planes`: the f32 ratio plane and the
-  flag plane, built once per target block in the same pass);
+- target pack and pad on an explicit device. On a CUDA device the raw
+  u8 block goes to the card in chunks through pinned staging buffers
+  (`stage_frames`) and the kernel `csrc/target_pack.cu` packs the words
+  there (`pack_words`; plain version `pack_words_plain`); on the CPU the
+  host sparse pack (`native/mipops.py:sparse_pack_block`, the port's
+  copy) then a scatter with fill word 1, or a dense pack for full blocks.
+  Both give the same words. Then the ring pad and the x-flip of the raw
+  plane; for the ratio predicate, its prepared target planes
+  (`pad_ratio_planes`: the f32 ratio plane and the flag plane, built once
+  per target block in the same pass);
 - `ActiveTilePixelEngine.score_packed_deferred`, a one-mask launch of
   the exact multi-mask kernel of the engine's predicate
   (`cds/multimask.py`), and the deferred result handles drained with one
@@ -45,6 +49,7 @@ import torch
 
 from ..native.mipops import sparse_pack_block
 from ..utils import trace
+from . import kernels
 from .exact_ratio import c9_split
 from .oracle import shift_ring_offsets
 from .pixel_kernel import (PAIR_K9, QueryPlanes, prepare_query_planes,
@@ -65,6 +70,16 @@ POS_SHIFT = {"ratio": 20, "words": 22}
 # the compare-constant sentinels of ratio_bounds.query_ratio_planes: a
 # query pixel whose three constants are all sentinels never matches
 _SENTINELS = (31, 31, 63)
+
+
+# targets a pinned staging chunk holds: 32 frames of 1210 x 566 are 65.7
+# MB, so the two buffers of stage_frames hold 128 MiB (the caching host
+# allocator rounds each up to 64 MiB)
+STAGE_TARGETS = 32
+STAGE_SLOTS = 2
+# blocks packed by the card's kernel, and by the host path (the CPU)
+_DEVICE_BLOCKS = trace.counter("sweep.pack.device_blocks")
+_HOST_BLOCKS = trace.counter("sweep.pack.host_blocks")
 
 
 # ---- the packed-word predicate, plain version ------------------------------
@@ -383,7 +398,8 @@ class ActiveTilePixelEngine:
     # ---- target pack and pad -----------------------------------------
 
     def _pack_block(self, t_block_u8: np.ndarray, device) -> torch.Tensor:
-        """Dense pack of a [T, H, W, 3] uint8 block on `device`."""
+        """Dense pack of a [T, H, W, 3] uint8 block on `device` (the host
+        path's full blocks)."""
         t = torch.from_numpy(np.ascontiguousarray(t_block_u8)).to(device)
         return target_words(t, self.target_threshold)
 
@@ -405,11 +421,19 @@ class ActiveTilePixelEngine:
 
     def pack_raw_words(self, targets_u8: np.ndarray, device) -> torch.Tensor:
         """int32 [T, H, W] scorer words (unpadded frame) on `device`; also
-        the prescreen's input."""
+        the prescreen's input. A CUDA device stages the raw block and packs
+        it with the kernel; any other runs the host path (sparse feed, or
+        the dense pack above a quarter occupancy). Both give the same
+        words (pack_words_plain's)."""
         device = torch.device(device)
         targets_u8 = np.ascontiguousarray(targets_u8)
         if targets_u8.dtype != np.uint8 or targets_u8.ndim != 4:
             raise ValueError("targets must be uint8 [T, H, W, 3]")
+        if device.type == "cuda":
+            _DEVICE_BLOCKS.add()
+            return pack_words(stage_frames(targets_u8, device),
+                              self.target_threshold)
+        _HOST_BLOCKS.add()
         out = self._pack_block_sparse(targets_u8, device)
         if out is None:
             out = self._pack_block(targets_u8, device)
@@ -484,6 +508,88 @@ class ActiveTilePixelEngine:
         """targets_u8: [T, H, W, 3] uint8, scored on `device`. Returns
         (scores, ratios, mirrored)."""
         return self.score_packed(self.prepare_targets(targets_u8, device))
+
+
+def stage_frames(targets_u8: np.ndarray, device) -> torch.Tensor:
+    """The u8 [T, H, W, 3] block on `device`, copied in chunks of
+    STAGE_TARGETS targets through STAGE_SLOTS host buffers in turn.
+
+    For a CUDA device the buffers are pinned (PyTorch's caching host
+    allocator) and each chunk's copy to the card is non_blocking on the
+    current stream, so the host copy of one chunk overlaps the transfer
+    of the one before; a buffer is rewritten only after the event
+    recorded behind the copy that read it. Nothing waits for the last
+    copies: the block's readers are queued behind them on that stream.
+    The buffers go back to the allocator when the call returns. On the
+    CPU the same loop runs with plain buffers."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    src = torch.from_numpy(np.ascontiguousarray(targets_u8))
+    out = torch.empty(src.shape, dtype=torch.uint8, device=device)
+    stream = torch.cuda.current_stream(device) if cuda else None
+    bufs = [None] * STAGE_SLOTS
+    read = [None] * STAGE_SLOTS  # the event behind each buffer's last copy
+    for k, t0 in enumerate(range(0, src.shape[0], STAGE_TARGETS)):
+        chunk = src[t0:t0 + STAGE_TARGETS]
+        slot = k % STAGE_SLOTS
+        if read[slot] is not None:
+            read[slot].synchronize()
+        if bufs[slot] is None or bufs[slot].numel() < chunk.numel():
+            bufs[slot] = torch.empty(chunk.numel(), dtype=torch.uint8,
+                                     pin_memory=cuda)
+        staged = bufs[slot][:chunk.numel()].view(chunk.shape)
+        staged.copy_(chunk)
+        out[t0:t0 + chunk.shape[0]].copy_(staged, non_blocking=cuda)
+        if cuda:
+            read[slot] = torch.cuda.Event()
+            read[slot].record(stream)
+    return out
+
+
+def pack_words_plain(t_u8: torch.Tensor, threshold: int) -> torch.Tensor:
+    """int32 [T, H, W] words of a u8 [T, H, W, 3] block, on its device, by
+    the host feed's occupancy rule: a block with more than (T*H*W)//4
+    above-threshold pixels gets target_words everywhere (the dense feed);
+    otherwise its sub-threshold pixels get word 1 (b = 1, sel = 0: never
+    matches; the sparse feed's scatter fill). The rule is applied on the
+    device: nothing is copied to the host."""
+    words = target_words(t_u8, threshold)
+    sel = ((words >> 19) & 1).bool()
+    dense = sel.sum() > words.numel() // 4
+    return torch.where(sel | dense, words, 1)
+
+
+def pack_words(t_u8: torch.Tensor, threshold: int) -> torch.Tensor:
+    """pack_words_plain's words. A CPU tensor runs the plain version; a
+    CUDA tensor launches `cms_target_pack` (built at first use) or
+    raises. The checks come first, on every device."""
+    if t_u8.dtype != torch.uint8 or t_u8.dim() != 4 or t_u8.shape[-1] != 3:
+        raise ValueError(f"expected a uint8 [T, H, W, 3] block, got "
+                         f"{t_u8.dtype} {tuple(t_u8.shape)}")
+    if t_u8.device.type != "cuda":
+        return pack_words_plain(t_u8, threshold)
+    lib = kernels.load_library("target_pack").lib
+    t_u8 = t_u8.contiguous()
+    dev = t_u8.device
+    out = torch.empty(t_u8.shape[:3], dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    count = torch.empty(1, dtype=torch.int64, device=dev)
+    # a channel is 0..255: every threshold below 0 (above 255) selects
+    # all (no) pixels, as -1 (255) does
+    thr = min(max(int(threshold), -1), 255)
+    rc = lib.cms_target_pack(t_u8.data_ptr(), out.numel(), thr,
+                             count.data_ptr(), out.data_ptr(),
+                             torch.cuda.current_stream(dev).cuda_stream,
+                             dev.index)
+    if rc != 0:
+        raise RuntimeError(f"target_pack kernel launch failed: "
+                           f"cudaError {rc}")
+    pack_words.launches += 1
+    return out
+
+
+pack_words.launches = 0
 
 
 def pad_for_predicate(words: torch.Tensor, predicate: str

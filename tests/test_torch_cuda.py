@@ -1,4 +1,5 @@
-"""On a CUDA card: the exact multi-mask kernels (ratio and packed-word
+"""On a CUDA card: the target pack kernel (with its pinned staging), the
+exact multi-mask kernels (ratio and packed-word
 predicates), the two prescreen-bound kernels, the op-chain kernel and
 gradientScores' four kernels (the shape scorer, the dilation, the query
 and the target planes) equal their plain PyTorch versions, and the
@@ -10,6 +11,8 @@ port's dependencies:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 Without a card they skip."""
 
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -17,6 +20,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
+from colormipsearch_torch.cds import pixel_active as pa  # noqa: E402
 from colormipsearch_torch.cds import prescreen as ps  # noqa: E402
 from colormipsearch_torch.cds import shape_device as sd  # noqa: E402
 from colormipsearch_torch.cds import shape_kernel as sk  # noqa: E402
@@ -27,6 +31,9 @@ from colormipsearch_torch.cds.prescreen import PairPrescreen  # noqa: E402
 from colormipsearch_torch.parallel.twophase_sweep import \
     TwoPhaseSweep  # noqa: E402
 from colormipsearch_torch.scripts import op_microbench as ob  # noqa: E402
+from colormipsearch_torch.utils import trace  # noqa: E402
+
+FIXTURES = pathlib.Path(__file__).parent / "fixtures" / "cdsearch"
 
 
 @pytest.fixture
@@ -51,6 +58,97 @@ def _library(n_masks=5, n_targets=29, h=48, w=160):
     surv[2] = 0
     surv[2, -1] = 1
     return masks, targets, surv
+
+
+def pack_frames(n, feed, h=23, w=41, seed=5):
+    """u8 [n, h, w, 3] frames for the target pack at threshold 20: every
+    channel of a sub-threshold pixel is at most 20 (many exactly 20), and
+    a selected pixel has a channel at 21 or above (many exactly 21), some
+    grey (three equal channels). The selected pixels: "sparse" a tenth,
+    "dense" three fifths, "quarter" exactly (n*h*w)//4 (the host feed's
+    sparse side) and "quarter+1" one more (its dense side). h * w * 3 is
+    odd, so a slice from the second frame on is not 4-byte aligned."""
+    rng = np.random.default_rng(seed)
+    px = n * h * w
+    f = rng.integers(0, 21, size=(px, 3))
+    f[rng.random((px, 3)) < 0.3] = 20
+    k = {"sparse": px // 10, "dense": px * 3 // 5, "quarter": px // 4,
+         "quarter+1": px // 4 + 1}[feed]
+    sel = rng.choice(px, size=k, replace=False)
+    f[sel] = rng.integers(0, 256, size=(k, 3))
+    f[sel, rng.integers(0, 3, size=k)] = np.where(
+        rng.random(k) < 0.3, 21, rng.integers(21, 256, size=k))
+    grey = sel[::7]
+    f[grey] = rng.integers(21, 256, size=(len(grey), 1))
+    return f.reshape(n, h, w, 3).astype(np.uint8)
+
+
+def _host_words(frames):
+    """The host path's words (the native sparse pack, or the dense pack
+    above a quarter occupancy)."""
+    eng = ActiveTilePixelEngine(frames[0], 20, True, 20, 1.0, 2)
+    return eng.pack_raw_words(frames, "cpu")
+
+
+PACK_FEEDS = ["sparse", "dense", "quarter", "quarter+1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feed", PACK_FEEDS)
+def test_pack_kernel_equals_plain(card, feed):
+    """The pack kernel's words equal its plain version's and the host
+    path's on both feeds and at the occupancy rule's edge, through the
+    aligned and the unaligned (byte-load) loops, and through the staged
+    path (more targets than a staging chunk)."""
+    frames = pack_frames(pa.STAGE_TARGETS + 1, feed)
+    t = torch.from_numpy(frames).to(card)
+    host = _host_words(frames)
+    before = pa.pack_words.launches
+    got = pa.pack_words(t, 20)
+    assert pa.pack_words.launches == before + 1
+    want = pa.pack_words_plain(t, 20)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), host)
+    assert t[1:].data_ptr() % 4 != 0
+    assert torch.equal(pa.pack_words(t[1:], 20),
+                       pa.pack_words_plain(t[1:], 20))
+    eng = ActiveTilePixelEngine(frames[0], 20, True, 20, 1.0, 2)
+    assert torch.equal(eng.pack_raw_words(frames, card).cpu(), host)
+
+
+@pytest.mark.cuda
+def test_pack_kernel_fixture_frames(card):
+    """The pack kernel on the LM fixtures at 566 x 1210 (all four frames:
+    the sparse feed; one frame with its background lifted to 25: the
+    dense feed) equals the host path."""
+    from colormipsearch_torch.imageproc.io import load_image
+    frames = np.stack([load_image(str(p)).pixels
+                       for p in sorted((FIXTURES / "lms").glob("*.tif"))])
+    lifted = frames[:1].copy()
+    lifted[lifted < 25] = 25
+    for block in (frames, lifted):
+        eng = ActiveTilePixelEngine(block[0], 20, True, 20, 1.0, 2)
+        got = eng.pack_raw_words(block, card)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), eng.pack_raw_words(block, "cpu"))
+
+
+@pytest.mark.cuda
+def test_pack_back_to_back_keeps_words(card):
+    """Two blocks staged and packed back to back behind a busy stream,
+    with no synchronize between: the host runs ahead of the copies, so a
+    staging buffer is reused only after its copy; each block keeps its
+    own words."""
+    a = pack_frames(2 * pa.STAGE_TARGETS + 3, "sparse", seed=1)
+    b = pack_frames(2 * pa.STAGE_TARGETS + 3, "dense", seed=2)
+    eng = ActiveTilePixelEngine(a[0], 20, True, 20, 1.0, 2)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of device time ahead
+    wa = eng.pack_raw_words(a, card)
+    wb = eng.pack_raw_words(b, card)
+    torch.cuda.synchronize()
+    assert torch.equal(wa.cpu(), _host_words(a))
+    assert torch.equal(wb.cpu(), _host_words(b))
 
 
 @pytest.mark.cuda
@@ -80,18 +178,45 @@ def test_kernel_equals_plain(card, xy_shift, mirror, flags_off):
     assert torch.equal(got.cpu(), cpu)
 
 
+def _banded(targets):
+    """A copy of the targets with a 10 x 24 band of each kept (the rest 0):
+    below a quarter occupancy, so the host path takes the sparse feed."""
+    h, w = targets.shape[1:3]
+    banded = np.zeros_like(targets)
+    for i in range(targets.shape[0]):
+        b0, c0 = (13 * i) % (h - 10), (41 * i) % (w - 24)
+        banded[i, b0:b0 + 10, c0:c0 + 24] = targets[i, b0:b0 + 10,
+                                                    c0:c0 + 24]
+    return banded
+
+
 @pytest.mark.cuda
-def test_sweep_on_card_equals_cpu(card):
+@pytest.mark.parametrize("feed", ["dense", "banded"])
+def test_sweep_on_card_equals_cpu(card, feed):
+    """TwoPhaseSweep's scores and mirrored flags on the card equal the
+    CPU path's; each launched partition is packed by the card's kernel
+    (sweep.pack.device_blocks), none by the host path."""
     masks, targets, _ = _library()
+    if feed == "banded":
+        targets = _banded(targets)
     engines = [ActiveTilePixelEngine(q, 20, True, 20, 1.0, 2) for q in masks]
     screen = PairPrescreen(engines[0].zt9, 2, 48, 160)
     u = np.stack([screen.query_features(e.planes.words) for e in engines])
     thr = np.maximum(0.05 * np.array([e.tiles.query_size for e in engines]),
                      0.5)
     cpu = TwoPhaseSweep(engines, ["cpu"], screen, u, thr).sweep(targets)
-    got = TwoPhaseSweep(engines, [card], screen, u, thr).sweep(targets)
+    sweep = TwoPhaseSweep(engines, [card], screen, u, thr)
+    before = trace.counts()
+    got = sweep.sweep(targets)
     for g, c in zip(got, cpu):
         np.testing.assert_array_equal(g, c)
+    parts = [(0, targets[:10]), (1, targets[10:20]), (2, targets[20:])]
+    for key, s, m in sweep.sweep_parts(parts):
+        np.testing.assert_array_equal(s, cpu[0][:, 10 * key:10 * key + 10])
+        np.testing.assert_array_equal(m, cpu[1][:, 10 * key:10 * key + 10])
+    added = trace.counts(before)
+    assert added["sweep.pack.device_blocks"] == 4
+    assert added.get("sweep.pack.host_blocks", 0) == 0
     # the one-mask route (no screen) launches the same kernel
     one = drain_deferred([e.score_packed_deferred(
         e.prepare_targets(targets, card)) for e in engines[:2]])

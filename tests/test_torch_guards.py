@@ -118,6 +118,14 @@ def test_kernel_wrapper_never_falls_back(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="CUDA device"):
         ob.op_chain("add i32", _fake("cpu"), _fake("cuda:0"))
     assert ob.op_chain.launches == before
+    monkeypatch.setattr(pa, "pack_words_plain", plain)
+    block = types.SimpleNamespace(device=torch.device("cuda:0"),
+                                  dtype=torch.uint8, shape=(2, 8, 16, 3),
+                                  dim=lambda: 4)
+    before = pa.pack_words.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        pa.pack_words(block, 20)
+    assert pa.pack_words.launches == before
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.load_libraries()
     assert kernels._loaded == {}
@@ -128,11 +136,12 @@ def test_one_library_per_source(monkeypatch, tmp_path):
     of its source, of the local headers it includes and of the flags."""
     assert set(kernels.LIBRARIES) == {"multimask_ratio", "multimask_words",
                                       "op_chain", "prescreen_bound",
-                                      "shape_score", "shape_planes"}
+                                      "shape_score", "shape_planes",
+                                      "target_pack"}
     for name in kernels.LIBRARIES:
         assert os.path.exists(kernels.source_path(name))
     paths = {kernels.library_path(n) for n in kernels.LIBRARIES}
-    assert len(paths) == 6
+    assert len(paths) == 7
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     monkeypatch.setattr(kernels, "CSRC", str(csrc))

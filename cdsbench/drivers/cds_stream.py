@@ -123,7 +123,8 @@ def spans(run):
 
 
 def after(run, state):
-    """Free the program's state; in a traced run, count K1's work."""
+    """Free the program's state; in a traced run, count K1's and P1's
+    work."""
     import gc
 
     import torch
@@ -146,6 +147,8 @@ def after(run, state):
                                        p["dataThreshold"])
         del fp
         run.rec["k1_evaluations"] = per_pass * run.rec["steps"]
+        h, w = state["targets"].shape[1:3]
+        run.rec["p1_bytes"] = work.p1_bytes(run.rec["targets"], h, w)
 
 
 def _judge(run, masks, targets, program) -> int:

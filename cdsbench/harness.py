@@ -7,10 +7,12 @@ found by name (`load_json`, `load_plugin`).
 
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
 import logging
 import os
+import statistics
 import sys
 import threading
 import time
@@ -87,6 +89,59 @@ class RssSampler:
         self.peak = max(self.peak, rss_bytes())
 
 
+# ---- the window's steps and collections ----------------------------------------
+
+class GcWatch:
+    """The garbage collector's passes over a window, each (generation,
+    seconds), through `gc.callbacks`: it watches and changes nothing of
+    when or how the collector runs."""
+
+    def __init__(self):
+        self.passes: List[Tuple[int, float]] = []
+        self._t0 = None
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.passes.append((info["generation"],
+                                time.perf_counter() - self._t0))
+            self._t0 = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._note)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._note)
+
+
+def step_summary(step_s: List[float]) -> str:
+    """One line on the window's steps: their count, quartiles, extremes,
+    the slowest's place, and the first three."""
+    if not step_s:
+        return "steps 0"
+    q = (statistics.quantiles(step_s, n=4) if len(step_s) > 1
+         else [step_s[0]] * 3)
+    slow = max(range(len(step_s)), key=step_s.__getitem__)
+    first = " ".join(f"{s:.4f}" for s in step_s[:3])
+    return (f"steps {len(step_s)} step_s q1 {q[0]:.4f} median {q[1]:.4f} "
+            f"q3 {q[2]:.4f} min {min(step_s):.4f} max {max(step_s):.4f} "
+            f"(step {slow}) first {first}")
+
+
+def gc_summary(passes: List[Tuple[int, float]]) -> str:
+    """One line on the collector's passes in the window, by generation:
+    how many, their seconds in all, the longest."""
+    parts = []
+    for g in (0, 1, 2):
+        got = [s for gen, s in passes if gen == g]
+        if got:
+            parts.append(f"gen{g} {len(got)} passes {sum(got):.4f} s "
+                         f"longest {max(got):.4f} s")
+    return "gc " + ("; ".join(parts) if parts else "no passes")
+
+
 # ---- the program's log ---------------------------------------------------------
 
 class LogCapture(logging.Handler):
@@ -154,8 +209,8 @@ class Spans:
                 return fn(*a, **k)
 
         timed.__wrapped__ = fn
-        # one attribute dict: counters the program keeps on its functions
-        # (`build_query_planes.calls += 1`) reach the original
+        # one attribute dict: attributes the program keeps on its
+        # functions (a kernel wrapper's `.launches`) reach the original
         timed.__dict__ = fn.__dict__
         setattr(owner, attr, timed)
         self._undo.append(lambda: setattr(owner, attr, fn))

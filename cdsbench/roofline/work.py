@@ -19,6 +19,11 @@ kernel moves its time and not its yardstick.
 - G2, the query's two dilations (r = 60, 20): each reads 3 B/px of the
   frame and writes 3 B/px, and reads the 1 B/px region mask. Bytes only:
   the operations of a circular max filter depend on how it is built.
+- P1, the sweep's target pack: each raw target frame (3 B/px) read once
+  and its scorer words written once, one 4-byte word a pixel (the int32
+  [T, H, W] plane that the bound B1-B2 and K1 read). P1's own second
+  read of the frame is not counted, so a one-pass pack reads a higher
+  share. Bound by bytes.
 
 Peaks: NVIDIA's H100 SXM data sheet, 67 TFLOP/s of float32 outside the
 tensor cores (33.5 T lane operations/s, an FMA counted as two) and 3.35
@@ -86,6 +91,20 @@ def k1_evaluations(footprints: torch.Tensor, targets_u8: np.ndarray,
 def k1_seconds(evaluations: int) -> float:
     """The least time of K1 for these evaluations (operations bound)."""
     return evaluations * OPS_PER_EVAL / PEAK_LANE_OPS
+
+
+P1_READ_BYTES = 3    # a raw RGB pixel
+P1_WORD_BYTES = 4    # a scorer word, one a pixel
+
+
+def p1_bytes(n_targets: int, height: int, width: int) -> int:
+    """Bytes of the pack of n_targets frames of height x width."""
+    return n_targets * height * width * (P1_READ_BYTES + P1_WORD_BYTES)
+
+
+def bytes_seconds(n_bytes: int) -> float:
+    """The least time to move these bytes through HBM."""
+    return n_bytes / PEAK_BYTES
 
 
 def active_rows(query: dict) -> int:

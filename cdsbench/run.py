@@ -8,10 +8,13 @@ in progress finishes and counts), check what the window produced against
 the plain reference, and print one JSON line. With --trace 0 the line
 holds the cell's end-to-end metrics, with --trace 1 its per-layer ones
 (the window under torch.profiler, host spans around the calls into the
-program). A cell (cdsbench/workloads/CELL.json) names its configuration
-(cdsbench/configs/), its driver (cdsbench/drivers/) and its traffic; each
-metric is a reader of the run's record (cdsbench/metrics/NAME.py);
-BENCHMARK.json says which metrics a cell reports.
+program, and the program's own spans and counters). A cell
+(cdsbench/workloads/CELL.json) names its configuration (cdsbench/configs/),
+its driver (cdsbench/drivers/) and its traffic; each metric is a reader of
+the run's record (cdsbench/metrics/NAME.py); BENCHMARK.json says which
+metrics a cell reports. Every run also keeps each step's seconds and the
+garbage collector's passes in the window, and prints a line of each to
+standard error.
 
 The run exits non-zero and prints no result without as many cards as the
 cell asks for, or when JAX or the JAX package has been loaded.
@@ -51,7 +54,8 @@ class Run:
         self.trace = bool(trace)
         self.device = device
         self.workdir = tempfile.mkdtemp(prefix=f"cdsbench-{cell}-")
-        self.rec: dict = {"pairs": 0, "matches": 0, "steps": 0, "stage": {}}
+        self.rec: dict = {"pairs": 0, "matches": 0, "steps": 0, "stage": {},
+                          "step_s": []}
         self.spans = H.Spans()
         self.logs = H.LogCapture()
 
@@ -109,6 +113,17 @@ def power_limit_w() -> Optional[float]:
         return None
 
 
+def program_recorder():
+    """The program's own recorder (`colormipsearch_torch.utils.trace`),
+    turned on; None where the program has none."""
+    try:
+        from colormipsearch_torch.utils import trace
+    except ImportError:
+        return None
+    trace.enable()
+    return trace
+
+
 def run_cell(run: Run, bench: dict) -> dict:
     """Set up, run the window, check; the result line as a dict."""
     import torch
@@ -120,24 +135,39 @@ def run_cell(run: Run, bench: dict) -> dict:
             torch.cuda.synchronize()
         run.rec["setup_s"] = time.time() - T_START
         trace = H.DeviceTrace(run.workdir) if run.trace else None
+        recorder = None
         if trace:
             for owner, attr, name in driver.spans(run):
                 run.spans.wrap(owner, attr, name)
             trace.__enter__()
-        with H.RssSampler() as rss:
+            recorder = program_recorder()
+        with H.RssSampler() as rss, H.GcWatch() as gcw:
             t0_ns, t0 = time.time_ns(), time.perf_counter()
+            mark = t0
             while True:
                 with run.spans.span("step"):
                     driver.step(run, state)
                 run.rec["steps"] += 1
-                if time.perf_counter() - t0 >= run.seconds:
+                now = time.perf_counter()
+                run.rec["step_s"].append(now - mark)
+                mark = now
+                if now - t0 >= run.seconds:
                     break
-            run.rec["window_s"] = time.perf_counter() - t0
+            run.rec["window_s"] = now - t0
             t1_ns = time.time_ns()
+        run.rec["gc"] = gcw.passes
         if trace:
+            if recorder is not None:
+                run.rec["program"] = recorder.drain()
+                recorder.disable()
             trace.__exit__(None, None, None)
             run.spans.unwrap()
-            run.rec["trace"] = trace.read(t0_ns, t1_ns, run.spans.items)
+            # gaps take the innermost span of both: the program's nest
+            # inside the harness's
+            program = [s[:3] for s in
+                       run.rec.get("program", {}).get("spans", [])]
+            run.rec["trace"] = trace.read(t0_ns, t1_ns,
+                                          run.spans.items + program)
         run.rec["peak_rss_bytes"] = rss.peak
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         driver.after(run, state)
@@ -199,6 +229,8 @@ def main(argv=None) -> int:
     if found:
         print(f"cdsbench: the run loaded {', '.join(found)}", file=sys.stderr)
         return 3
+    print(H.step_summary(run.rec["step_s"]), file=sys.stderr)
+    print(H.gc_summary(run.rec["gc"]), file=sys.stderr)
     for k, c in result["compared"].items():
         print(f"compared {k} {c['value']} limit {c['limit']}",
               file=sys.stderr)

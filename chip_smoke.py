@@ -7,9 +7,9 @@ the sources in the checkout and drives the colorDepthSearch path on both
 exact predicates, gradientScores, the production pipeline and the op
 microbench:
 
-1. card: nvidia-smi name and power limit; the seven kernel libraries
+1. card: nvidia-smi name and power limit; the eight kernel libraries
    (multimask_ratio, multimask_words, op_chain, prescreen_bound,
-   shape_score, shape_planes, target_pack) built in
+   shape_score, shape_planes, target_pack, launch_table) built in
    parallel, with their build seconds, registers and shared memory; the
    native host word packer of the CPU's pack (g++), which must build and
    load;
@@ -34,10 +34,11 @@ microbench:
    (`dense_capped_bounds`, the port's bound before its two kernels): 439
    among mask 0's scores, each path's exact kernel launched and the other
    not, the bound's two kernels once per partition (none on the dense
-   path), the target pack kernel once per partition on every path, the
-   three paths' scores equal on all 524,288 pairs, each exact
-   kernel equal to its plain version on partition 0's whole table, 32
-   masks' one-launch scores equal to the sweep's; pairs/s of the paths in
+   path), the target pack and the launch-table kernels once per
+   partition on every path, the three paths' scores equal on all
+   524,288 pairs, each exact kernel equal to its plain version on
+   partition 0's whole table, 32 masks' one-launch scores equal to the
+   sweep's; pairs/s of the paths in
    turns, survivor rate, stage seconds, peak memory, and each kernel on
    partition 0 over all masks with its work (evaluations that can count,
    staged bytes), its bound and its share of it, and its pixel loop's
@@ -45,7 +46,12 @@ microbench:
    500-target block (the benchmark's partition) equal to its plain version
    and to the host path, its time beside its bound and the plain
    version's, and the host seconds of the staged pack against the host
-   sparse feed's. The timed round is the
+   sparse feed's; the launch-table kernel on partition 0 (both
+   predicates) and on a 500-target block (ratio) equal to its plain
+   version and to the host's build_table bit for bit, the exact counts
+   from both tables equal, its kernels' device time and the whole
+   build's beside its bound, and the host build's seconds. The timed
+   round is the
    pipelined partition loop of the CLI (`TwoPhaseSweep.sweep_parts`);
 5. the op microbench (`python -m colormipsearch_torch.scripts.op_microbench
    --device cuda`): its ten cases, each kernel == plain at 512 and at
@@ -222,6 +228,9 @@ KERNELS = {
     # device scatter
     "target_pack": ("colormipsearch_torch/csrc/target_pack.cu",
                     "colormipsearch_tpu/cds/pixel_pallas.py:746"),
+    # the exact launch's table, replacing the host's build
+    "launch_table": ("colormipsearch_torch/csrc/launch_table.cu",
+                     "colormipsearch_tpu/cds/multimask.py:529"),
 }
 SHAPE_KERNELS = ("shape_rows", "dilate_rgb", "query_planes", "target_planes")
 # the kernel libraries, one per source (cds/kernels.py)
@@ -790,6 +799,73 @@ def pack_at_size(checks, dev, engine, block):
             "staged_s": walls["staged"], "host_sparse_s": walls["host_sparse"]}
 
 
+def table_at_size(checks, dev, scorer, survivors, words, tab, planes):
+    """The card's launch table on one block (the sweep's inputs: the
+    bound's survivors, the signal extents and live-tile bitmaps on the
+    card): equal to its plain version on the same tensors and to
+    build_table's `tab` bit for bit (its room past row_off[R] 0); the
+    predicate's exact counts from the card's table equal those from
+    `tab`; the three kernels' device time (torch.profiler, profiled_ms)
+    and the whole build's (CUDA events: the kernels, the scan, the zeroed
+    outputs) beside its bound (bytes: each candidate's grid position and
+    code read by both passes, a kept tile's index read and entry written,
+    40 B a row, the codes and the bitmaps, at 3.35 TB/s)."""
+    import torch
+    from colormipsearch_torch.cds import multimask as mm
+    from colormipsearch_torch.scripts.op_microbench import cuda_ms
+    ext, live = mm.signal_extents(words), mm.tile_live_dev(words)
+    eng, dest = np.nonzero(survivors)
+    n_t = survivors.shape[1]
+    rows = torch.from_numpy(np.stack([eng, dest]).astype(np.int32)).to(dev)
+    n_cand = int(np.diff(scorer._listed_off)[eng].sum())
+    args = (rows, *scorer._upload(scorer._l_dev, scorer._l_host, dev),
+            n_cand, n_t, scorer._grid, scorer._width, scorer._reach,
+            scorer.mirror, ext, live)
+    plain_run = {}
+
+    def plain_once():
+        plain_run["out"], plain_run["ms"] = event_ms(
+            lambda: torch.cat(mm.launch_table_plain(*args)))
+        return plain_run["out"]
+
+    got = checks["launch_table"].compare(
+        f"{scorer.predicate}, {len(eng)} rows x {n_t} targets, {n_cand} "
+        f"candidates", lambda: torch.cat(mm.launch_table(*args)),
+        plain_once).cpu().numpy()
+    n = len(tab.tile_list)
+    row_off, tile_list = got[:len(eng) + 1], got[len(eng) + 1:]
+    if not (np.array_equal(row_off, tab.row_off)
+            and np.array_equal(tile_list[:n], tab.tile_list)
+            and not tile_list[n:].any()):
+        raise SystemExit("the card's launch table differs from build_table's")
+    card_tab = scorer.device_table(survivors, dev, ext, live)
+    counts = [scorer.counts(scorer.kernel_args(planes, t))
+              for t in (card_tab, tab)]
+    if not torch.equal(*counts):
+        raise SystemExit("the exact counts from the card's launch table "
+                         "differ from those of build_table's")
+    build_ms = cuda_ms(lambda: mm.launch_table(*args), 5)
+    each = {name: profiled_ms(lambda: mm.launch_table(*args), (name,))
+            for name in ("codes_kernel", "count_rows_kernel",
+                         "write_rows_kernel")}
+    kernel_ms = sum(each.values())
+    n_codes = n_t * scorer._grid[0] * scorer._grid[1]
+    n_bytes = 10 * n_cand + 8 * n + 40 * len(eng) + 3 * n_codes + 16 * n_t
+    bound_ms = 1e3 * n_bytes / 3.35e12
+    per_kernel = ", ".join(f"{k} {v:.4f}" for k, v in each.items())
+    log(f"[phase 4] launch table, {scorer.predicate}, {n_t} targets: "
+        f"{len(eng)} rows, {n_cand} candidates, {n} kept; == plain == "
+        f"build_table, the exact counts equal; kernels {kernel_ms:.4f} ms "
+        f"({per_kernel}), whole "
+        f"build {build_ms:.4f} ms, plain version {plain_run['ms']:.3f} ms, "
+        f"bound {bound_ms:.4f} ms by bytes ({n_bytes / 1e9:.4f} GB): "
+        f"kernels at {100 * bound_ms / kernel_ms:.1f} % of it")
+    return {"ms": kernel_ms, "plain_ms": plain_run["ms"],
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "build_ms": build_ms, "rows": len(eng), "candidates": n_cand,
+            "kept": n}
+
+
 def dense_capped_bounds(screen, u_matrix, t_words):
     """The count-capped bound as the port computed it before its two
     kernels: the dense fp32 products of
@@ -905,7 +981,7 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
     wrappers = {p: fns[0] for p, fns in mm.PREDICATE_KERNELS.items()}
     wrappers.update(prescreen_cells=ps.prescreen_cells,
                     prescreen_capped=ps.prescreen_capped,
-                    target_pack=pa.pack_words)
+                    target_pack=pa.pack_words, launch_table=mm.launch_table)
 
     def run(sweep, stage, sync=False):
         """The CLI's partition loop: partition p+1 is launched before p is
@@ -936,6 +1012,7 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
             "prescreen_capped"]
         if launches[path][own] == 0 or launches[path][other] != 0 \
                 or launches[path]["target_pack"] != len(parts) \
+                or launches[path]["launch_table"] != len(parts) \
                 or screens != ((0, 0) if path == "dense"
                                else (len(parts), len(parts))):
             raise SystemExit(f"the {path} path did not run through its "
@@ -990,6 +1067,8 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
         t0 = time.perf_counter()
         tab = everyone.build_table(survivors, ranges, live)
         table_s = time.perf_counter() - t0
+        table_at_size(checks, dev, everyone, survivors, words, tab,
+                      planes[path])
         # the main path's launch, against the plain version on the same
         # tensors (the plain version runs once, timed)
         args = everyone.kernel_args(planes[path], tab)
@@ -1051,6 +1130,25 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
             "launches": launches[path][path], "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
             "bound_by": work["bound_by"], "library_ms": None}
+    # the launch table of a 500-target block (the benchmark's partition):
+    # the card's against the host's
+    block_words = engines[0].pack_raw_words(targets[:500], dev)
+    block_surv = (screen.bounds_from_words(u_matrix, block_words)
+                  > thr[:, None]).astype(np.int32)
+    (_, everyone), = sweeps["ratio"].groups
+    block_ranges = mm.signal_ranges_from_words(block_words)
+    block_live = mm.tile_live_from_words(block_words)
+    t0 = time.perf_counter()
+    block_tab = everyone.build_table(block_surv, block_ranges, block_live)
+    host_s = time.perf_counter() - t0
+    timing["launch_table"] = table_at_size(
+        checks, dev, everyone, block_surv, block_words, block_tab,
+        pad_for_predicate(block_words, "ratio"))
+    timing["launch_table"].update(launches=launches["ratio"]["launch_table"],
+                                  host_table_s=host_s)
+    log(f"[phase 4] launch table, 500 targets: host build_table "
+        f"{host_s:.4f} s")
+    del block_words
     if profile_dir is not None:
         part_words = [engines[0].pack_raw_words(tp, dev) for tp in parts]
         rows = ps.sparse_query_rows(u_matrix).to(dev)
@@ -3236,7 +3334,8 @@ def main():
     card, libs = phase_card()
     checks = {name: Check(name) for name in
               ("multimask_ratio", "multimask_words", "prescreen_cells",
-               "prescreen_capped", "target_pack", *SHAPE_KERNELS)}
+               "prescreen_capped", "target_pack", "launch_table",
+               *SHAPE_KERNELS)}
     phase_kernel_vs_plain(checks, dev)
     with tempfile.TemporaryDirectory() as ws:
         phase_cli(ws, "1")

@@ -101,6 +101,17 @@ BINDINGS = {
     "target_pack": {"cms_target_pack": [
         _P, ctypes.c_longlong, _I,   # rgb, pixels, threshold
         _P, _P, _P, _I]},        # count, out, stream, device
+    "launch_table": {
+        "cms_launch_table_count": [
+            _P, _I, _P, _P,      # extents, their columns, live_d, live_m
+            _I, _I, _I, _I,      # targets, grid rows, cols, width
+            _I, _I, _I,          # reach y, reach x, mirror
+            _P, _I, _P, _P,      # rows, n rows, listed_off, listed_pos
+            _P, _P, _P, _I],     # codes, counts, stream, device
+        "cms_launch_table_write": [
+            _P, _I, _P, _I,      # codes, grid positions, rows, n rows
+            _P, _P, _P,          # listed, listed_off, listed_pos
+            _P, _P, _P, _I]},    # row_off, tile_list, stream, device
 }
 LIBRARIES = tuple(BINDINGS)
 # entry points that return a count, not an error
@@ -124,14 +135,15 @@ _loaded: Dict[str, KernelLibrary] = {}
 def path_wrappers() -> Dict[str, object]:
     """{kernel: wrapper} of every kernel the production pipeline can
     launch: colorDepthSearch's target pack, exact kernels of both
-    predicates and the prescreen bound's two, and gradientScores' four
-    (G1-G4). Each wrapper's `.launches` counts its kernel's launches in
-    this process."""
+    predicates, their launch table and the prescreen bound's two, and
+    gradientScores' four (G1-G4). Each wrapper's `.launches` counts its
+    kernel's launches in this process."""
     from . import (multimask, pixel_active, prescreen, shape_device,
                    shape_kernel)
     return {"target_pack": pixel_active.pack_words,
             "multimask_ratio": multimask.multimask_counts,
             "multimask_words": multimask.multimask_words_counts,
+            "launch_table": multimask.launch_table,
             "prescreen_cells": prescreen.prescreen_cells,
             "prescreen_capped": prescreen.prescreen_capped,
             "shape_rows": shape_kernel.shape_rows,

@@ -5,15 +5,19 @@ Counterpart of `colormipsearch_tpu/cds/multimask.py` (:447-782 scorer,
 phase scores each mask's prescreen survivors; one launch covers every
 mask of a target partition.
 
-- Host side, each mask's survivors become launch rows (mask, target,
-  survivor flag). Each row carries its exact list of
+- The launch table: each mask's survivors become launch rows (mask,
+  target, survivor flag). Each row carries its exact list of
   live tiles, each with the directions (direct, mirrored) in which it
   can score: the mask's active tiles that hold a selected query pixel
   and whose sampled window can hold target signal (the 3x3-dilated
-  tile-presence bitmaps of tile_live_from_words, intersected with the
-  target's signal row and column intervals). Skipped tiles and
-  directions provably score 0, so any exact skip gives the same scores.
-  The query side is each mask's compact lists of selected pixels
+  tile-presence bitmaps of tile_live_dev, intersected with the
+  target's signal row and column extents, signal_extents). Skipped tiles
+  and directions provably score 0, so any exact skip gives the same
+  scores. On a card the table is built there (`launch_table`,
+  `csrc/launch_table.cu`) from the bitmaps and extents as they lie on
+  the card; on the CPU by `MultiMaskScorer.build_table` in NumPy, the
+  reference that the card's table equals bit for bit. The query side is
+  each mask's compact lists of selected pixels
   (pixel_active.compact_selected), stacked.
 - Device side, one kernel per predicate, each with a plain PyTorch
   version that CPU tensors run: `multimask_counts` launches the ratio
@@ -79,7 +83,8 @@ def _pairs(row_off, tile_list, surv):
     counts = (row_off[1:] - row_off[:-1]).to(torch.int64)
     rows = torch.repeat_interleave(
         torch.arange(counts.numel(), device=tile_list.device), counts)
-    tiles = tile_list.to(torch.int64) & TILE_MASK
+    # a table built on the card has room past row_off[-1]: no row's
+    tiles = tile_list[:rows.numel()].to(torch.int64) & TILE_MASK
     keep = surv.to(torch.int64)[rows] != 0
     return rows[keep], tiles[keep]
 
@@ -181,7 +186,9 @@ def window_bins(row_off, tile_list, tgt, surv, coords, frame_shape,
     target window they read, bin = target * gh * gw + ty * gw + tx for the
     tile origin (8 ty, 128 tx) on the gh x gw tile grid of padded frames
     of frame_shape. A member of a row whose survivor flag is 0 keeps no
-    direction, so it scores nothing.
+    direction, so it scores nothing. Entries of tile_list past
+    row_off[-1] (a table built on the card has room for every candidate)
+    belong to no row: they sort past every bin.
 
     Returns bin_off int32 [n_targets * gh * gw + 1] (bin b's members are
     bin_off[b] .. bin_off[b+1] - 1), mem_row int32 [L] and mem_tile int32
@@ -189,18 +196,26 @@ def window_bins(row_off, tile_list, tgt, surv, coords, frame_shape,
     hp, wp = frame_shape
     gh, gw = hp // TILE_H - 2, wp // TILE_W - 2
     n_bins = n_targets * gh * gw
+    n_rows = tgt.numel()
     dev = tile_list.device
+    # the entries past row_off[-1] go to row n_rows, of target n_targets
+    counts = torch.cat([row_off[1:] - row_off[:-1],
+                        tile_list.numel() - row_off[-1:]])
     rows = torch.repeat_interleave(
-        torch.arange(tgt.numel(), dtype=torch.int32, device=dev),
-        (row_off[1:] - row_off[:-1]).to(torch.int64),
-        output_size=tile_list.numel())
+        torch.arange(n_rows + 1, dtype=torch.int32, device=dev),
+        counts.to(torch.int64), output_size=tile_list.numel())
+    tgt = torch.cat([tgt, tgt.new_full((1,), n_targets)])
+    surv = torch.cat([surv, surv.new_zeros(1)])
     pos = coords[:, 0] // TILE_H * gw + coords[:, 1] // TILE_W
     key, order = torch.sort(tgt[rows] * (gh * gw) + pos[tile_list & TILE_MASK])
     rows = rows[order]
     entry = tile_list[order]
     entry = torch.where(surv[rows] != 0, entry, entry & TILE_MASK)
-    bin_off = torch.zeros(n_bins + 1, dtype=torch.int32, device=dev)
-    torch.cumsum(torch.bincount(key, minlength=n_bins), 0, out=bin_off[1:])
+    # bin b starts at the first key not below b (bincount would wait for
+    # the device to size its output)
+    bin_off = torch.searchsorted(
+        key, torch.arange(n_bins + 1, dtype=key.dtype, device=dev),
+        out_int32=True)
     return bin_off, rows, entry
 
 
@@ -369,41 +384,52 @@ PREDICATE_KERNELS = {
 }
 
 
-# ---- live tiles and signal ranges ----------------------------------------
+# ---- live tiles and signal extents ----------------------------------------
 
 def _sel_any_rowcol(words: torch.Tensor):
-    sel = (words >> 19) & 1
-    return sel.amax(dim=2), sel.amax(dim=1)  # [T, H], [T, W]
+    sel = ((words >> 19) & 1) > 0
+    return sel.any(dim=2), sel.any(dim=1)  # [T, H], [T, W]
 
 
-def _first_last(flags: np.ndarray) -> np.ndarray:
+def _first_last(flags: torch.Tensor) -> torch.Tensor:
+    """int32 [T, 2] (first, last) index of a true flag per row of bool [T,
+    n]; (0, -1) for a row without one."""
     n = flags.shape[1]
-    any_f = flags.any(axis=1)
-    first = np.where(any_f, flags.argmax(axis=1), 0).astype(np.int32)
-    last = np.where(any_f, n - 1 - flags[:, ::-1].argmax(axis=1),
-                    -1).astype(np.int32)
-    return np.stack([first, last], axis=1)
+    idx = torch.arange(n, device=flags.device)
+    last = torch.where(flags, idx, -1).amax(dim=1)
+    first = torch.where(last >= 0, torch.where(flags, idx, n).amin(dim=1), 0)
+    return torch.stack([first, last], dim=1).to(torch.int32)
+
+
+def signal_extents(words: torch.Tensor) -> torch.Tensor:
+    """int32 [T, 4] (first_row, last_row, first_col, last_col) signal
+    extents per packed target frame (raw-frame coordinates), (0, -1) for
+    empty targets, on the words' device (nothing waits)."""
+    r, c = _sel_any_rowcol(words)
+    return torch.cat([_first_last(r), _first_last(c)], dim=1)
 
 
 def row_ranges_from_words(words: torch.Tensor) -> np.ndarray:
     """int32 [T, 2] (first, last) above-threshold signal row per packed
     target frame; (0, -1) for empty targets."""
-    rows = _sel_any_rowcol(words)[0].cpu().numpy() > 0
-    return _first_last(rows)
+    return _first_last(_sel_any_rowcol(words)[0]).cpu().numpy()
 
 
 def signal_ranges_from_words(words: torch.Tensor) -> np.ndarray:
-    """int32 [T, 4] (first_row, last_row, first_col, last_col) signal
-    extents per packed target frame (raw-frame coordinates); (0, -1) for
-    empty targets."""
-    r, c = _sel_any_rowcol(words)
+    """signal_extents on the host."""
+    ext = signal_extents(words)
     with trace.span("sweep.wait"):
-        r, c = r.cpu().numpy(), c.cpu().numpy()
-    return np.concatenate([_first_last(r > 0), _first_last(c > 0)], axis=1)
+        return ext.cpu().numpy()
 
 
-def _tile_live_dev(words: torch.Tensor, gh: int, gw: int):
+def tile_live_dev(words: torch.Tensor) -> tuple:
+    """Per-target 3x3-dilated tile-presence bitmaps, (direct, mirrored),
+    each bool [T, gh, gw] over the mask tile grid, on the words' device:
+    does target j (resp. its x-flip) have above-threshold signal in the
+    3x3 tile neighbourhood that every shift of the tile at (ty, tx)
+    samples?"""
     tsz, h, w = words.shape
+    gh, gw = -(-h // TILE_H), -(-w // TILE_W)
     sel = ((words >> 19) & 1) > 0  # [T, H, W]
 
     def pool_dilate(s):
@@ -420,25 +446,169 @@ def _tile_live_dev(words: torch.Tensor, gh: int, gw: int):
 
 
 def tile_live_from_words(words: torch.Tensor) -> tuple:
-    """Per-target 3x3-dilated tile-presence bitmaps, (direct, mirrored),
-    each np.bool_ [T, gh, gw] over the mask tile grid: does target j
-    (resp. its x-flip) have above-threshold signal in the 3x3 tile
-    neighbourhood that every shift of the tile at (ty, tx) samples?"""
-    _, h, w = words.shape
-    d, m = _tile_live_dev(words, -(-h // TILE_H), -(-w // TILE_W))
+    """tile_live_dev's bitmaps on the host, each np.bool_ [T, gh, gw]."""
+    d, m = tile_live_dev(words)
     with trace.span("sweep.wait"):
         return d.cpu().numpy(), m.cpu().numpy()
+
+
+# ---- the launch table on the device ----------------------------------------
+
+def direction_codes_plain(n_targets: int, grid, width: int, reach,
+                          mirror: bool, extents=None, tile_live=None,
+                          device="cpu") -> torch.Tensor:
+    """uint8 [n_targets * gh * gw] direction codes (bit 0 direct, bit 1
+    mirrored) of each target and tile position (ty * gw + tx) on the mask
+    tile grid `grid` (gh, gw), as torch ops: MultiMaskScorer.
+    _direction_codes' tests over tensors. width: the masks' raw width;
+    reach: (sy, sx), the largest |dy| and |dx| of the shifts; extents:
+    int32 [T, 2] or [T, 4] (signal_extents) or None; tile_live:
+    (direct, mirrored) bool [T, gh, gw] (tile_live_dev) or None."""
+    gh, gw = grid
+    sy, sx = reach
+    d = torch.ones((n_targets, gh, gw), dtype=torch.bool, device=device)
+    m = d if mirror else torch.zeros_like(d)
+    if tile_live is not None:
+        d = d & tile_live[0]
+        m = m & tile_live[1]
+    if extents is not None:
+        ext = extents.to(torch.int64)
+        cy = torch.arange(gh, device=device) * TILE_H
+        rok = ((cy >= ext[:, :1] - TILE_H - sy + 1)
+               & (cy <= ext[:, 1:2] + sy))[:, :, None]
+        d = d & rok
+        m = m & rok
+        if ext.shape[1] >= 4:
+            cx = torch.arange(gw, device=device) * TILE_W
+            c0, c1 = ext[:, 2:3], ext[:, 3:4]
+            d = d & ((cx >= c0 - TILE_W - sx + 1)
+                     & (cx <= c1 + sx))[:, None, :]
+            m = m & ((cx >= width - 1 - c1 - TILE_W - sx + 1)
+                     & (cx <= width - 1 - c0 + sx))[:, None, :]
+    return (d.to(torch.uint8) | (m.to(torch.uint8) << 1)).reshape(-1)
+
+
+def launch_table_plain(rows, listed, listed_off, listed_pos, n_cand: int,
+                       n_targets: int, grid, width: int, reach,
+                       mirror: bool, extents=None, tile_live=None):
+    """Plain PyTorch version of the launch-table kernel (same arguments):
+    build_table's row_off and tile_list from tensors on one device.
+
+    rows: int32 [2, R], each row's engine, then its target (engine order,
+    then target order); listed int32 [NL], listed_off int32 [B + 1] and
+    listed_pos int32 [NL]: engine i's listed tiles are
+    listed[listed_off[i]:listed_off[i + 1]], at grid positions listed_pos;
+    n_cand: the candidates, every row's listed tiles; the rest as
+    direction_codes_plain. Returns row_off int32 [R + 1] and tile_list
+    int32 [n_cand]: row r's tiles are tile_list[row_off[r]:row_off[r + 1]]
+    (tile | code << DIR_SHIFT, in the engine's tile order); the entries
+    past row_off[R] are 0."""
+    dev = rows.device
+    n_rows = rows.shape[1]
+    row_off = torch.zeros(n_rows + 1, dtype=torch.int32, device=dev)
+    tile_list = torch.zeros(n_cand, dtype=torch.int32, device=dev)
+    if n_rows == 0:
+        return row_off, tile_list
+    gh, gw = grid
+    codes = direction_codes_plain(n_targets, grid, width, reach, mirror,
+                                  extents, tile_live, dev)
+    eng, dest = rows.to(torch.int64)
+    off = listed_off.to(torch.int64)
+    cnt = off[eng + 1] - off[eng]
+    # the candidates: every row with every listed tile of its engine
+    row = torch.repeat_interleave(torch.arange(n_rows, device=dev), cnt,
+                                  output_size=n_cand)
+    start = torch.cumsum(cnt, 0) - cnt
+    j = off[eng][row] + torch.arange(n_cand, device=dev) - start[row]
+    code = codes[dest[row] * (gh * gw) + listed_pos[j].to(torch.int64)]
+    keep = code != 0
+    counts = torch.zeros(n_rows, dtype=torch.int32, device=dev).index_add_(
+        0, row, keep.to(torch.int32))
+    torch.cumsum(counts, 0, dtype=torch.int32, out=row_off[1:])
+    kept = listed[j[keep]] | (code[keep].to(torch.int32) << DIR_SHIFT)
+    tile_list[:kept.numel()] = kept
+    return row_off, tile_list
+
+
+def launch_table(rows, listed, listed_off, listed_pos, n_cand: int,
+                 n_targets: int, grid, width: int, reach, mirror: bool,
+                 extents=None, tile_live=None):
+    """The launch table (see launch_table_plain). CPU tensors run the
+    plain version. CUDA tensors launch the card's kernel
+    (`csrc/launch_table.cu`, built at first use) or raise; nothing waits
+    for the card."""
+    live = () if tile_live is None else tuple(tile_live)
+    ext = () if extents is None else (extents,)
+    args = (rows, listed, listed_off, listed_pos, *ext, *live)
+    if not _on_cuda(args):
+        return launch_table_plain(rows, listed, listed_off, listed_pos,
+                                  n_cand, n_targets, grid, width, reach,
+                                  mirror, extents, tile_live)
+    lib = kernels.load_library("launch_table").lib
+    dev = rows.device
+    gh, gw = grid
+    _check("rows", rows, torch.int32, 2, dev)
+    for name, t in (("listed", listed), ("listed_off", listed_off),
+                    ("listed_pos", listed_pos)):
+        _check(name, t, torch.int32, 1, dev)
+    if extents is not None:
+        _check("extents", extents, torch.int32, 2, dev)
+        if tuple(extents.shape) not in ((n_targets, 2), (n_targets, 4)):
+            raise ValueError(f"extents: expected [{n_targets}, 2 or 4], got "
+                             f"{tuple(extents.shape)}")
+    for name, t in zip(("live_d", "live_m"), live):
+        _check(name, t, torch.bool, 3, dev)
+        if tuple(t.shape) != (n_targets, gh, gw):
+            raise ValueError(f"{name}: expected [{n_targets}, {gh}, {gw}], "
+                             f"got {tuple(t.shape)}")
+    n_rows = rows.shape[1]
+    if rows.shape[0] != 2:
+        raise ValueError("rows must be [2, R]: engines, then targets")
+    row_off = torch.zeros(n_rows + 1, dtype=torch.int32, device=dev)
+    tile_list = torch.zeros(n_cand, dtype=torch.int32, device=dev)
+    if n_rows == 0:
+        return row_off, tile_list
+    codes = torch.empty(n_targets * gh * gw, dtype=torch.uint8, device=dev)
+    counts = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    ext_ptr, n_ext = ((None, 0) if extents is None
+                      else (extents.data_ptr(), extents.shape[1]))
+    live_d, live_m = [t.data_ptr() for t in live] or [None, None]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.cms_launch_table_count(
+        ext_ptr, n_ext, live_d, live_m, n_targets, gh, gw, width, reach[0],
+        reach[1], int(bool(mirror)), rows.data_ptr(), n_rows,
+        listed_off.data_ptr(), listed_pos.data_ptr(), codes.data_ptr(),
+        counts.data_ptr(), stream, dev.index)
+    if rc == 0:
+        torch.cumsum(counts, 0, dtype=torch.int32, out=row_off[1:])
+        rc = lib.cms_launch_table_write(
+            codes.data_ptr(), gh * gw, rows.data_ptr(), n_rows,
+            listed.data_ptr(), listed_off.data_ptr(), listed_pos.data_ptr(),
+            row_off.data_ptr(), tile_list.data_ptr(), stream, dev.index)
+    if rc != 0:
+        raise RuntimeError(f"launch_table kernel launch failed: "
+                           f"cudaError {rc}")
+    launch_table.launches += 1
+    return row_off, tile_list
+
+
+launch_table.launches = 0
+# tables built by the card's kernel, and by the host (the CPU)
+_DEVICE_TABLES = trace.counter("sweep.table.device_blocks")
+_HOST_TABLES = trace.counter("sweep.table.host_blocks")
 
 
 # ---- the scorer ----------------------------------------------------------
 
 @dataclass
 class LaunchTable:
-    """Host launch table of one exact launch."""
+    """Launch table of one exact launch: NumPy arrays (build_table) or
+    tensors on the launch's device (device_table, whose tile_list has room
+    for every candidate: its entries past row_off[R] are 0)."""
     row_off: np.ndarray     # int32 [R + 1] offsets into tile_list
     tile_list: np.ndarray   # int32 [L] tile | directions << DIR_SHIFT, by row
     tgt: np.ndarray         # int32 [R] target per row
-    surv: np.ndarray        # int32 [R] survivor flag (all 1 from build_table)
+    surv: np.ndarray        # int32 [R] survivor flag (all 1 when built)
     # engine position -> (row indices, their target indices)
     spans: dict = field(default_factory=dict)
 
@@ -506,24 +676,37 @@ class MultiMaskScorer:
             self._listed, np.cumsum([0] + [t.n_active for t in tiles]))
         cy, cx = coords[self._listed].T
         self._listed_pos = cy // TILE_H * self._grid[1] + cx // TILE_W
+        # the launch-table kernel's arguments: (listed, listed_off,
+        # listed_pos) as int32
+        self._l_host = tuple(a.astype(np.int32) for a in (
+            self._listed, self._listed_off, self._listed_pos))
+        self._l_dev = {}  # torch.device -> the listed tiles' tensors
+        # the shifts' reach (largest |dy|, |dx|)
+        self._reach = (max((abs(dy) for _, dy in self.shifts), default=0),
+                       max((abs(dx) for dx, _ in self.shifts), default=0))
+
+    @staticmethod
+    def _upload(cache: dict, host: tuple, device: torch.device) -> tuple:
+        got = cache.get(device)
+        if got is None:
+            got = tuple(torch.from_numpy(a).to(device) for a in host)
+            cache[device] = got
+        return got
 
     def _q_for(self, device: torch.device):
-        """The stacked query tensors on `device`, in the kernel's argument
-        order: (sel_off, sel_q, sel_f32, coords) or (sel_off, sel_q,
-        coords)."""
-        got = self._q_dev.get(device)
-        if got is None:
-            got = tuple(torch.from_numpy(a).to(device) for a in self._q_host)
-            self._q_dev[device] = got
-        return got
+        """The stacked query tensors on `device` (uploaded at first use),
+        in the kernel's argument order: (sel_off, sel_q, sel_f32, coords)
+        or (sel_off, sel_q, coords)."""
+        return self._upload(self._q_dev, self._q_host, device)
 
     def kernel_args(self, planes, table: LaunchTable) -> list:
         """The tensors of one launch in the order of the predicate's
         kernel: the target planes (pixel_active.pad_for_predicate), the
-        query tensors and the table's (row_off, tile_list, tgt, surv)."""
+        query tensors and the table's (row_off, tile_list, tgt, surv),
+        uploaded where the table is on the host."""
         dev = planes[0].device
         return (list(planes) + list(self._q_for(dev))
-                + [torch.from_numpy(a).to(dev) for a in
+                + [torch.as_tensor(a, device=dev) for a in
                    (table.row_off, table.tile_list, table.tgt, table.surv)])
 
     def kernel_tail(self) -> tuple:
@@ -566,16 +749,53 @@ class MultiMaskScorer:
         code = codes[np.repeat(dest * (self._grid[0] * self._grid[1]), cnt)
                      + self._listed_pos[idx]]
         keep = np.flatnonzero(code)
-        bounds = np.searchsorted(eng, np.arange(len(self.engines) + 1))
-        spans = {pos: (np.arange(a, b), dest[a:b]) for pos, (a, b)
-                 in enumerate(zip(bounds[:-1], bounds[1:])) if b > a}
         return LaunchTable(
             row_off=np.searchsorted(keep, np.append(starts, n_cand)
                                     ).astype(np.int32),
             tile_list=self._listed[idx[keep]]
             | (code[keep].astype(np.int32) << DIR_SHIFT),
             tgt=dest.astype(np.int32), surv=np.ones(len(eng), np.int32),
-            spans=spans)
+            spans=self._spans(eng, dest))
+
+    def _spans(self, eng: np.ndarray, dest: np.ndarray) -> dict:
+        """engine position -> (its row indices, their targets)."""
+        bounds = np.searchsorted(eng, np.arange(len(self.engines) + 1))
+        return {pos: (np.arange(a, b), dest[a:b]) for pos, (a, b)
+                in enumerate(zip(bounds[:-1], bounds[1:])) if b > a}
+
+    def device_table(self, survivors: np.ndarray, device,
+                     extents=None, tile_live=None) -> LaunchTable:
+        """build_table's table built on `device` by launch_table (the
+        card's kernel; on the CPU its plain version): extents (int32 [T, 2]
+        or [T, 4], signal_extents) and tile_live ((direct, mirrored) bool
+        [T, gh, gw], tile_live_dev) are read where they lie, NumPy inputs
+        are uploaded. The rows go up in one copy (pinned on a card);
+        tile_list has room for every candidate, which the host counts from
+        the survivors, so nothing waits for the device. Equal to
+        build_table's arrays bit for bit, up to row_off[R] of tile_list."""
+        device = torch.device(device)
+        survivors = np.asarray(survivors)
+        eng, dest = np.nonzero(survivors)
+        n_cand = int(np.diff(self._listed_off) @ np.count_nonzero(
+            survivors, axis=1))
+        cuda = device.type == "cuda"
+        host = torch.empty((2, len(eng)), dtype=torch.int32, pin_memory=cuda)
+        staged = host.numpy()
+        staged[0], staged[1] = eng, dest
+        rows = host.to(device, non_blocking=cuda)
+        if extents is not None:
+            extents = torch.as_tensor(extents, device=device)
+        if tile_live is not None:
+            tile_live = tuple(torch.as_tensor(t, device=device)
+                              for t in tile_live)
+        row_off, tile_list = launch_table(
+            rows, *self._upload(self._l_dev, self._l_host, device), n_cand,
+            survivors.shape[1], self._grid, self._width, self._reach,
+            self.mirror, extents, tile_live)
+        return LaunchTable(row_off=row_off, tile_list=tile_list, tgt=rows[1],
+                           surv=torch.ones(len(eng), dtype=torch.int32,
+                                           device=device),
+                           spans=self._spans(eng, dest))
 
     def _direction_codes(self, n_targets: int,
                          signal_ranges: Optional[np.ndarray],
@@ -585,8 +805,7 @@ class MultiMaskScorer:
         bit 1 mirrored) in which a tile there can score against that
         target (build_table's tests)."""
         gh, gw = self._grid
-        s = max((abs(dy) for _, dy in self.shifts), default=0)
-        sx = max((abs(dx) for dx, _ in self.shifts), default=0)
+        s, sx = self._reach
         live_d = np.ones((n_targets, gh, gw), bool)
         # the launch's mirror setting, not the engine's: a direction
         # leaves a row's list only by an exact test, so the kernel's
@@ -617,25 +836,42 @@ class MultiMaskScorer:
         return (live_d.view(np.uint8) | (live_m.view(np.uint8) << 1)).ravel()
 
     def launch_deferred(self, packed, survivors: np.ndarray,
-                        signal_ranges: Optional[np.ndarray] = None,
-                        tile_live: Optional[tuple] = None
+                        signal_ranges=None, tile_live=None
                         ) -> List[DeferredScore]:
         """Queue the exact sweep of ALL masks over one packed target block
         (on its device): packed is the predicate's padded target planes
-        (pixel_active.pad_for_predicate). Returns one
-        DeferredScore per engine (drain with pixel_active.drain_deferred:
-        the shared output is copied once)."""
+        (pixel_active.pad_for_predicate); signal_ranges and tile_live as
+        build_table's, NumPy or tensors (signal_extents, tile_live_dev).
+        A card builds the launch table itself (device_table), the CPU on
+        the host (build_table). Returns one DeferredScore per engine
+        (drain with pixel_active.drain_deferred: the shared output is
+        copied once)."""
         packed = tuple(packed)
         if tuple(packed[0].shape[1:]) != self.frame_shape:
             raise ValueError(f"padded frames {tuple(packed[0].shape[1:])} "
                              f"do not fit masks padded to {self.frame_shape}")
+        dev = packed[0].device
         tsz = packed[0].shape[0]
         surv_np = np.asarray(survivors).astype(np.int32)
         with trace.span("sweep.table"):
-            tab = self.build_table(surv_np, signal_ranges, tile_live)
+            if dev.type == "cuda":
+                _DEVICE_TABLES.add()
+                tab = self.device_table(surv_np, dev, signal_ranges,
+                                        tile_live)
+            else:
+                _HOST_TABLES.add()
+                tab = self.build_table(
+                    surv_np, _host(signal_ranges),
+                    None if tile_live is None
+                    else tuple(_host(t) for t in tile_live))
         out = self.counts(self.kernel_args(packed, tab))
         pendings = [[] for _ in self.engines]
         for pos, (rows, dest) in tab.spans.items():
             pendings[pos].append((dest, out, rows))
         return [DeferredScore(e, tsz, pendings[i], surv_np[i])
                 for i, e in enumerate(self.engines)]
+
+
+def _host(a):
+    """A tensor's values as a NumPy array (None stays None)."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else a

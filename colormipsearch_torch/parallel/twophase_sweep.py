@@ -3,8 +3,8 @@
 Counterpart of `colormipsearch_tpu/parallel/pallas_sweep.py` (:33-176).
 Targets are block-partitioned over the given devices and each device
 runs the whole pipeline on its shard: pack words, pad (for the ratio
-predicate, into its prepared target planes), prescreen bound, live tiles,
-exact kernel launch. Every (mask, target) score is
+predicate, into its prepared target planes), prescreen bound, live tiles
+and launch table, exact kernel launch. Every (mask, target) score is
 independent, so shards need no collectives. Launches are queued on each
 device's current stream; collect() drains a partition with one batched
 copy per device.
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..cds.multimask import (MultiMaskScorer, launch_params,
-                             signal_ranges_from_words, tile_live_from_words)
+                             signal_extents, tile_live_dev)
 from ..cds.pixel_active import drain_deferred, pad_for_predicate
 from ..cds.prescreen import sparse_query_rows
 from ..utils import trace
@@ -78,8 +78,8 @@ class TwoPhaseSweep:
     def launch(self, targets_u8: np.ndarray, stage: Optional[dict] = None,
                sync: bool = False):
         """Queue the full two-phase sweep of one target batch on every
-        device; returns a handle for collect(). Only the bounds copy and
-        the live tiles' copies to the host wait for a device.
+        device; returns a handle for collect(). Only the bounds copy to
+        the host waits for a device.
 
         stage: optional dict that accumulates host seconds per stage
         (pack, pad, bound, live, launch: the seconds of the spans
@@ -127,9 +127,11 @@ class TwoPhaseSweep:
                     stage["screened"] = stage.get("screened", 0) + int(
                         (survivors == 0).sum())
                 settle()
+        # the launch table's inputs, where the words are (a card builds
+        # the table there)
         with trace.timed("sweep.live", stage, "live"):
-            ranges = signal_ranges_from_words(words)
-            live = tile_live_from_words(words)
+            ranges = signal_extents(words)
+            live = tile_live_dev(words)
             del words
             settle()
         defs = [None] * len(self.engines)

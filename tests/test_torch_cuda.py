@@ -1,6 +1,6 @@
 """On a CUDA card: the target pack kernel (with its pinned staging), the
-exact multi-mask kernels (ratio and packed-word
-predicates), the two prescreen-bound kernels, the op-chain kernel and
+exact multi-mask kernels (ratio and packed-word predicates) and their
+launch table, the two prescreen-bound kernels, the op-chain kernel and
 gradientScores' four kernels (the shape scorer, the dilation, the query
 and the target planes) equal their plain PyTorch versions, and the
 two-phase sweep and gradientScores' batches (over two device slots, and
@@ -178,6 +178,51 @@ def test_kernel_equals_plain(card, xy_shift, mirror, flags_off):
     assert torch.equal(got.cpu(), cpu)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("xy_shift,mirror", [(2, True), (2, False),
+                                             (0, True)])
+def test_launch_table_kernel_equals_build_table(card, xy_shift, mirror):
+    """The card's launch table (`csrc/launch_table.cu`, from the signal
+    extents and live-tile bitmaps where they lie on the card) equals
+    build_table's from their host copies bit for bit, its room past
+    row_off[R] left 0; the kernel equals its plain version on the same
+    tensors with and without each input; K1's counts from both tables are
+    equal."""
+    masks, targets, surv = _library()
+    engines = [ActiveTilePixelEngine(q, 20, mirror, 20, 1.0, xy_shift)
+               for q in masks]
+    words = engines[0].pack_raw_words(targets, card)
+    scorer = mm.MultiMaskScorer(engines)
+    ext, live = mm.signal_extents(words), mm.tile_live_dev(words)
+    want = scorer.build_table(surv, mm.signal_ranges_from_words(words),
+                              mm.tile_live_from_words(words))
+    before = mm.launch_table.launches
+    got = scorer.device_table(surv, card, ext, live)
+    assert mm.launch_table.launches == before + 1
+    n = int(got.row_off[-1])
+    np.testing.assert_array_equal(got.row_off.cpu().numpy(), want.row_off)
+    np.testing.assert_array_equal(got.tile_list[:n].cpu().numpy(),
+                                  want.tile_list)
+    assert not got.tile_list[n:].any()
+    np.testing.assert_array_equal(got.tgt.cpu().numpy(), want.tgt)
+    np.testing.assert_array_equal(got.surv.cpu().numpy(), want.surv)
+    eng, dest = np.nonzero(surv)
+    rows = torch.from_numpy(np.stack([eng, dest]).astype(np.int32)).to(card)
+    common = (rows, *scorer._upload(scorer._l_dev, scorer._l_host, card),
+              got.tile_list.numel(), surv.shape[1], scorer._grid,
+              scorer._width, scorer._reach, scorer.mirror)
+    for e, lv in ((ext, live), (ext[:, :2].contiguous(), live),
+                  (ext, None), (None, live), (None, None)):
+        k = mm.launch_table(*common, e, lv)
+        p = mm.launch_table_plain(*common, e, lv)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    packed = engines[0].pad_ratio_planes(words)
+    counts = [scorer.counts(scorer.kernel_args(packed, t))
+              for t in (got, want)]
+    assert torch.equal(counts[0], counts[1])
+    assert counts[0].any()
+
+
 def _banded(targets):
     """A copy of the targets with a 10 x 24 band of each kept (the rest 0):
     below a quarter occupancy, so the host path takes the sparse feed."""
@@ -195,7 +240,8 @@ def _banded(targets):
 def test_sweep_on_card_equals_cpu(card, feed):
     """TwoPhaseSweep's scores and mirrored flags on the card equal the
     CPU path's; each launched partition is packed by the card's kernel
-    (sweep.pack.device_blocks), none by the host path."""
+    (sweep.pack.device_blocks) and gets its launch table from the card's
+    (sweep.table.device_blocks), none from the host path."""
     masks, targets, _ = _library()
     if feed == "banded":
         targets = _banded(targets)
@@ -217,6 +263,8 @@ def test_sweep_on_card_equals_cpu(card, feed):
     added = trace.counts(before)
     assert added["sweep.pack.device_blocks"] == 4
     assert added.get("sweep.pack.host_blocks", 0) == 0
+    assert added["sweep.table.device_blocks"] == 4
+    assert added.get("sweep.table.host_blocks", 0) == 0
     # the one-mask route (no screen) launches the same kernel
     one = drain_deferred([e.score_packed_deferred(
         e.prepare_targets(targets, card)) for e in engines[:2]])

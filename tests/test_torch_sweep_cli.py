@@ -339,12 +339,14 @@ def test_stage_totals_are_the_spans(library):
     for s in spans:
         if s.parent is not None:
             parent_of.setdefault(s.name, set()).add(by_id[s.parent].name)
-    assert parent_of["sweep.wait"] == {"sweep.bound", "sweep.live",
-                                       "sweep.collect"}
+    # the live tiles stay where the words are: no copy waits under them
+    assert parent_of["sweep.wait"] == {"sweep.bound", "sweep.collect"}
     assert parent_of["sweep.table"] == {"sweep.exact_launch"}
     assert parent_of["sweep.pack"] == {"sweep.part"}
     # two device blocks a partition: two of each stage span per part
     assert sum(s.name == "sweep.pack" for s in spans) == 6
+    assert got["counters"]["sweep.table.host_blocks"] == 6
+    assert "sweep.table.device_blocks" not in got["counters"]
 
 
 @pytest.mark.parametrize("prescreen", ["on", "off"])

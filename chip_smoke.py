@@ -7,12 +7,12 @@ the sources in the checkout and drives the colorDepthSearch path on both
 exact predicates, gradientScores, the production pipeline and the op
 microbench:
 
-1. card: nvidia-smi name and power limit; the eight kernel libraries
+1. card: nvidia-smi name and power limit; the nine kernel libraries
    (multimask_ratio, multimask_words, op_chain, prescreen_bound,
-   shape_score, shape_planes, target_pack, launch_table) built in
-   parallel, with their build seconds, registers and shared memory; the
-   native host word packer of the CPU's pack (g++), which must build and
-   load;
+   shape_score, shape_planes, target_pack, launch_table, row_reduce)
+   built in parallel, with their build seconds, registers and shared
+   memory; the native host word packer of the CPU's pack (g++), which
+   must build and load;
 2. each exact kernel against its plain PyTorch version, exactly, on a
    random library of full 566x1210 frames (16 masks x 64 targets): sparse
    and dense survivors, a mask with zero survivors, one survivor at the
@@ -34,13 +34,13 @@ microbench:
    (`dense_capped_bounds`, the port's bound before its two kernels): 439
    among mask 0's scores, each path's exact kernel launched and the other
    not, the bound's two kernels once per partition (none on the dense
-   path), the target pack and the launch-table kernels once per
-   partition on every path, the three paths' scores equal on all
-   524,288 pairs, each exact kernel equal to its plain version on
-   partition 0's whole table, 32 masks' one-launch scores equal to the
-   sweep's; pairs/s of the paths in
-   turns, survivor rate, stage seconds, peak memory, and each kernel on
-   partition 0 over all masks with its work (evaluations that can count,
+   path), the target pack, the launch-table and the collect's reduction
+   kernels once per partition on every path, the three paths' scores
+   equal on all 524,288 pairs, each exact kernel equal to its plain
+   version on partition 0's whole table, 32 masks' one-launch scores
+   equal to the sweep's; pairs/s of the paths in turns, survivor rate,
+   stage seconds, peak memory, and each kernel on partition 0 over all
+   masks with its work (evaluations that can count,
    staged bytes), its bound and its share of it, and its pixel loop's
    SASS instructions per evaluation by pipe; the target pack kernel on a
    500-target block (the benchmark's partition) equal to its plain version
@@ -50,7 +50,10 @@ microbench:
    predicates) and on a 500-target block (ratio) equal to its plain
    version and to the host's build_table bit for bit, the exact counts
    from both tables equal, its kernels' device time and the whole
-   build's beside its bound, and the host build's seconds. The timed
+   build's beside its bound, and the host build's seconds; the collect's
+   reduction on that block (both predicates) equal to its plain version,
+   its device time beside its bound, the whole call's and the host's
+   unpack of the copied block. The timed
    round is the
    pipelined partition loop of the CLI (`TwoPhaseSweep.sweep_parts`);
 5. the op microbench (`python -m colormipsearch_torch.scripts.op_microbench
@@ -231,6 +234,9 @@ KERNELS = {
     # the exact launch's table, replacing the host's build
     "launch_table": ("colormipsearch_torch/csrc/launch_table.cu",
                      "colormipsearch_tpu/cds/multimask.py:529"),
+    # the collect's reduction of the exact counts, replacing the host's
+    "row_reduce": ("colormipsearch_torch/csrc/row_reduce.cu",
+                   "colormipsearch_tpu/cds/pixel_pallas.py:995"),
 }
 SHAPE_KERNELS = ("shape_rows", "dilate_rgb", "query_planes", "target_planes")
 # the kernel libraries, one per source (cds/kernels.py)
@@ -866,6 +872,60 @@ def table_at_size(checks, dev, scorer, survivors, words, tab, planes):
             "kept": n}
 
 
+def reduce_at_size(checks, dev, scorer, survivors, words, planes):
+    """The collect's reduction (R1) of one block's exact counts, as the
+    sweep launches it (the card's launch table, the predicate's kernel):
+    equal to its plain version; the kernel's device time (torch.profiler,
+    profiled_ms) beside its bound (bytes: each row's counts, engine and
+    target read and its value written, at 3.35 TB/s), the whole call's
+    (CUDA events: the zeroed block too) and the host's wait and unpack of
+    one block (ScoreBlock: the pinned copy queued behind the kernel)."""
+    import torch
+    from colormipsearch_torch.cds import multimask as mm
+    from colormipsearch_torch.scripts.op_microbench import cuda_ms
+    ext, live = mm.signal_extents(words), mm.tile_live_dev(words)
+    tab = scorer.device_table(survivors, dev, ext, live)
+    counts = scorer.counts(scorer.kernel_args(planes, tab))
+    n_rows, nv = counts.shape
+    n_b, n_t = survivors.shape
+    args = (counts, tab.eng, tab.tgt,
+            *scorer._upload(scorer._f_dev, scorer._f_host, dev))
+    plain_run = {}
+
+    def plain_once():
+        plain_run["out"], plain_run["ms"] = event_ms(
+            lambda: mm.row_reduce_plain(*args, n_t))
+        return plain_run["out"]
+
+    checks["row_reduce"].compare(
+        f"{scorer.predicate}, {n_rows} rows x {nv} counts into {n_b} x "
+        f"{n_t}", lambda: mm.row_reduce(*args, n_t), plain_once)
+    kernel_ms = profiled_ms(lambda: mm.row_reduce(*args, n_t),
+                            ("row_reduce_kernel",))
+    call_ms = cuda_ms(lambda: mm.row_reduce(*args, n_t), 5)
+    collect_ms = []
+    for _ in range(3):
+        block = mm.ScoreBlock(mm.row_reduce(*args, n_t))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block.result()
+        collect_ms.append(1e3 * (time.perf_counter() - t0))
+    n_bytes = n_rows * (4 * nv + 12)
+    bound_ms = 1e3 * n_bytes / 3.35e12
+    log(f"[phase 4] collect reduction, {scorer.predicate}, {n_t} targets: "
+        f"{n_rows} rows x {nv} counts, == plain; kernel {kernel_ms:.4f} ms, "
+        f"whole call {call_ms:.4f} ms (the {n_b} x {n_t} block zeroed), "
+        f"plain version {plain_run['ms']:.3f} ms, bound {bound_ms:.4f} ms "
+        f"by bytes ({n_bytes / 1e9:.4f} GB): kernel at "
+        f"{100 * bound_ms / kernel_ms:.1f} % of it; the host's wait and "
+        f"unpack of a landed block " + ", ".join(
+            f"{v:.3f}" for v in collect_ms) + " ms")
+    return {"ms": kernel_ms, "plain_ms": plain_run["ms"],
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "call_ms": call_ms, "unpack_ms": min(collect_ms),
+            "rows": n_rows}
+
+
 def dense_capped_bounds(screen, u_matrix, t_words):
     """The count-capped bound as the port computed it before its two
     kernels: the dense fp32 products of
@@ -981,7 +1041,8 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
     wrappers = {p: fns[0] for p, fns in mm.PREDICATE_KERNELS.items()}
     wrappers.update(prescreen_cells=ps.prescreen_cells,
                     prescreen_capped=ps.prescreen_capped,
-                    target_pack=pa.pack_words, launch_table=mm.launch_table)
+                    target_pack=pa.pack_words, launch_table=mm.launch_table,
+                    row_reduce=mm.row_reduce)
 
     def run(sweep, stage, sync=False):
         """The CLI's partition loop: partition p+1 is launched before p is
@@ -1013,6 +1074,7 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
         if launches[path][own] == 0 or launches[path][other] != 0 \
                 or launches[path]["target_pack"] != len(parts) \
                 or launches[path]["launch_table"] != len(parts) \
+                or launches[path]["row_reduce"] != len(parts) \
                 or screens != ((0, 0) if path == "dense"
                                else (len(parts), len(parts))):
             raise SystemExit(f"the {path} path did not run through its "
@@ -1148,6 +1210,14 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
                                   host_table_s=host_s)
     log(f"[phase 4] launch table, 500 targets: host build_table "
         f"{host_s:.4f} s")
+    # the collect's reduction of the same block, both predicates (the
+    # ratio path's timing, the benchmark's, is kept)
+    for path in ("words", "ratio"):
+        (_, everyone), = sweeps[path].groups
+        timing["row_reduce"] = reduce_at_size(
+            checks, dev, everyone, block_surv, block_words,
+            pad_for_predicate(block_words, path))
+    timing["row_reduce"]["launches"] = launches["ratio"]["row_reduce"]
     del block_words
     if profile_dir is not None:
         part_words = [engines[0].pack_raw_words(tp, dev) for tp in parts]
@@ -3335,7 +3405,7 @@ def main():
     checks = {name: Check(name) for name in
               ("multimask_ratio", "multimask_words", "prescreen_cells",
                "prescreen_capped", "target_pack", "launch_table",
-               *SHAPE_KERNELS)}
+               "row_reduce", *SHAPE_KERNELS)}
     phase_kernel_vs_plain(checks, dev)
     with tempfile.TemporaryDirectory() as ws:
         phase_cli(ws, "1")

@@ -112,6 +112,10 @@ BINDINGS = {
             _P, _I, _P, _I,      # codes, grid positions, rows, n rows
             _P, _P, _P,          # listed, listed_off, listed_pos
             _P, _P, _P, _I]},    # row_off, tile_list, stream, device
+    "row_reduce": {"cms_row_reduce": [
+        _P, _I, _I,              # counts, n rows, variants a row
+        _P, _P, _P, _I,          # eng, tgt, engine flags, targets
+        _P, _P, _I]},            # out, stream, device
 }
 LIBRARIES = tuple(BINDINGS)
 # entry points that return a count, not an error
@@ -135,15 +139,16 @@ _loaded: Dict[str, KernelLibrary] = {}
 def path_wrappers() -> Dict[str, object]:
     """{kernel: wrapper} of every kernel the production pipeline can
     launch: colorDepthSearch's target pack, exact kernels of both
-    predicates, their launch table and the prescreen bound's two, and
-    gradientScores' four (G1-G4). Each wrapper's `.launches` counts its
-    kernel's launches in this process."""
+    predicates, their launch table and their collect's reduction, the
+    prescreen bound's two, and gradientScores' four (G1-G4). Each
+    wrapper's `.launches` counts its kernel's launches in this process."""
     from . import (multimask, pixel_active, prescreen, shape_device,
                    shape_kernel)
     return {"target_pack": pixel_active.pack_words,
             "multimask_ratio": multimask.multimask_counts,
             "multimask_words": multimask.multimask_words_counts,
             "launch_table": multimask.launch_table,
+            "row_reduce": multimask.row_reduce,
             "prescreen_cells": prescreen.prescreen_cells,
             "prescreen_capped": prescreen.prescreen_capped,
             "shape_rows": shape_kernel.shape_rows,

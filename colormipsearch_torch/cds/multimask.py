@@ -27,6 +27,11 @@ mask of a target partition.
   (`window_bins`: one bin per target and tile position, so a window is
   staged once for every mask that reads it) and launches one block per
   bin. Each wrapper's `.launches` counts its kernel launches.
+- The collect: `row_reduce` (`csrc/row_reduce.cu`, R1; plain version
+  `row_reduce_plain` on the CPU), queued behind the exact kernel, reduces
+  each row's counts to its mask's score and mirrored flag in a dense
+  [masks, targets] block, which a ScoreBlock copies to the host once,
+  queued at launch (pinned memory and an event on a card).
 
 Left out: the tier-2 bin-compat gate (CMS_MM_TIER2=1, off by default in
 the reference), which cut more of each row's list but lowered the
@@ -38,7 +43,7 @@ Mosaic's SMEM limits and compile costs.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -598,6 +603,112 @@ _DEVICE_TABLES = trace.counter("sweep.table.device_blocks")
 _HOST_TABLES = trace.counter("sweep.table.host_blocks")
 
 
+# ---- the collect: counts to scores on the device ---------------------------
+
+# each engine's row_reduce flags: it mirrors the query; it has no query
+# pixel (it scores 0)
+ROW_MIRROR, ROW_EMPTY = 1, 2
+MIRRORED_BIT = -(1 << 31)  # bit 31 of an int32 block value: mirrored
+
+
+def row_reduce_plain(counts, eng, tgt, flags, n_targets: int):
+    """Plain PyTorch version of the collect's reduction (same arguments).
+
+    counts: int32 [R, 2S] per-variant counts (multimask_counts': direct
+    variants, then mirrored); eng and tgt: int32 [R] each row's engine and
+    target; flags: uint8 [B] each engine's ROW_MIRROR and ROW_EMPTY bits.
+    Returns int32 [B, n_targets], 0 but at each row's (engine, target):
+    best | mirrored << 31, where best is the direct variants' maximum, or
+    where the engine mirrors the maximum of all, and mirrored says the
+    mirrored maximum passes the direct one (strict: ties stay direct);
+    an empty engine's best is 0."""
+    out = torch.zeros(flags.numel() * n_targets, dtype=torch.int32,
+                      device=counts.device)
+    if counts.shape[0]:
+        s = counts.shape[1] // 2
+        direct = counts[:, :s].amax(dim=1)
+        mirror = counts[:, s:].amax(dim=1)
+        e = eng.to(torch.int64)
+        f = flags.to(torch.int32)[e]
+        mirrored = ((f & ROW_MIRROR) != 0) & (mirror > direct)
+        best = torch.where(mirrored, mirror, direct)
+        best = torch.where((f & ROW_EMPTY) != 0, torch.zeros_like(best),
+                           best)
+        out[e * n_targets + tgt.to(torch.int64)] = torch.where(
+            mirrored, best | MIRRORED_BIT, best)
+    return out.reshape(flags.numel(), n_targets)
+
+
+def row_reduce(counts, eng, tgt, flags, n_targets: int):
+    """The collect's reduction (see row_reduce_plain). CPU tensors run the
+    plain version. CUDA tensors launch the card's kernel
+    (`csrc/row_reduce.cu`, built at first use) or raise; nothing waits for
+    the card."""
+    args = (counts, eng, tgt, flags)
+    if not _on_cuda(args):
+        return row_reduce_plain(*args, n_targets)
+    lib = kernels.load_library("row_reduce").lib
+    dev = counts.device
+    _check("counts", counts, torch.int32, 2, dev)
+    for name, t in (("eng", eng), ("tgt", tgt)):
+        _check(name, t, torch.int32, 1, dev)
+    _check("flags", flags, torch.uint8, 1, dev)
+    n_rows, nv = counts.shape
+    if eng.numel() != n_rows or tgt.numel() != n_rows:
+        raise ValueError("eng and tgt need one entry per row of counts")
+    out = torch.zeros((flags.numel(), n_targets), dtype=torch.int32,
+                      device=dev)
+    if n_rows == 0:
+        return out
+    rc = lib.cms_row_reduce(
+        counts.data_ptr(), n_rows, nv, eng.data_ptr(), tgt.data_ptr(),
+        flags.data_ptr(), n_targets, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    if rc != 0:
+        raise RuntimeError(f"row_reduce kernel launch failed: "
+                           f"cudaError {rc}")
+    row_reduce.launches += 1
+    return out
+
+
+row_reduce.launches = 0
+# blocks reduced by the card's kernel, and by the plain version (the CPU)
+_DEVICE_COLLECTS = trace.counter("sweep.collect.device_blocks")
+_HOST_COLLECTS = trace.counter("sweep.collect.host_blocks")
+
+
+class ScoreBlock:
+    """One launch's scores on their way to the host: row_reduce's int32
+    [B, T] block, copied once. On a card the copy goes into pinned memory,
+    non_blocking, queued behind the reduction with an event recorded
+    behind it, so nothing waits until the block is read; on the CPU the
+    block is already on the host."""
+
+    def __init__(self, block: torch.Tensor):
+        self._event = None
+        if block.device.type == "cuda":
+            host = torch.empty(block.shape, dtype=block.dtype,
+                               pin_memory=True)
+            host.copy_(block, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(block.device))
+            block = host
+        self._block = block
+        self._result = None
+
+    def result(self):
+        """(scores int64 [B, T], mirrored bool [B, T]), once the copy has
+        landed (the wait is a `sweep.wait` span)."""
+        if self._result is None:
+            with trace.span("sweep.wait"):
+                if self._event is not None:
+                    self._event.synchronize()
+            v = self._block.numpy()
+            self._result = ((v & ~MIRRORED_BIT).astype(np.int64), v < 0)
+            self._block = self._event = None
+        return self._result
+
+
 # ---- the scorer ----------------------------------------------------------
 
 @dataclass
@@ -609,8 +720,7 @@ class LaunchTable:
     tile_list: np.ndarray   # int32 [L] tile | directions << DIR_SHIFT, by row
     tgt: np.ndarray         # int32 [R] target per row
     surv: np.ndarray        # int32 [R] survivor flag (all 1 when built)
-    # engine position -> (row indices, their target indices)
-    spans: dict = field(default_factory=dict)
+    eng: Optional[np.ndarray] = None  # int32 [R] engine position per row
 
 
 def launch_params(engine) -> tuple:
@@ -681,6 +791,12 @@ class MultiMaskScorer:
         self._l_host = tuple(a.astype(np.int32) for a in (
             self._listed, self._listed_off, self._listed_pos))
         self._l_dev = {}  # torch.device -> the listed tiles' tensors
+        # row_reduce's engine flags, uint8 [B]
+        self._f_host = (np.array(
+            [(ROW_MIRROR if e.mirror_query else 0)
+             | (ROW_EMPTY if e.tiles.query_size == 0 else 0)
+             for e in self.engines], np.uint8),)
+        self._f_dev = {}  # torch.device -> the flags' tensor
         # the shifts' reach (largest |dy|, |dx|)
         self._reach = (max((abs(dy) for _, dy in self.shifts), default=0),
                        max((abs(dx) for dx, _ in self.shifts), default=0))
@@ -755,13 +871,7 @@ class MultiMaskScorer:
             tile_list=self._listed[idx[keep]]
             | (code[keep].astype(np.int32) << DIR_SHIFT),
             tgt=dest.astype(np.int32), surv=np.ones(len(eng), np.int32),
-            spans=self._spans(eng, dest))
-
-    def _spans(self, eng: np.ndarray, dest: np.ndarray) -> dict:
-        """engine position -> (its row indices, their targets)."""
-        bounds = np.searchsorted(eng, np.arange(len(self.engines) + 1))
-        return {pos: (np.arange(a, b), dest[a:b]) for pos, (a, b)
-                in enumerate(zip(bounds[:-1], bounds[1:])) if b > a}
+            eng=eng.astype(np.int32))
 
     def device_table(self, survivors: np.ndarray, device,
                      extents=None, tile_live=None) -> LaunchTable:
@@ -794,8 +904,7 @@ class MultiMaskScorer:
             self.mirror, extents, tile_live)
         return LaunchTable(row_off=row_off, tile_list=tile_list, tgt=rows[1],
                            surv=torch.ones(len(eng), dtype=torch.int32,
-                                           device=device),
-                           spans=self._spans(eng, dest))
+                                           device=device), eng=rows[0])
 
     def _direction_codes(self, n_targets: int,
                          signal_ranges: Optional[np.ndarray],
@@ -835,23 +944,21 @@ class MultiMaskScorer:
                                    & (cx <= w - 1 - c0 + sx))[:, None, :]
         return (live_d.view(np.uint8) | (live_m.view(np.uint8) << 1)).ravel()
 
-    def launch_deferred(self, packed, survivors: np.ndarray,
-                        signal_ranges=None, tile_live=None
-                        ) -> List[DeferredScore]:
+    def launch_block(self, packed, survivors: np.ndarray,
+                     signal_ranges=None, tile_live=None) -> ScoreBlock:
         """Queue the exact sweep of ALL masks over one packed target block
-        (on its device): packed is the predicate's padded target planes
-        (pixel_active.pad_for_predicate); signal_ranges and tile_live as
-        build_table's, NumPy or tensors (signal_extents, tile_live_dev).
-        A card builds the launch table itself (device_table), the CPU on
-        the host (build_table). Returns one DeferredScore per engine
-        (drain with pixel_active.drain_deferred: the shared output is
-        copied once)."""
+        (on its device), its reduction to scores and mirrored flags
+        (row_reduce) and their copy to the host: packed is the predicate's
+        padded target planes (pixel_active.pad_for_predicate);
+        signal_ranges and tile_live as build_table's, NumPy or tensors
+        (signal_extents, tile_live_dev). A card builds the launch table
+        itself (device_table), the CPU on the host (build_table). Returns
+        the launch's ScoreBlock, its rows in engine order."""
         packed = tuple(packed)
         if tuple(packed[0].shape[1:]) != self.frame_shape:
             raise ValueError(f"padded frames {tuple(packed[0].shape[1:])} "
                              f"do not fit masks padded to {self.frame_shape}")
         dev = packed[0].device
-        tsz = packed[0].shape[0]
         surv_np = np.asarray(survivors).astype(np.int32)
         with trace.span("sweep.table"):
             if dev.type == "cuda":
@@ -864,11 +971,21 @@ class MultiMaskScorer:
                     surv_np, _host(signal_ranges),
                     None if tile_live is None
                     else tuple(_host(t) for t in tile_live))
-        out = self.counts(self.kernel_args(packed, tab))
-        pendings = [[] for _ in self.engines]
-        for pos, (rows, dest) in tab.spans.items():
-            pendings[pos].append((dest, out, rows))
-        return [DeferredScore(e, tsz, pendings[i], surv_np[i])
+        counts = self.counts(self.kernel_args(packed, tab))
+        eng, tgt = (torch.as_tensor(a, device=dev) for a in (tab.eng, tab.tgt))
+        (_DEVICE_COLLECTS if dev.type == "cuda" else _HOST_COLLECTS).add()
+        return ScoreBlock(row_reduce(
+            counts, eng, tgt, *self._upload(self._f_dev, self._f_host, dev),
+            packed[0].shape[0]))
+
+    def launch_deferred(self, packed, survivors: np.ndarray,
+                        signal_ranges=None, tile_live=None
+                        ) -> List[DeferredScore]:
+        """launch_block's launch, as one DeferredScore per engine (drain
+        with pixel_active.drain_deferred: the block is copied once)."""
+        block = self.launch_block(packed, survivors, signal_ranges,
+                                  tile_live)
+        return [DeferredScore(e, block, i)
                 for i, e in enumerate(self.engines)]
 
 

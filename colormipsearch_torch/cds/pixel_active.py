@@ -606,94 +606,31 @@ def pad_for_predicate(words: torch.Tensor, predicate: str
 class DeferredScore:
     """Handle for an in-flight exact sweep (one mask x one target block).
 
-    The kernel launches are queued on the device when this object is
-    built; calling it copies the per-variant counts to the host and
-    reduces them to (best_scores int64[T], ratios f64[T], mirrored
-    bool[T]). For a mask sweep use drain_deferred, which copies every
-    pending buffer in one batch."""
+    The launch, the reduction of its counts to scores and mirrored flags
+    and the copy of those to the host are queued when this object is built
+    (multimask.MultiMaskScorer.launch_block; the engines of one launch
+    share its ScoreBlock); calling it waits for that copy and returns
+    (best_scores int64[T], ratios f64[T], mirrored bool[T]), the ratios
+    best / query_size (0 for a mask without a query pixel)."""
 
-    def __init__(self, engine, tsz: int, pending, surv_np):
+    def __init__(self, engine, block, row: int):
         self._engine = engine
-        self._tsz = tsz
-        # [(dest target indices, device counts [rows, 2S], row indices)];
-        # a device buffer may be shared by several DeferredScores
-        self._pending = pending
-        self._surv_np = surv_np
+        self._block = block  # multimask.ScoreBlock
+        self._row = row      # the engine's row of the block
         self._result = None
-
-    def device_outputs(self):
-        return [dev for _, dev, _ in self._pending]
-
-    def finalize(self, hosts):
-        """Reduce already-copied host arrays (same order as
-        device_outputs()) to the scoring triple."""
-        if self._result is not None:
-            return self._result
-        eng = self._engine
-        n = len(eng.shifts)
-        out = np.zeros((self._tsz, 2 * n), dtype=np.int64)
-        for (dest, _, rows), host in zip(self._pending, hosts):
-            out[dest] = np.asarray(host)[rows]
-        if self._surv_np is not None:
-            # non-survivor rows report 0
-            out = out * self._surv_np.astype(np.int64)[:, None]
-        direct = out[:, :n].max(axis=1)
-        if eng.mirror_query:
-            mirror = out[:, n:].max(axis=1)
-            best = np.maximum(direct, mirror)
-            mirrored = mirror > direct  # strict: ties stay direct
-        else:
-            best = direct
-            mirrored = np.zeros_like(direct, dtype=bool)
-        if eng.tiles.query_size == 0:
-            z = np.zeros_like(best)
-            self._result = (z, np.zeros_like(best, dtype=np.float64),
-                            mirrored)
-        else:
-            ratios = best.astype(np.float64) / float(eng.tiles.query_size)
-            self._result = (best.astype(np.int64), ratios, mirrored)
-        return self._result
 
     def __call__(self):
         if self._result is None:
-            drain_deferred([self])
+            scores, mirrored = self._block.result()
+            best, q = scores[self._row], self._engine.tiles.query_size
+            ratios = (np.zeros(best.shape, np.float64) if q == 0
+                      else best.astype(np.float64) / float(q))
+            self._result = (best, ratios, mirrored[self._row])
+            self._block = None
         return self._result
 
 
-def _to_host(tensors):
-    """One batched copy per device: the flattened buffers of a device are
-    concatenated on it and copied to the host together."""
-    by_dev = {}
-    for i, t in enumerate(tensors):
-        by_dev.setdefault(t.device, []).append(i)
-    hosts = [None] * len(tensors)
-    for idxs in by_dev.values():
-        flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
-        with trace.span("sweep.wait"):
-            flat = flat.cpu().numpy()
-        off = 0
-        for i in idxs:
-            n = tensors[i].numel()
-            hosts[i] = flat[off:off + n].reshape(tuple(tensors[i].shape))
-            off += n
-    return hosts
-
-
 def drain_deferred(deferreds):
-    """Drain many DeferredScores with one batched copy per device;
-    buffers shared by several handles are copied once."""
-    flat, seen, spans = [], {}, []
-    for d in deferreds:
-        outs = d.device_outputs() if d._result is None else []
-        ids = []
-        for o in outs:
-            key = id(o)
-            if key not in seen:
-                seen[key] = len(flat)
-                flat.append(o)
-            ids.append(seen[key])
-        spans.append(ids)
-    hosts = _to_host(flat) if flat else []
-    return [d.finalize([hosts[i] for i in ids])
-            if d._result is None else d._result
-            for d, ids in zip(deferreds, spans)]
+    """Drain many DeferredScores: each launch's block is copied once,
+    however many handles share it."""
+    return [d() for d in deferreds]

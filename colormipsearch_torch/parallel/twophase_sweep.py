@@ -4,10 +4,11 @@ Counterpart of `colormipsearch_tpu/parallel/pallas_sweep.py` (:33-176).
 Targets are block-partitioned over the given devices and each device
 runs the whole pipeline on its shard: pack words, pad (for the ratio
 predicate, into its prepared target planes), prescreen bound, live tiles
-and launch table, exact kernel launch. Every (mask, target) score is
-independent, so shards need no collectives. Launches are queued on each
-device's current stream; collect() drains a partition with one batched
-copy per device.
+and launch table, exact kernel launch, and the reduction of its counts
+to scores and mirrored flags (row_reduce) with their copy to the host.
+Every (mask, target) score is independent, so shards need no
+collectives. Launches are queued on each device's current stream;
+collect() waits for a partition's copies and unpacks each block.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ..cds.multimask import (MultiMaskScorer, launch_params,
                              signal_extents, tile_live_dev)
-from ..cds.pixel_active import drain_deferred, pad_for_predicate
+from ..cds.pixel_active import pad_for_predicate
 from ..cds.prescreen import sparse_query_rows
 from ..utils import trace
 
@@ -89,7 +90,7 @@ class TwoPhaseSweep:
         include its device work (a profiling aid: it stops the device
         work of one stage from overlapping the next)."""
         tsz = targets_u8.shape[0]
-        launched = []  # (offset, length, [DeferredScore per mask])
+        launched = []  # (offset, length, [(mask indices, ScoreBlock)])
         with trace.span("sweep.part") as part:
             for dev, (off, ln) in zip(self.devices,
                                       device_blocks(tsz, len(self.devices))):
@@ -101,7 +102,8 @@ class TwoPhaseSweep:
         return tsz, launched, part.job
 
     def _launch_block(self, targets_u8: np.ndarray, dev, stage, sync):
-        """launch() on one device's block: [DeferredScore per mask]."""
+        """launch() on one device's block: [(mask indices, ScoreBlock)],
+        one per group."""
         def settle():
             if sync:
                 torch.cuda.synchronize(dev)
@@ -134,33 +136,28 @@ class TwoPhaseSweep:
             live = tile_live_dev(words)
             del words
             settle()
-        defs = [None] * len(self.engines)
         with trace.timed("sweep.exact_launch", stage, "launch"):
-            for idx, scorer in self.groups:
-                for i, d in zip(idx, scorer.launch_deferred(
-                        packed[scorer.predicate], survivors[idx],
-                        signal_ranges=ranges, tile_live=live)):
-                    defs[i] = d
+            blocks = [(idx, scorer.launch_block(
+                packed[scorer.predicate], survivors[idx],
+                signal_ranges=ranges, tile_live=live))
+                for idx, scorer in self.groups]
             settle()
-        return defs
+        return blocks
 
     def collect(self, handle):
-        """Drain one launch()'s results (all devices, all masks); returns
-        (scores int64 [B, T], mirrored bool [B, T]) in target order."""
+        """Drain one launch()'s results (all devices, all masks): each
+        group's block, once its copy has landed; returns (scores int64
+        [B, T], mirrored bool [B, T]) in target order."""
         tsz, launched, job = handle
         bsz = len(self.engines)
         scores = np.zeros((bsz, tsz), dtype=np.int64)
         mirrored = np.zeros((bsz, tsz), dtype=bool)
         with trace.span("sweep.collect", job=job):
-            results = drain_deferred([d for _, _, defs in launched
-                                      for d in defs])
-            k = 0
-            for off, ln, _ in launched:
-                for i in range(bsz):
-                    s, _, m = results[k]
-                    scores[i, off:off + ln] = s
-                    mirrored[i, off:off + ln] = m
-                    k += 1
+            for off, ln, blocks in launched:
+                for idx, block in blocks:
+                    s, m = block.result()
+                    scores[idx, off:off + ln] = s
+                    mirrored[idx, off:off + ln] = m
         return scores, mirrored
 
     def sweep(self, targets_u8: np.ndarray, stage: Optional[dict] = None):
@@ -172,8 +169,9 @@ class TwoPhaseSweep:
         """Pipelined sweep of many partitions: yields (key, scores,
         mirrored) for each (key, targets_u8) of `parts`, in order.
         Partition p+1 is launched before partition p is collected, so the
-        host work of p's drain and of the caller's use of p overlaps the
-        device work of p+1."""
+        host work of p's collect and of the caller's use of p overlaps the
+        device work of p+1; p's copy to the host is queued behind p's own
+        launch, so its collect does not wait for p+1's."""
         inflight = None
         for key, targets_u8 in parts:
             nxt = (key, self.launch(targets_u8, stage, sync))

@@ -1,6 +1,7 @@
 """On a CUDA card: the target pack kernel (with its pinned staging), the
-exact multi-mask kernels (ratio and packed-word predicates) and their
-launch table, the two prescreen-bound kernels, the op-chain kernel and
+exact multi-mask kernels (ratio and packed-word predicates), their
+launch table and their collect's reduction, the two prescreen-bound
+kernels, the op-chain kernel and
 gradientScores' four kernels (the shape scorer, the dilation, the query
 and the target planes) equal their plain PyTorch versions, and the
 two-phase sweep and gradientScores' batches (over two device slots, and
@@ -265,6 +266,8 @@ def test_sweep_on_card_equals_cpu(card, feed):
     assert added.get("sweep.pack.host_blocks", 0) == 0
     assert added["sweep.table.device_blocks"] == 4
     assert added.get("sweep.table.host_blocks", 0) == 0
+    assert added["sweep.collect.device_blocks"] == 4
+    assert added.get("sweep.collect.host_blocks", 0) == 0
     # the one-mask route (no screen) launches the same kernel
     one = drain_deferred([e.score_packed_deferred(
         e.prepare_targets(targets, card)) for e in engines[:2]])
@@ -273,6 +276,61 @@ def test_sweep_on_card_equals_cpu(card, feed):
     for (gs, _, gm), (cs, _, cm) in zip(one, one_cpu):
         np.testing.assert_array_equal(gs, cs)
         np.testing.assert_array_equal(gm, cm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("predicate", ["ratio", "words"])
+def test_row_reduce_kernel_equals_plain(card, predicate):
+    """The collect's reduction (`csrc/row_reduce.cu`) equals its plain
+    version on partition 0's exact counts of either predicate, with an
+    engine that does not mirror inside a mirrored launch and one without a
+    query pixel; launch_block's block, copied to pinned memory, equals
+    both."""
+    masks, targets, surv = _library()
+    masks[3] = np.zeros_like(masks[3])
+    engines = [ActiveTilePixelEngine(q, 20, i != 1, 20, 1.0, 2)
+               for i, q in enumerate(masks)]
+    if predicate == "words":
+        engines = [e.with_predicate("words") for e in engines]
+    words = engines[0].pack_raw_words(targets, card)
+    packed = pa.pad_for_predicate(words, predicate)
+    scorer = mm.MultiMaskScorer(engines)
+    ext, live = mm.signal_extents(words), mm.tile_live_dev(words)
+    tab = scorer.device_table(surv, card, ext, live)
+    counts = scorer.counts(scorer.kernel_args(packed, tab))
+    args = (counts, tab.eng, tab.tgt,
+            *scorer._upload(scorer._f_dev, scorer._f_host, card))
+    before = mm.row_reduce.launches
+    got = mm.row_reduce(*args, targets.shape[0])
+    assert mm.row_reduce.launches == before + 1
+    want = mm.row_reduce_plain(*args, targets.shape[0])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    cpu = mm.row_reduce(*[a.cpu() for a in args], targets.shape[0])
+    assert torch.equal(got.cpu(), cpu)
+    assert (cpu < 0).any() and not (cpu[1] < 0).any() and not cpu[3].any()
+    s, m = scorer.launch_block(packed, surv, ext, live).result()
+    np.testing.assert_array_equal(s, (cpu & 0x7FFFFFFF).numpy())
+    np.testing.assert_array_equal(m, (cpu < 0).numpy())
+
+
+@pytest.mark.cuda
+def test_collect_back_to_back_keeps_blocks(card):
+    """Two partitions launched back to back behind a busy stream, with no
+    synchronize between: each keeps its own pinned block, so partition
+    p's answers are unchanged once p+1 is launched and collected first."""
+    masks, targets, _ = _library()
+    engines = [ActiveTilePixelEngine(q, 20, True, 20, 1.0, 2) for q in masks]
+    sweep = TwoPhaseSweep(engines, [card])
+    want = TwoPhaseSweep(engines, ["cpu"]).sweep(targets)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of device time ahead
+    first = sweep.launch(targets[:15])
+    second = sweep.launch(targets[15:])
+    got2 = sweep.collect(second)
+    got1 = sweep.collect(first)
+    for g1, g2, w in zip(got1, got2, want):
+        np.testing.assert_array_equal(g1, w[:, :15])
+        np.testing.assert_array_equal(g2, w[:, 15:])
 
 
 @pytest.mark.cuda

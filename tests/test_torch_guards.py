@@ -99,12 +99,14 @@ def test_kernel_wrapper_never_falls_back(monkeypatch, tmp_path):
     monkeypatch.setattr(mm, "multimask_counts_plain", plain)
     monkeypatch.setattr(mm, "multimask_words_counts_plain", plain)
     monkeypatch.setattr(mm, "launch_table_plain", plain)
+    monkeypatch.setattr(mm, "row_reduce_plain", plain)
     monkeypatch.setattr(ob, "op_chain_plain", plain)
     triples = pa.word_triples(10_000_000)
     calls = [
         (mm.multimask_counts, 12, (2, True)),
         (mm.multimask_words_counts, 9, (2, True, triples)),
         (mm.launch_table, 4, (0, 1, (1, 1), 16, (0, 0), True)),
+        (mm.row_reduce, 4, (3,)),
     ]
     for fn, n_tensors, rest in calls:
         args = [_fake("cuda:0") for _ in range(n_tensors)]
@@ -139,11 +141,12 @@ def test_one_library_per_source(monkeypatch, tmp_path):
     assert set(kernels.LIBRARIES) == {"multimask_ratio", "multimask_words",
                                       "op_chain", "prescreen_bound",
                                       "shape_score", "shape_planes",
-                                      "target_pack", "launch_table"}
+                                      "target_pack", "launch_table",
+                                      "row_reduce"}
     for name in kernels.LIBRARIES:
         assert os.path.exists(kernels.source_path(name))
     paths = {kernels.library_path(n) for n in kernels.LIBRARIES}
-    assert len(paths) == 8
+    assert len(paths) == 9
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     monkeypatch.setattr(kernels, "CSRC", str(csrc))

@@ -347,6 +347,9 @@ def test_stage_totals_are_the_spans(library):
     assert sum(s.name == "sweep.pack" for s in spans) == 6
     assert got["counters"]["sweep.table.host_blocks"] == 6
     assert "sweep.table.device_blocks" not in got["counters"]
+    # one block reduced by the plain version per device block and group
+    assert got["counters"]["sweep.collect.host_blocks"] == 6
+    assert "sweep.collect.device_blocks" not in got["counters"]
 
 
 @pytest.mark.parametrize("prescreen", ["on", "off"])

@@ -11,8 +11,8 @@ microbench:
    (multimask_ratio, multimask_words, op_chain, prescreen_bound,
    shape_score, shape_planes, target_pack, launch_table, row_reduce)
    built in parallel, with their build seconds, registers and shared
-   memory; the native host word packer of the CPU's pack (g++), which
-   must build and load;
+   memory; the native host word packer of the masks' query prep (g++),
+   which must build and load;
 2. each exact kernel against its plain PyTorch version, exactly, on a
    random library of full 566x1210 frames (16 masks x 64 targets): sparse
    and dense survivors, a mask with zero survivors, one survivor at the
@@ -43,14 +43,12 @@ microbench:
    masks with its work (evaluations that can count,
    staged bytes), its bound and its share of it, and its pixel loop's
    SASS instructions per evaluation by pipe; the target pack kernel on a
-   500-target block (the benchmark's partition) equal to its plain version
-   and to the host path, its time beside its bound and the plain
-   version's, and the host seconds of the staged pack against the host
-   sparse feed's; the launch-table kernel on partition 0 (both
-   predicates) and on a 500-target block (ratio) equal to its plain
-   version and to the host's build_table bit for bit, the exact counts
-   from both tables equal, its kernels' device time and the whole
-   build's beside its bound, and the host build's seconds; the collect's
+   500-target block (the benchmark's partition) equal to its plain
+   version, its time beside its bound and the plain version's, and the
+   host seconds of the staged pack; the launch-table kernel on partition
+   0 (both predicates) and on a 500-target block (ratio) equal to its
+   plain version bit for bit, its kernels' device time and the whole
+   build's beside its bound; the collect's
    reduction on that block (both predicates) equal to its plain version,
    its device time beside its bound, the whole call's and the host's
    unpack of the copied block. The timed
@@ -193,6 +191,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -297,7 +296,7 @@ def compare_scorer(checks, label, scorer, tab, packed):
     got = check.compare(label, lambda: kernel(*args, *tail),
                         lambda: plain(*args, *tail),
                         f"rows {len(tab.tgt)}, live tiles "
-                        f"{len(tab.tile_list)}, ")
+                        f"{int(tab.row_off[-1])}, ")
     return got, args, tail
 
 
@@ -330,13 +329,13 @@ def phase_card():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build]   {name}<{fn.replace('ILi', '')}> "
                     f"{line.replace('ptxas info    :', '').strip()}")
-    # the CPU's pack (the host path): the native copy, never its NumPy
-    # path, on the card's host
+    # the masks' query prep: the native copy, never its NumPy path, on
+    # the card's host
     from colormipsearch_torch.native import mipops
     t0 = time.perf_counter()
     if not mipops.available():
         raise SystemExit(f"the native word packer did not build or load "
-                         f"({mipops.library_path()}): the pack stage would "
+                         f"({mipops.library_path()}): the query prep would "
                          f"run its NumPy path")
     log(f"[build] native word packer (g++) ready in "
         f"{time.perf_counter() - t0:.2f}s: {mipops.library_path()}")
@@ -378,10 +377,11 @@ def check_ratio_planes(words, planes):
         f"bit")
 
 
-def every_tile_table(scorer, n_targets):
-    """A launch table that lists every active tile of every mask, in both
-    directions, for every target: tiles without a selected pixel too,
-    which build_table never lists."""
+def every_tile_table(scorer, n_targets, dev):
+    """A launch table on `dev` that lists every active tile of every mask,
+    in both directions, for every target: tiles without a selected pixel
+    too, which MultiMaskScorer.table never lists."""
+    import torch
     from colormipsearch_torch.cds import multimask as mm
     tiles, counts, tgt = [], [], []
     tile_off = 0
@@ -394,10 +394,10 @@ def every_tile_table(scorer, n_targets):
             tiles.append(entry)
             counts.append(n)
             tgt.append(t)
-    return mm.LaunchTable(
-        row_off=np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
-        tile_list=np.concatenate(tiles).astype(np.int32),
-        tgt=np.array(tgt, np.int32), surv=np.ones(len(tgt), np.int32))
+    return mm.LaunchTable(*(torch.from_numpy(a.astype(np.int32)).to(dev)
+                            for a in (np.concatenate([[0], np.cumsum(counts)]),
+                                      np.concatenate(tiles), np.array(tgt),
+                                      np.ones(len(tgt)))))
 
 
 def edge_mask(h, w):
@@ -437,16 +437,16 @@ def compaction_edges(checks, dev, speckle, targets):
             words = engines[0].pack_raw_words(targets, dev)
         packed = pad_for_predicate(words, predicate)
         scorer = mm.MultiMaskScorer(engines)
-        tab = every_tile_table(scorer, len(targets))
+        tab = every_tile_table(scorer, len(targets), dev)
         compare_scorer(checks, f"compaction edges ({predicate}): tiles of "
                        f"0, 1 and 1024 selected pixels and rows of "
                        f"{engines[1].tiles.n_active} tiles, every tile in "
                        f"both directions", scorer, tab, packed)
         surv = np.ones((2, len(targets)), np.int32)
-        compare_scorer(checks, f"compaction edges ({predicate}), host table",
-                       scorer, scorer.build_table(
-                           surv, mm.signal_ranges_from_words(words),
-                           mm.tile_live_from_words(words)), packed)
+        compare_scorer(checks, f"compaction edges ({predicate}), launch "
+                       f"table", scorer, scorer.table(
+                           surv, dev, mm.signal_extents(words),
+                           mm.tile_live_dev(words)), packed)
 
 
 def phase_kernel_vs_plain(checks, dev, n_masks=16, n_targets=64):
@@ -480,8 +480,7 @@ def phase_kernel_vs_plain(checks, dev, n_masks=16, n_targets=64):
         planes = {p: pad_for_predicate(words, p) for p in ("ratio", "words")}
         if pcf == 1.0 and xy_shift == 2 and mirror:
             check_ratio_planes(words, planes["ratio"])
-        ranges = mm.signal_ranges_from_words(words)
-        live = mm.tile_live_from_words(words)
+        ranges, live = mm.signal_extents(words), mm.tile_live_dev(words)
         scorers = [mm.MultiMaskScorer(
             [e.with_predicate("words") for e in engines])]
         if ratio:
@@ -491,8 +490,8 @@ def phase_kernel_vs_plain(checks, dev, n_masks=16, n_targets=64):
                      f"mirror {mirror}")
             packed = planes[scorer.predicate]
             for restrict in (False, True):
-                tab = (scorer.build_table(surv, ranges, live) if restrict
-                       else scorer.build_table(surv))
+                tab = (scorer.table(surv, dev, ranges, live) if restrict
+                       else scorer.table(surv, dev))
                 compare_scorer(checks, f"{label}, live-tile cut {restrict}",
                                scorer, tab, packed)
             tab.surv[::3] = 0  # rows the kernel must report as 0
@@ -709,6 +708,15 @@ def event_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def host_table(tab):
+    """A launch table's arrays on the host, its tile_list up to row_off[R]
+    (the room past it belongs to no row)."""
+    n = int(tab.row_off[-1])
+    return SimpleNamespace(row_off=tab.row_off.cpu().numpy(),
+                           tile_list=tab.tile_list[:n].cpu().numpy(),
+                           tgt=tab.tgt.cpu().numpy())
+
+
 def kernel_work(scorer, tab):
     """What one launch over `tab` must do: evaluations (selected pixels x
     variants over the live (row, tile) pairs, and in live directions
@@ -717,6 +725,7 @@ def kernel_work(scorer, tab):
     once (each such window's region, the query lists of the tiles it
     reads, the table, the counts) and its bound."""
     from colormipsearch_torch.cds import multimask as mm
+    tab = host_table(tab)
     ns = len(scorer.shifts)
     s = max(abs(dy) for _, dy in scorer.shifts)
     tiles = tab.tile_list & mm.TILE_MASK
@@ -752,12 +761,10 @@ def kernel_work(scorer, tab):
 
 def pack_at_size(checks, dev, engine, block):
     """The target pack kernel on one raw block (the benchmark's 500-target
-    partition): equal to its plain version and to the host path; its time
-    by CUDA events beside its bound (bytes: 3 B a pixel read by each of
-    its two passes, 4 B written, at 3.35 TB/s) and the plain version's;
-    the host seconds of the whole staged pack (pack_raw_words, synced)
-    against the host sparse feed's (the native pack, its upload and the
-    device scatter, synced), in turns."""
+    partition): equal to its plain version; its time by CUDA events beside
+    its bound (bytes: 3 B a pixel read by each of its two passes, 4 B
+    written, at 3.35 TB/s) and the plain version's; the host seconds of
+    the whole staged pack (pack_raw_words, synced), twice."""
     import torch
     from colormipsearch_torch.cds import pixel_active as pa
     from colormipsearch_torch.scripts.op_microbench import cuda_ms
@@ -772,12 +779,9 @@ def pack_at_size(checks, dev, engine, block):
 
     px = raw.numel() // 3
     n_sel = int((raw > thr).any(dim=-1).sum())
-    got = checks["target_pack"].compare(
+    checks["target_pack"].compare(
         f"{block.shape[0]} targets ({100 * n_sel / px:.2f} % selected)",
         lambda: pa.pack_words(raw, thr), plain_once)
-    if not torch.equal(got.cpu(), engine.pack_raw_words(block, "cpu")):
-        raise SystemExit("the target pack kernel differs from the host path")
-    del got
     kernel_ms = cuda_ms(lambda: pa.pack_words(raw, thr), 5)
     bound_ms = 1e3 * 10 * px / 3.35e12
 
@@ -788,30 +792,23 @@ def pack_at_size(checks, dev, engine, block):
         torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
-    walls = {"staged": [], "host_sparse": []}
-    for path in ("staged", "host_sparse", "host_sparse", "staged"):
-        walls[path].append(synced(
-            (lambda: engine.pack_raw_words(block, dev)) if path == "staged"
-            else (lambda: engine._pack_block_sparse(block, dev))))
+    staged = [synced(lambda: engine.pack_raw_words(block, dev))
+              for _ in range(2)]
     log(f"[phase 4] target pack, {block.shape[0]} targets: kernel "
         f"{kernel_ms:.4f} ms, plain version {plain_run['ms']:.3f} ms, bound "
         f"{bound_ms:.4f} ms by bytes ({10 * px / 1e9:.3f} GB), kernel at "
         f"{100 * bound_ms / kernel_ms:.1f} % of its bound; host seconds "
-        f"(synced) staged + kernel " + ", ".join(
-            f"{w:.4f}" for w in walls["staged"]) + ", host sparse feed "
-        + ", ".join(f"{w:.4f}" for w in walls["host_sparse"]))
+        f"(synced) staged + kernel " + ", ".join(f"{w:.4f}" for w in staged))
     return {"ms": kernel_ms, "plain_ms": plain_run["ms"],
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-            "staged_s": walls["staged"], "host_sparse_s": walls["host_sparse"]}
+            "staged_s": staged}
 
 
-def table_at_size(checks, dev, scorer, survivors, words, tab, planes):
+def table_at_size(checks, dev, scorer, survivors, words):
     """The card's launch table on one block (the sweep's inputs: the
     bound's survivors, the signal extents and live-tile bitmaps on the
-    card): equal to its plain version on the same tensors and to
-    build_table's `tab` bit for bit (its room past row_off[R] 0); the
-    predicate's exact counts from the card's table equal those from
-    `tab`; the three kernels' device time (torch.profiler, profiled_ms)
+    card): equal to its plain version on the same tensors bit for bit;
+    the three kernels' device time (torch.profiler, profiled_ms)
     and the whole build's (CUDA events: the kernels, the scan, the zeroed
     outputs) beside its bound (bytes: each candidate's grid position and
     code read by both passes, a kept tile's index read and entry written,
@@ -837,19 +834,8 @@ def table_at_size(checks, dev, scorer, survivors, words, tab, planes):
     got = checks["launch_table"].compare(
         f"{scorer.predicate}, {len(eng)} rows x {n_t} targets, {n_cand} "
         f"candidates", lambda: torch.cat(mm.launch_table(*args)),
-        plain_once).cpu().numpy()
-    n = len(tab.tile_list)
-    row_off, tile_list = got[:len(eng) + 1], got[len(eng) + 1:]
-    if not (np.array_equal(row_off, tab.row_off)
-            and np.array_equal(tile_list[:n], tab.tile_list)
-            and not tile_list[n:].any()):
-        raise SystemExit("the card's launch table differs from build_table's")
-    card_tab = scorer.device_table(survivors, dev, ext, live)
-    counts = [scorer.counts(scorer.kernel_args(planes, t))
-              for t in (card_tab, tab)]
-    if not torch.equal(*counts):
-        raise SystemExit("the exact counts from the card's launch table "
-                         "differ from those of build_table's")
+        plain_once)
+    n = int(got[len(eng)])  # row_off[R]: the kept tiles
     build_ms = cuda_ms(lambda: mm.launch_table(*args), 5)
     each = {name: profiled_ms(lambda: mm.launch_table(*args), (name,))
             for name in ("codes_kernel", "count_rows_kernel",
@@ -860,8 +846,8 @@ def table_at_size(checks, dev, scorer, survivors, words, tab, planes):
     bound_ms = 1e3 * n_bytes / 3.35e12
     per_kernel = ", ".join(f"{k} {v:.4f}" for k, v in each.items())
     log(f"[phase 4] launch table, {scorer.predicate}, {n_t} targets: "
-        f"{len(eng)} rows, {n_cand} candidates, {n} kept; == plain == "
-        f"build_table, the exact counts equal; kernels {kernel_ms:.4f} ms "
+        f"{len(eng)} rows, {n_cand} candidates, {n} kept; == plain; "
+        f"kernels {kernel_ms:.4f} ms "
         f"({per_kernel}), whole "
         f"build {build_ms:.4f} ms, plain version {plain_run['ms']:.3f} ms, "
         f"bound {bound_ms:.4f} ms by bytes ({n_bytes / 1e9:.4f} GB): "
@@ -884,7 +870,7 @@ def reduce_at_size(checks, dev, scorer, survivors, words, planes):
     from colormipsearch_torch.cds import multimask as mm
     from colormipsearch_torch.scripts.op_microbench import cuda_ms
     ext, live = mm.signal_extents(words), mm.tile_live_dev(words)
-    tab = scorer.device_table(survivors, dev, ext, live)
+    tab = scorer.table(survivors, dev, ext, live)
     counts = scorer.counts(scorer.kernel_args(planes, tab))
     n_rows, nv = counts.shape
     n_b, n_t = survivors.shape
@@ -1001,7 +987,6 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
     from colormipsearch_torch.cds import multimask as mm
     from colormipsearch_torch.cds import pixel_active as pa
     from colormipsearch_torch.cds.pixel_active import (ActiveTilePixelEngine,
-                                                       drain_deferred,
                                                        pad_for_predicate)
     from colormipsearch_torch.cds import prescreen as ps
     from colormipsearch_torch.cds.prescreen import PairPrescreen
@@ -1114,8 +1099,7 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
     # partition 0's tables, as the sweep builds them
     words = engines[0].pack_raw_words(parts[0], dev)
     planes = {p: pad_for_predicate(words, p) for p in ("ratio", "words")}
-    ranges = mm.signal_ranges_from_words(words)
-    live = mm.tile_live_from_words(words)
+    ranges, live = mm.signal_extents(words), mm.tile_live_dev(words)
     survivors = (screen.bounds_from_words(u_matrix, words)
                  > thr[:, None]).astype(np.int32)
     timing = {name: {"launches": launches["ratio"][name]}
@@ -1126,11 +1110,8 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
     for path in ("ratio", "words"):
         (_, everyone), = sweeps[path].groups  # one param group: every mask
         kernel, plain = mm.PREDICATE_KERNELS[path]
-        t0 = time.perf_counter()
-        tab = everyone.build_table(survivors, ranges, live)
-        table_s = time.perf_counter() - t0
-        table_at_size(checks, dev, everyone, survivors, words, tab,
-                      planes[path])
+        tab = everyone.table(survivors, dev, ranges, live)
+        table_at_size(checks, dev, everyone, survivors, words)
         # the main path's launch, against the plain version on the same
         # tensors (the plain version runs once, timed)
         args = everyone.kernel_args(planes[path], tab)
@@ -1148,10 +1129,10 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
         kernel_ms = cuda_ms(lambda: kernel(*args, *tail), 3)
         plain_ms = plain_run["ms"]
         work = kernel_work(everyone, tab)
-        log(f"[phase 4] {path}: partition 0, all masks: host launch table "
-            f"{table_s:.3f}s, exact kernel {kernel_ms:.3f} ms, plain "
-            f"version {plain_ms:.3f} ms ({len(tab.tgt)} rows, "
-            f"{len(tab.tile_list)} live (row, tile) pairs)")
+        log(f"[phase 4] {path}: partition 0, all masks: exact kernel "
+            f"{kernel_ms:.3f} ms, plain version {plain_ms:.3f} ms "
+            f"({len(tab.tgt)} rows, {int(tab.row_off[-1])} live (row, "
+            f"tile) pairs)")
         log(f"[phase 4] {path}: partition 0 work: {work['evals']} "
             f"evaluations that can count (selected pixels x "
             f"{work['nv']} over live (row, tile)), {work['evals_dir']} in "
@@ -1181,9 +1162,8 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
         # 32 masks' rows reproduce the sweep's scores of those masks
         sub = list(range(min(32, n_masks)))
         scorer = mm.MultiMaskScorer([everyone.engines[i] for i in sub])
-        defs = scorer.launch_deferred(planes[path], survivors[sub], ranges,
-                                      live)
-        sampled = np.stack([s for s, _, _ in drain_deferred(defs)])
+        sampled, _ = scorer.launch_block(planes[path], survivors[sub],
+                                         ranges, live).result()
         if not np.array_equal(sampled,
                               results[path][0][sub, :len(parts[0])]):
             raise SystemExit(f"{path}: sampled rows differ from the "
@@ -1192,24 +1172,14 @@ def phase_at_size(checks, dev, profile_dir=None, n_masks=1024,
             "launches": launches[path][path], "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
             "bound_by": work["bound_by"], "library_ms": None}
-    # the launch table of a 500-target block (the benchmark's partition):
-    # the card's against the host's
+    # the launch table of a 500-target block (the benchmark's partition)
     block_words = engines[0].pack_raw_words(targets[:500], dev)
     block_surv = (screen.bounds_from_words(u_matrix, block_words)
                   > thr[:, None]).astype(np.int32)
     (_, everyone), = sweeps["ratio"].groups
-    block_ranges = mm.signal_ranges_from_words(block_words)
-    block_live = mm.tile_live_from_words(block_words)
-    t0 = time.perf_counter()
-    block_tab = everyone.build_table(block_surv, block_ranges, block_live)
-    host_s = time.perf_counter() - t0
-    timing["launch_table"] = table_at_size(
-        checks, dev, everyone, block_surv, block_words, block_tab,
-        pad_for_predicate(block_words, "ratio"))
-    timing["launch_table"].update(launches=launches["ratio"]["launch_table"],
-                                  host_table_s=host_s)
-    log(f"[phase 4] launch table, 500 targets: host build_table "
-        f"{host_s:.4f} s")
+    timing["launch_table"] = table_at_size(checks, dev, everyone,
+                                           block_surv, block_words)
+    timing["launch_table"]["launches"] = launches["ratio"]["launch_table"]
     # the collect's reduction of the same block, both predicates (the
     # ratio path's timing, the benchmark's, is kept)
     for path in ("words", "ratio"):
@@ -1990,9 +1960,8 @@ def phase_dense_at_size(dev, library, n_masks=8, n_targets=256):
     # kernel_work counts it from the launch's own table
     words = eng0.pack_raw_words(targets, dev)
     scorer = mm.MultiMaskScorer([e.with_predicate("words") for e in engines])
-    tab = scorer.build_table(np.ones((n_masks, n_targets), np.int32),
-                             mm.signal_ranges_from_words(words),
-                             mm.tile_live_from_words(words))
+    tab = scorer.table(np.ones((n_masks, n_targets), np.int32), dev,
+                       mm.signal_extents(words), mm.tile_live_dev(words))
     work = kernel_work(scorer, tab)
     h, w = targets.shape[1:3]
     out = {"masks": n_masks, "targets": n_targets, "frame": [h, w],

@@ -13,11 +13,10 @@ mask of a target partition.
   tile-presence bitmaps of tile_live_dev, intersected with the
   target's signal row and column extents, signal_extents). Skipped tiles
   and directions provably score 0, so any exact skip gives the same
-  scores. On a card the table is built there (`launch_table`,
-  `csrc/launch_table.cu`) from the bitmaps and extents as they lie on
-  the card; on the CPU by `MultiMaskScorer.build_table` in NumPy, the
-  reference that the card's table equals bit for bit. The query side is
-  each mask's compact lists of selected pixels
+  scores. The table is built on the launch's device from the bitmaps
+  and extents as they lie there (`launch_table`: `csrc/launch_table.cu`
+  on a card, its plain version `launch_table_plain` on the CPU). The
+  query side is each mask's compact lists of selected pixels
   (pixel_active.compact_selected), stacked.
 - Device side, one kernel per predicate, each with a plain PyTorch
   version that CPU tensors run: `multimask_counts` launches the ratio
@@ -44,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,8 +51,8 @@ import torch
 from ..utils import trace
 from . import kernels
 from .oracle import shift_ring_offsets
-from .pixel_active import (POS_SHIFT, TILE_H, TILE_W, DeferredScore,
-                           _match_unpacked, _unpack)
+from .pixel_active import (POS_SHIFT, TILE_H, TILE_W, _match_unpacked,
+                           _unpack)
 
 KERNEL_XY_SHIFTS = (0, 2)  # xy_shift values the kernels are built for
 
@@ -61,8 +60,8 @@ KERNEL_XY_SHIFTS = (0, 2)  # xy_shift values the kernels are built for
 # ---- the exact kernels: plain versions and wrappers ------------------------
 
 # a tile_list entry: the stacked tile index, and the directions in which
-# the (row, tile) can score (host live-tile cut; bit DIR_SHIFT direct,
-# bit DIR_SHIFT + 1 mirrored)
+# the (row, tile) can score (the launch table's live-tile cut; bit
+# DIR_SHIFT direct, bit DIR_SHIFT + 1 mirrored)
 DIR_SHIFT = 29
 TILE_MASK = (1 << DIR_SHIFT) - 1
 
@@ -84,11 +83,11 @@ def _ratio_match(rf, fw, qc, qf):
 def _pairs(row_off, tile_list, surv):
     """(row, tile) pairs the kernel scores: every surviving row with every
     tile of its list (direction bits dropped: the plain versions score
-    both directions, so they also check that the host cut is exact)."""
+    both directions, so they also check that the table's cut is exact)."""
     counts = (row_off[1:] - row_off[:-1]).to(torch.int64)
     rows = torch.repeat_interleave(
         torch.arange(counts.numel(), device=tile_list.device), counts)
-    # a table built on the card has room past row_off[-1]: no row's
+    # a launch table has room past row_off[-1]: no row's
     tiles = tile_list[:rows.numel()].to(torch.int64) & TILE_MASK
     keep = surv.to(torch.int64)[rows] != 0
     return rows[keep], tiles[keep]
@@ -192,8 +191,8 @@ def window_bins(row_off, tile_list, tgt, surv, coords, frame_shape,
     tile origin (8 ty, 128 tx) on the gh x gw tile grid of padded frames
     of frame_shape. A member of a row whose survivor flag is 0 keeps no
     direction, so it scores nothing. Entries of tile_list past
-    row_off[-1] (a table built on the card has room for every candidate)
-    belong to no row: they sort past every bin.
+    row_off[-1] (a launch table has room for every candidate) belong to
+    no row: they sort past every bin.
 
     Returns bin_off int32 [n_targets * gh * gw + 1] (bin b's members are
     bin_off[b] .. bin_off[b+1] - 1), mem_row int32 [L] and mem_tile int32
@@ -420,13 +419,6 @@ def row_ranges_from_words(words: torch.Tensor) -> np.ndarray:
     return _first_last(_sel_any_rowcol(words)[0]).cpu().numpy()
 
 
-def signal_ranges_from_words(words: torch.Tensor) -> np.ndarray:
-    """signal_extents on the host."""
-    ext = signal_extents(words)
-    with trace.span("sweep.wait"):
-        return ext.cpu().numpy()
-
-
 def tile_live_dev(words: torch.Tensor) -> tuple:
     """Per-target 3x3-dilated tile-presence bitmaps, (direct, mirrored),
     each bool [T, gh, gw] over the mask tile grid, on the words' device:
@@ -450,13 +442,6 @@ def tile_live_dev(words: torch.Tensor) -> tuple:
     return pool_dilate(sel), pool_dilate(torch.flip(sel, dims=(2,)))
 
 
-def tile_live_from_words(words: torch.Tensor) -> tuple:
-    """tile_live_dev's bitmaps on the host, each np.bool_ [T, gh, gw]."""
-    d, m = tile_live_dev(words)
-    with trace.span("sweep.wait"):
-        return d.cpu().numpy(), m.cpu().numpy()
-
-
 # ---- the launch table on the device ----------------------------------------
 
 def direction_codes_plain(n_targets: int, grid, width: int, reach,
@@ -464,11 +449,14 @@ def direction_codes_plain(n_targets: int, grid, width: int, reach,
                           device="cpu") -> torch.Tensor:
     """uint8 [n_targets * gh * gw] direction codes (bit 0 direct, bit 1
     mirrored) of each target and tile position (ty * gw + tx) on the mask
-    tile grid `grid` (gh, gw), as torch ops: MultiMaskScorer.
-    _direction_codes' tests over tensors. width: the masks' raw width;
-    reach: (sy, sx), the largest |dy| and |dx| of the shifts; extents:
-    int32 [T, 2] or [T, 4] (signal_extents) or None; tile_live:
-    (direct, mirrored) bool [T, gh, gw] (tile_live_dev) or None."""
+    tile grid `grid` (gh, gw): the directions in which a tile there can
+    score against that target. width: the masks' raw width; reach:
+    (sy, sx), the largest |dy| and |dx| of the shifts; mirror: the
+    launch's setting, not an engine's (a direction leaves a row's list
+    only by an exact test, so the kernel's counts equal its plain
+    version's for every engine); extents: int32 [T, 2] or [T, 4]
+    (signal_extents) or None; tile_live: (direct, mirrored) bool
+    [T, gh, gw] (tile_live_dev) or None."""
     gh, gw = grid
     sy, sx = reach
     d = torch.ones((n_targets, gh, gw), dtype=torch.bool, device=device)
@@ -477,6 +465,10 @@ def direction_codes_plain(n_targets: int, grid, width: int, reach,
         d = d & tile_live[0]
         m = m & tile_live[1]
     if extents is not None:
+        # a tile's shifts sample raw rows [cy - sy, cy + 8 + sy) and cols
+        # [cx - sx, cx + 128 + sx); the mirror pass samples the x-flipped
+        # raw plane, whose signal cols are the reflection of the
+        # target's about (width - 1) / 2
         ext = extents.to(torch.int64)
         cy = torch.arange(gh, device=device) * TILE_H
         rok = ((cy >= ext[:, :1] - TILE_H - sy + 1)
@@ -496,8 +488,10 @@ def direction_codes_plain(n_targets: int, grid, width: int, reach,
 def launch_table_plain(rows, listed, listed_off, listed_pos, n_cand: int,
                        n_targets: int, grid, width: int, reach,
                        mirror: bool, extents=None, tile_live=None):
-    """Plain PyTorch version of the launch-table kernel (same arguments):
-    build_table's row_off and tile_list from tensors on one device.
+    """Plain PyTorch version of the launch-table kernel (same arguments),
+    on tensors on one device: each row's live tiles, each listed tile of
+    the row's engine with the directions direction_codes_plain leaves it
+    at the row's target (a tile that keeps none is left out).
 
     rows: int32 [2, R], each row's engine, then its target (engine order,
     then target order); listed int32 [NL], listed_off int32 [B + 1] and
@@ -598,9 +592,6 @@ def launch_table(rows, listed, listed_off, listed_pos, n_cand: int,
 
 
 launch_table.launches = 0
-# tables built by the card's kernel, and by the host (the CPU)
-_DEVICE_TABLES = trace.counter("sweep.table.device_blocks")
-_HOST_TABLES = trace.counter("sweep.table.host_blocks")
 
 
 # ---- the collect: counts to scores on the device ---------------------------
@@ -672,9 +663,6 @@ def row_reduce(counts, eng, tgt, flags, n_targets: int):
 
 
 row_reduce.launches = 0
-# blocks reduced by the card's kernel, and by the plain version (the CPU)
-_DEVICE_COLLECTS = trace.counter("sweep.collect.device_blocks")
-_HOST_COLLECTS = trace.counter("sweep.collect.host_blocks")
 
 
 class ScoreBlock:
@@ -713,14 +701,14 @@ class ScoreBlock:
 
 @dataclass
 class LaunchTable:
-    """Launch table of one exact launch: NumPy arrays (build_table) or
-    tensors on the launch's device (device_table, whose tile_list has room
-    for every candidate: its entries past row_off[R] are 0)."""
-    row_off: np.ndarray     # int32 [R + 1] offsets into tile_list
-    tile_list: np.ndarray   # int32 [L] tile | directions << DIR_SHIFT, by row
-    tgt: np.ndarray         # int32 [R] target per row
-    surv: np.ndarray        # int32 [R] survivor flag (all 1 when built)
-    eng: Optional[np.ndarray] = None  # int32 [R] engine position per row
+    """Launch table of one exact launch (MultiMaskScorer.table): tensors
+    on the launch's device. tile_list has room for every candidate: its
+    entries past row_off[R] are 0."""
+    row_off: torch.Tensor    # int32 [R + 1] offsets into tile_list
+    tile_list: torch.Tensor  # int32 [L] tile | directions << DIR_SHIFT, by row
+    tgt: torch.Tensor        # int32 [R] target per row
+    surv: torch.Tensor       # int32 [R] survivor flag (all 1 when built)
+    eng: Optional[torch.Tensor] = None  # int32 [R] engine position per row
 
 
 def launch_params(engine) -> tuple:
@@ -818,12 +806,10 @@ class MultiMaskScorer:
     def kernel_args(self, planes, table: LaunchTable) -> list:
         """The tensors of one launch in the order of the predicate's
         kernel: the target planes (pixel_active.pad_for_predicate), the
-        query tensors and the table's (row_off, tile_list, tgt, surv),
-        uploaded where the table is on the host."""
+        query tensors and the table's (row_off, tile_list, tgt, surv)."""
         dev = planes[0].device
         return (list(planes) + list(self._q_for(dev))
-                + [torch.as_tensor(a, device=dev) for a in
-                   (table.row_off, table.tile_list, table.tgt, table.surv)])
+                + [table.row_off, table.tile_list, table.tgt, table.surv])
 
     def kernel_tail(self) -> tuple:
         """The arguments of the predicate's kernel after the launch's
@@ -837,52 +823,21 @@ class MultiMaskScorer:
         kernel, _ = PREDICATE_KERNELS[self.predicate]
         return kernel(*args, *self.kernel_tail())
 
-    def build_table(self, survivors: np.ndarray,
-                    signal_ranges: Optional[np.ndarray] = None,
-                    tile_live: Optional[tuple] = None) -> LaunchTable:
-        """Rows and live-tile lists for `survivors` int [B, T].
+    def table(self, survivors: np.ndarray, device, extents=None,
+              tile_live=None) -> LaunchTable:
+        """The launch table of `survivors` int [B, T], built on `device` by
+        launch_table (the card's kernel; on the CPU its plain version).
 
-        signal_ranges: optional int32 [T, 2] or [T, 4] row (and column)
-        signal extents; tile_live: optional (direct, mirrored) bitmaps.
-        Either restricts each row's tiles, per direction, to those that
-        can score; a tile stays in a row's list with the directions that
-        can (exact: each test only drops windows without target signal).
-        Tiles without a selected query pixel are never listed.
-
-        Rows come in engine order, each engine's in target order, and a
-        row's tiles in the engine's tile order."""
-        survivors = np.asarray(survivors)
-        eng, dest = np.nonzero(survivors)
-        codes = self._direction_codes(survivors.shape[1], signal_ranges,
-                                      tile_live)
-        # the candidates: every row with every listed tile of its engine
-        cnt = np.diff(self._listed_off)[eng]
-        ends = np.cumsum(cnt)
-        starts = ends - cnt
-        n_cand = int(ends[-1]) if len(ends) else 0
-        idx = np.arange(n_cand) + np.repeat(self._listed_off[eng] - starts,
-                                            cnt)
-        code = codes[np.repeat(dest * (self._grid[0] * self._grid[1]), cnt)
-                     + self._listed_pos[idx]]
-        keep = np.flatnonzero(code)
-        return LaunchTable(
-            row_off=np.searchsorted(keep, np.append(starts, n_cand)
-                                    ).astype(np.int32),
-            tile_list=self._listed[idx[keep]]
-            | (code[keep].astype(np.int32) << DIR_SHIFT),
-            tgt=dest.astype(np.int32), surv=np.ones(len(eng), np.int32),
-            eng=eng.astype(np.int32))
-
-    def device_table(self, survivors: np.ndarray, device,
-                     extents=None, tile_live=None) -> LaunchTable:
-        """build_table's table built on `device` by launch_table (the
-        card's kernel; on the CPU its plain version): extents (int32 [T, 2]
-        or [T, 4], signal_extents) and tile_live ((direct, mirrored) bool
-        [T, gh, gw], tile_live_dev) are read where they lie, NumPy inputs
-        are uploaded. The rows go up in one copy (pinned on a card);
-        tile_list has room for every candidate, which the host counts from
-        the survivors, so nothing waits for the device. Equal to
-        build_table's arrays bit for bit, up to row_off[R] of tile_list."""
+        Rows come in engine order, each engine's in target order, one per
+        survivor; a row lists its engine's tiles that hold a selected
+        query pixel, in tile order, each with the directions in which it
+        can score. extents (int32 [T, 2] or [T, 4], signal_extents) and
+        tile_live ((direct, mirrored) bool [T, gh, gw], tile_live_dev)
+        each restrict those directions (exact: each test only drops
+        windows without target signal); they are read where they lie,
+        NumPy inputs are uploaded. The rows go up in one copy (pinned on a
+        card); tile_list has room for every candidate, which the host
+        counts from the survivors, so nothing waits for the device."""
         device = torch.device(device)
         survivors = np.asarray(survivors)
         eng, dest = np.nonzero(survivors)
@@ -906,54 +861,14 @@ class MultiMaskScorer:
                            surv=torch.ones(len(eng), dtype=torch.int32,
                                            device=device), eng=rows[0])
 
-    def _direction_codes(self, n_targets: int,
-                         signal_ranges: Optional[np.ndarray],
-                         tile_live: Optional[tuple]) -> np.ndarray:
-        """uint8 [n_targets * gh * gw]: for each target and tile position
-        (ty * gw + tx) on the mask tile grid, the directions (bit 0 direct,
-        bit 1 mirrored) in which a tile there can score against that
-        target (build_table's tests)."""
-        gh, gw = self._grid
-        s, sx = self._reach
-        live_d = np.ones((n_targets, gh, gw), bool)
-        # the launch's mirror setting, not the engine's: a direction
-        # leaves a row's list only by an exact test, so the kernel's
-        # counts equal its plain version's for every engine
-        live_m = live_d if self.mirror else np.zeros_like(live_d)
-        if tile_live is not None:
-            live_d = live_d & tile_live[0]
-            live_m = live_m & tile_live[1]
-        if signal_ranges is not None:
-            # a tile's shifts sample raw rows [cy - s, cy + 8 + s) and
-            # cols [cx - sx, cx + 128 + sx); the mirror pass samples the
-            # x-flipped raw plane, whose signal cols are the reflection of
-            # the target's about (w - 1) / 2
-            rr = np.asarray(signal_ranges).astype(np.int64)
-            cy = np.arange(gh) * TILE_H
-            rok = ((cy >= rr[:, :1] - TILE_H - s + 1)
-                   & (cy <= rr[:, 1:2] + s))[:, :, None]
-            live_d = live_d & rok
-            live_m = live_m & rok
-            if rr.shape[1] >= 4:
-                cx = np.arange(gw) * TILE_W
-                c0, c1 = rr[:, 2:3], rr[:, 3:4]
-                w = self._width
-                live_d = live_d & ((cx >= c0 - TILE_W - sx + 1)
-                                   & (cx <= c1 + sx))[:, None, :]
-                live_m = live_m & ((cx >= w - 1 - c1 - TILE_W - sx + 1)
-                                   & (cx <= w - 1 - c0 + sx))[:, None, :]
-        return (live_d.view(np.uint8) | (live_m.view(np.uint8) << 1)).ravel()
-
     def launch_block(self, packed, survivors: np.ndarray,
                      signal_ranges=None, tile_live=None) -> ScoreBlock:
         """Queue the exact sweep of ALL masks over one packed target block
         (on its device), its reduction to scores and mirrored flags
         (row_reduce) and their copy to the host: packed is the predicate's
         padded target planes (pixel_active.pad_for_predicate);
-        signal_ranges and tile_live as build_table's, NumPy or tensors
-        (signal_extents, tile_live_dev). A card builds the launch table
-        itself (device_table), the CPU on the host (build_table). Returns
-        the launch's ScoreBlock, its rows in engine order."""
+        signal_ranges and tile_live as table's extents and tile_live.
+        Returns the launch's ScoreBlock, its rows in engine order."""
         packed = tuple(packed)
         if tuple(packed[0].shape[1:]) != self.frame_shape:
             raise ValueError(f"padded frames {tuple(packed[0].shape[1:])} "
@@ -961,34 +876,9 @@ class MultiMaskScorer:
         dev = packed[0].device
         surv_np = np.asarray(survivors).astype(np.int32)
         with trace.span("sweep.table"):
-            if dev.type == "cuda":
-                _DEVICE_TABLES.add()
-                tab = self.device_table(surv_np, dev, signal_ranges,
-                                        tile_live)
-            else:
-                _HOST_TABLES.add()
-                tab = self.build_table(
-                    surv_np, _host(signal_ranges),
-                    None if tile_live is None
-                    else tuple(_host(t) for t in tile_live))
+            tab = self.table(surv_np, dev, signal_ranges, tile_live)
         counts = self.counts(self.kernel_args(packed, tab))
-        eng, tgt = (torch.as_tensor(a, device=dev) for a in (tab.eng, tab.tgt))
-        (_DEVICE_COLLECTS if dev.type == "cuda" else _HOST_COLLECTS).add()
         return ScoreBlock(row_reduce(
-            counts, eng, tgt, *self._upload(self._f_dev, self._f_host, dev),
+            counts, tab.eng, tab.tgt,
+            *self._upload(self._f_dev, self._f_host, dev),
             packed[0].shape[0]))
-
-    def launch_deferred(self, packed, survivors: np.ndarray,
-                        signal_ranges=None, tile_live=None
-                        ) -> List[DeferredScore]:
-        """launch_block's launch, as one DeferredScore per engine (drain
-        with pixel_active.drain_deferred: the block is copied once)."""
-        block = self.launch_block(packed, survivors, signal_ranges,
-                                  tile_live)
-        return [DeferredScore(e, block, i)
-                for i, e in enumerate(self.engines)]
-
-
-def _host(a):
-    """A tensor's values as a NumPy array (None stays None)."""
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else a

@@ -16,20 +16,16 @@ touches only the mask's ACTIVE 8x128 tiles. This module holds:
   kernels walk (`compact_selected`): per active tile, the pixels that can
   match under the engine's predicate, with their constants gathered in
   that order;
-- target pack and pad on an explicit device. On a CUDA device the raw
-  u8 block goes to the card in chunks through pinned staging buffers
-  (`stage_frames`) and the kernel `csrc/target_pack.cu` packs the words
-  there (`pack_words`; plain version `pack_words_plain`); on the CPU the
-  host sparse pack (`native/mipops.py:sparse_pack_block`, the port's
-  copy) then a scatter with fill word 1, or a dense pack for full blocks.
-  Both give the same words. Then the ring pad and the x-flip of the raw
-  plane; for the ratio predicate, its prepared target planes
-  (`pad_ratio_planes`: the f32 ratio plane and the flag plane, built once
-  per target block in the same pass);
-- `ActiveTilePixelEngine.score_packed_deferred`, a one-mask launch of
-  the exact multi-mask kernel of the engine's predicate
-  (`cds/multimask.py`), and the deferred result handles drained with one
-  batched copy to the host.
+- target pack and pad on an explicit device: the raw u8 block goes to
+  the device in chunks through staging buffers (`stage_frames`, pinned
+  on a card) and `pack_words` packs the words there (the kernel
+  `csrc/target_pack.cu` on a card, its plain version `pack_words_plain`
+  on the CPU); then the ring pad and the x-flip of the raw plane; for the
+  ratio predicate, its prepared target planes (`pad_ratio_planes`: the
+  f32 ratio plane and the flag plane, built once per target block in the
+  same pass);
+- `ActiveTilePixelEngine.score_packed`, a one-mask launch of the exact
+  multi-mask kernel of the engine's predicate (`cds/multimask.py`).
 
 Left out, as workarounds for the TPU: the 64-target block placement
 (`DEVICE_BLOCK`, `PACK_SUPER`), the K=128/768 tile-count buckets and the
@@ -47,8 +43,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..native.mipops import sparse_pack_block
-from ..utils import trace
 from . import kernels
 from .exact_ratio import c9_split
 from .oracle import shift_ring_offsets
@@ -77,9 +71,6 @@ _SENTINELS = (31, 31, 63)
 # allocator rounds each up to 64 MiB)
 STAGE_TARGETS = 32
 STAGE_SLOTS = 2
-# blocks packed by the card's kernel, and by the host path (the CPU)
-_DEVICE_BLOCKS = trace.counter("sweep.pack.device_blocks")
-_HOST_BLOCKS = trace.counter("sweep.pack.host_blocks")
 
 
 # ---- the packed-word predicate, plain version ------------------------------
@@ -397,47 +388,15 @@ class ActiveTilePixelEngine:
 
     # ---- target pack and pad -----------------------------------------
 
-    def _pack_block(self, t_block_u8: np.ndarray, device) -> torch.Tensor:
-        """Dense pack of a [T, H, W, 3] uint8 block on `device` (the host
-        path's full blocks)."""
-        t = torch.from_numpy(np.ascontiguousarray(t_block_u8)).to(device)
-        return target_words(t, self.target_threshold)
-
-    def _pack_block_sparse(self, t_block_u8: np.ndarray, device
-                           ) -> Optional[torch.Tensor]:
-        """Sparse feed: (flat index, word) pairs of the above-threshold
-        pixels, scattered on the device into a plane filled with word 1
-        (b=1, sel=0: never matches; sub-threshold pixels canonicalize to
-        it, which no score, bound or skip can see). None when the block
-        is too dense to benefit."""
-        t, h, w = t_block_u8.shape[:3]
-        idx, vals = sparse_pack_block(t_block_u8, self.target_threshold)
-        if len(idx) > (t * h * w) // 4:
-            return None
-        flat = torch.full((t * h * w,), 1, dtype=torch.int32, device=device)
-        flat[torch.from_numpy(idx.astype(np.int64)).to(device)] = \
-            torch.from_numpy(vals.astype(np.int32)).to(device)
-        return flat.reshape(t, h, w)
-
     def pack_raw_words(self, targets_u8: np.ndarray, device) -> torch.Tensor:
         """int32 [T, H, W] scorer words (unpadded frame) on `device`; also
-        the prescreen's input. A CUDA device stages the raw block and packs
-        it with the kernel; any other runs the host path (sparse feed, or
-        the dense pack above a quarter occupancy). Both give the same
-        words (pack_words_plain's)."""
-        device = torch.device(device)
+        the prescreen's input: the raw block staged to the device
+        (stage_frames) and packed there (pack_words)."""
         targets_u8 = np.ascontiguousarray(targets_u8)
         if targets_u8.dtype != np.uint8 or targets_u8.ndim != 4:
             raise ValueError("targets must be uint8 [T, H, W, 3]")
-        if device.type == "cuda":
-            _DEVICE_BLOCKS.add()
-            return pack_words(stage_frames(targets_u8, device),
-                              self.target_threshold)
-        _HOST_BLOCKS.add()
-        out = self._pack_block_sparse(targets_u8, device)
-        if out is None:
-            out = self._pack_block(targets_u8, device)
-        return out
+        return pack_words(stage_frames(targets_u8, device),
+                          self.target_threshold)
 
     @staticmethod
     def pad_from_words(words: torch.Tensor
@@ -487,22 +446,24 @@ class ActiveTilePixelEngine:
 
     # ---- scoring -------------------------------------------------------
 
-    def score_packed_deferred(self, packed, survivors=None):
-        """Queue the exact sweep of this mask over one packed block and
-        return a DeferredScore: a one-mask launch of the multi-mask kernel
-        of the engine's predicate (K2 on K1's kernel, K3b on K3a's).
-        survivors: optional [T] 0/1 prescreen bitmap; zero entries are not
-        scored and report 0."""
+    def score_packed(self, packed, survivors=None):
+        """Exact sweep of this mask over one packed block: a one-mask
+        launch of the multi-mask kernel of the engine's predicate (K2 on
+        K1's kernel, K3b on K3a's). survivors: optional [T] 0/1 prescreen
+        bitmap; zero entries are not scored and report 0. Returns
+        (best_scores int64 [T], ratios f64 [T], mirrored bool [T]), the
+        ratios best / query_size (0 for a mask without a query pixel)."""
         from .multimask import MultiMaskScorer
         if self._solo is None:
             self._solo = MultiMaskScorer([self])
         tsz = packed[0].shape[0]
         surv = (np.ones((1, tsz), np.int32) if survivors is None
                 else np.asarray(survivors).astype(np.int32)[None])
-        return self._solo.launch_deferred(packed, surv)[0]
-
-    def score_packed(self, packed, survivors=None):
-        return self.score_packed_deferred(packed, survivors)()
+        scores, mirrored = self._solo.launch_block(packed, surv).result()
+        best, q = scores[0], self.tiles.query_size
+        ratios = (np.zeros(best.shape, np.float64) if q == 0
+                  else best.astype(np.float64) / float(q))
+        return best, ratios, mirrored[0]
 
     def score_batch(self, targets_u8: np.ndarray, device):
         """targets_u8: [T, H, W, 3] uint8, scored on `device`. Returns
@@ -548,11 +509,11 @@ def stage_frames(targets_u8: np.ndarray, device) -> torch.Tensor:
 
 def pack_words_plain(t_u8: torch.Tensor, threshold: int) -> torch.Tensor:
     """int32 [T, H, W] words of a u8 [T, H, W, 3] block, on its device, by
-    the host feed's occupancy rule: a block with more than (T*H*W)//4
-    above-threshold pixels gets target_words everywhere (the dense feed);
-    otherwise its sub-threshold pixels get word 1 (b = 1, sel = 0: never
-    matches; the sparse feed's scatter fill). The rule is applied on the
-    device: nothing is copied to the host."""
+    the occupancy rule of the JAX package's host feed: a block with more
+    than (T*H*W)//4 above-threshold pixels gets target_words everywhere
+    (its dense feed); otherwise its sub-threshold pixels get word 1 (b = 1,
+    sel = 0: never matches; its sparse feed's scatter fill). The rule is
+    applied on the device: nothing is copied to the host."""
     words = target_words(t_u8, threshold)
     sel = ((words >> 19) & 1).bool()
     dense = sel.sum() > words.numel() // 4
@@ -601,36 +562,3 @@ def pad_for_predicate(words: torch.Tensor, predicate: str
     return (ActiveTilePixelEngine.pad_ratio_planes(words)
             if predicate == "ratio"
             else ActiveTilePixelEngine.pad_from_words(words))
-
-
-class DeferredScore:
-    """Handle for an in-flight exact sweep (one mask x one target block).
-
-    The launch, the reduction of its counts to scores and mirrored flags
-    and the copy of those to the host are queued when this object is built
-    (multimask.MultiMaskScorer.launch_block; the engines of one launch
-    share its ScoreBlock); calling it waits for that copy and returns
-    (best_scores int64[T], ratios f64[T], mirrored bool[T]), the ratios
-    best / query_size (0 for a mask without a query pixel)."""
-
-    def __init__(self, engine, block, row: int):
-        self._engine = engine
-        self._block = block  # multimask.ScoreBlock
-        self._row = row      # the engine's row of the block
-        self._result = None
-
-    def __call__(self):
-        if self._result is None:
-            scores, mirrored = self._block.result()
-            best, q = scores[self._row], self._engine.tiles.query_size
-            ratios = (np.zeros(best.shape, np.float64) if q == 0
-                      else best.astype(np.float64) / float(q))
-            self._result = (best, ratios, mirrored[self._row])
-            self._block = None
-        return self._result
-
-
-def drain_deferred(deferreds):
-    """Drain many DeferredScores: each launch's block is copied once,
-    however many handles share it."""
-    return [d() for d in deferreds]

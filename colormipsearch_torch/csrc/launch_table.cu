@@ -3,17 +3,15 @@
 // that the sweep's host thread neither waits for the live tiles nor
 // expands rows by tiles.
 //
-// Replaces the host build (cds/multimask.py:MultiMaskScorer.build_table, a
-// NumPy pass over every (row, listed tile) candidate; the JAX package
-// builds its launch tables on the host too, colormipsearch_tpu/cds/
-// multimask.py:529 `_build_launches`). Plain version:
-// multimask.py:launch_table_plain;
-// wrapper: multimask.py:launch_table. The table equals build_table's bit
-// for bit:
+// Replaces a host build (a NumPy pass over every (row, listed tile)
+// candidate; the JAX package builds its launch tables on the host too,
+// colormipsearch_tpu/cds/multimask.py:529 `_build_launches`). Plain
+// version: cds/multimask.py:launch_table_plain, which the kernel equals
+// bit for bit; wrapper: multimask.py:launch_table.
 //   1. codes_kernel: for each target and tile position on the mask tile
 //      grid, the directions (bit 0 direct, bit 1 mirrored) in which a tile
 //      there can score: the live-tile bitmaps and the target's signal
-//      extents, build_table's exact tests (multimask.py:_direction_codes);
+//      extents, the exact tests of multimask.py:direction_codes_plain;
 //   2. count_kernel: one warp a row (engine, target); its lanes take the
 //      engine's listed tiles 32 at a time and count those whose code is
 //      not 0 (one ballot a step);

@@ -1,3 +1,3 @@
 """Native host helpers (counterpart of `colormipsearch_tpu/native/`)."""
 
-from .mipops import available, pack_planes_native, sparse_pack_block
+from .mipops import available, pack_planes_native

@@ -1,13 +1,13 @@
 """ctypes bindings for the port's copy of the mipops native library.
 
-Counterpart of `colormipsearch_tpu/native/mipops.py`, for the two entry
-points the colorDepthSearch path calls (`pack_planes_native`,
-`sparse_pack_block`). The shared library is built on first use from
+Counterpart of `colormipsearch_tpu/native/mipops.py`, for the entry
+point that the colorDepthSearch path calls (`pack_planes_native`, the
+query's words). The shared library is built on first use from
 `mipops.cpp` with g++ (-O3, OpenMP) into `build/native/` beside the
 package (ignored by git), named by a hash of the source and the flags,
 never beside the source. This is host code: where g++ is missing or the
-build fails, every entry point keeps the reference's NumPy path, with
-the same output.
+build fails, `pack_planes_native` returns None and its caller keeps the
+reference's NumPy path, with the same output.
 """
 
 from __future__ import annotations
@@ -72,9 +72,6 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.pack_planes_rgb.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
             ctypes.c_void_p]
-        lib.sparse_pack_block.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -99,46 +96,4 @@ def pack_planes_native(rgb: np.ndarray, threshold: int,
         exc_ptr = excluded.ctypes.data
     lib.pack_planes_rgb(rgb.ctypes.data, out.ctypes.data, h * w,
                         threshold, exc_ptr)
-    return out
-
-
-def sparse_pack_block_native(rgb_block: np.ndarray, threshold: int):
-    """(flat_idx int32, words int32) for above-threshold pixels of a
-    [T, H, W, 3] u8 target block, row-major sorted; None if the native
-    lib is unavailable. Sub-threshold pixels canonicalize to word 1 on
-    the device scatter fill (score-invariant; see mipops.cpp)."""
-    lib = _load()
-    if lib is None:
-        return None
-    rgb_block = np.ascontiguousarray(rgb_block, dtype=np.uint8)
-    t, h, w, _ = rgb_block.shape
-    px = h * w
-    idx_buf = np.empty(t * px, dtype=np.int32)
-    word_buf = np.empty(t * px, dtype=np.int32)
-    counts = np.empty(t, dtype=np.int64)
-    lib.sparse_pack_block(rgb_block.ctypes.data, t, px, threshold,
-                          idx_buf.ctypes.data, word_buf.ctypes.data,
-                          counts.ctypes.data)
-    segs_i = [idx_buf[ti * px: ti * px + int(counts[ti])] for ti in range(t)]
-    segs_w = [word_buf[ti * px: ti * px + int(counts[ti])] for ti in range(t)]
-    return np.concatenate(segs_i), np.concatenate(segs_w)
-
-
-def sparse_pack_block_numpy(rgb_block: np.ndarray, threshold: int):
-    """NumPy path with identical output to sparse_pack_block_native."""
-    from ..cds.pixel_kernel import pack_planes
-    t, h, w, _ = rgb_block.shape
-    r = rgb_block[..., 0].astype(np.int32)
-    g = rgb_block[..., 1].astype(np.int32)
-    b = rgb_block[..., 2].astype(np.int32)
-    above = (r > threshold) | (g > threshold) | (b > threshold)
-    flat_idx = np.flatnonzero(above.reshape(-1)).astype(np.int32)
-    words = pack_planes(r, g, b, above, np).reshape(-1)[flat_idx]
-    return flat_idx, words.astype(np.int32)
-
-
-def sparse_pack_block(rgb_block: np.ndarray, threshold: int):
-    out = sparse_pack_block_native(rgb_block, threshold)
-    if out is None:
-        out = sparse_pack_block_numpy(rgb_block, threshold)
     return out

@@ -10,6 +10,8 @@ the JAX package's `_multimask_call_ratio` and `_multimask_call` (its
 MultiMaskScorer in interpret mode) exactly, and the prepared planes equal
 its `_ratio_prep` bit for bit."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -26,7 +28,8 @@ from colormipsearch_tpu.imageproc.io import image_from_array  # noqa: E402
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
 from colormipsearch_torch.cds import pixel_active as pa  # noqa: E402
 from colormipsearch_torch.cds.pixel_active import (  # noqa: E402
-    ActiveTilePixelEngine, ActiveTiles, drain_deferred, pad_for_predicate)
+    ActiveTilePixelEngine, ActiveTiles, pad_for_predicate)
+from torch_launch import engine_results  # noqa: E402
 
 H, W = 48, 400
 N_T = 8  # targets: one small block keeps the interpreted JAX runs short
@@ -96,6 +99,19 @@ SURV = np.ones((2, N_T), np.int32)
 SURV[1, ::3] = 0
 
 
+def _table(scorer, words=None):
+    """scorer's launch table of SURV on the CPU (cut by the signal extents
+    and live tiles of `words` when given), as NumPy arrays, its tile_list
+    up to row_off[R]."""
+    cut = () if words is None else (mm.signal_extents(words),
+                                    mm.tile_live_dev(words))
+    tab = scorer.table(SURV, "cpu", *cut)
+    n = int(tab.row_off[-1])
+    return SimpleNamespace(
+        row_off=tab.row_off.numpy(), tile_list=tab.tile_list[:n].numpy(),
+        tgt=tab.tgt.numpy(), surv=tab.surv.numpy(), eng=tab.eng.numpy())
+
+
 @pytest.mark.parametrize("pcf", [1.0, 0.0], ids=["zt9_1e7", "zt9_0"])
 @pytest.mark.parametrize("predicate", ["ratio", "words"])
 def test_compact_lists_score_like_reference(library, predicate, pcf):
@@ -117,8 +133,7 @@ def test_compact_lists_score_like_reference(library, predicate, pcf):
     if ratio:  # the ratio kernel's planes of the reference's frames
         (rf, fw), (rf_m, fw_m) = (pa.ratio_prep(f) for f in frames)
         frames = (rf, fw.to(torch.uint8), rf_m, fw_m.to(torch.uint8))
-    got = drain_deferred(mm.MultiMaskScorer(engines).launch_deferred(
-        frames, SURV))
+    got = engine_results(mm.MultiMaskScorer(engines), frames, SURV)
     assert any(s.any() for s, _, _ in got)
     for (gs, gr, gm), (ws, wr, wm) in zip(got, want):
         np.testing.assert_array_equal(gs, ws)
@@ -183,7 +198,7 @@ def test_ratio_planes_equal_reference_prep(library):
 
 @pytest.mark.parametrize("mirror", [True, False], ids=["mirror", "direct"])
 def test_launch_table_cut_is_exact(library, mirror):
-    """build_table's rows (engine order, then target order) list each
+    """The launch table's rows (engine order, then target order) list each
     engine's tiles with an entry, in tile order, with the directions its
     live-tile bitmaps and signal ranges leave; each (row, tile, direction)
     it leaves out counts 0 in the plain version, and it leaves some out."""
@@ -192,9 +207,8 @@ def test_launch_table_cut_is_exact(library, mirror):
                for m in masks]
     words = engines[0].pack_raw_words(targets, "cpu")
     scorer = mm.MultiMaskScorer(engines)
-    full = scorer.build_table(SURV)
-    cut = scorer.build_table(SURV, mm.signal_ranges_from_words(words),
-                             mm.tile_live_from_words(words))
+    full = _table(scorer)
+    cut = _table(scorer, words)
     eng, dest = np.nonzero(SURV)
     for tab in (full, cut):
         np.testing.assert_array_equal(tab.tgt, dest)
@@ -202,10 +216,9 @@ def test_launch_table_cut_is_exact(library, mirror):
     # every (row, tile) of the full table as a one-tile row
     n_full = len(full.tile_list)
     rows = np.repeat(np.arange(len(full.tgt)), np.diff(full.row_off))
-    single = mm.LaunchTable(
-        row_off=np.arange(n_full + 1, dtype=np.int32),
-        tile_list=full.tile_list, tgt=full.tgt[rows],
-        surv=np.ones(n_full, np.int32))
+    single = mm.LaunchTable(*(torch.from_numpy(a) for a in (
+        np.arange(n_full + 1, dtype=np.int32), full.tile_list,
+        full.tgt[rows], np.ones(n_full, np.int32))))
     tiles = full.tile_list & mm.TILE_MASK
     assert (full.tile_list >> mm.DIR_SHIFT == (3 if mirror else 1)).all()
     listed = np.flatnonzero(scorer._n_sel)
@@ -240,18 +253,23 @@ def test_window_bins(library):
                for m in masks]
     words = engines[0].pack_raw_words(targets, "cpu")
     scorer = mm.MultiMaskScorer(engines)
-    tab = scorer.build_table(SURV, mm.signal_ranges_from_words(words),
-                             mm.tile_live_from_words(words))
+    room = scorer.table(SURV, "cpu", mm.signal_extents(words),
+                        mm.tile_live_dev(words))
+    tab = _table(scorer, words)
     surv = tab.surv.copy()
     surv[::2] = 0
     coords = torch.from_numpy(scorer._q_host[-1])
     hp, wp = scorer.frame_shape
     bin_off, mem_row, mem_tile = mm.window_bins(
-        *(torch.from_numpy(a) for a in (tab.row_off, tab.tile_list, tab.tgt,
-                                        surv)), coords, (hp, wp), N_T)
+        room.row_off, room.tile_list, room.tgt, torch.from_numpy(surv),
+        coords, (hp, wp), N_T)
     gh, gw = hp // 8 - 2, wp // 128 - 2
     assert bin_off.numel() == N_T * gh * gw + 1
-    assert int(bin_off[-1]) == len(tab.tile_list)
+    n = len(tab.tile_list)
+    assert int(bin_off[-1]) == n < room.tile_list.numel()
+    # the room past row_off[R] belongs to no row: it sorts past every bin
+    assert (mem_row[n:] == len(tab.tgt)).all()
+    mem_row, mem_tile = mem_row[:n], mem_tile[:n]
     rows = np.repeat(np.arange(len(tab.tgt)), np.diff(tab.row_off))
     entry = np.where(surv[rows] != 0, tab.tile_list,
                      tab.tile_list & mm.TILE_MASK)

@@ -20,19 +20,21 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from colormipsearch_torch.cds import kernels  # noqa: E402
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
 from colormipsearch_torch.cds import pixel_active as pa  # noqa: E402
 from colormipsearch_torch.cds import prescreen as ps  # noqa: E402
 from colormipsearch_torch.cds import shape_device as sd  # noqa: E402
 from colormipsearch_torch.cds import shape_kernel as sk  # noqa: E402
 from colormipsearch_torch.cds.oracle import shift_ring_offsets  # noqa: E402
-from colormipsearch_torch.cds.pixel_active import (  # noqa: E402
-    ActiveTilePixelEngine, drain_deferred)
+from colormipsearch_torch.cds.pixel_active import \
+    ActiveTilePixelEngine  # noqa: E402
 from colormipsearch_torch.cds.prescreen import PairPrescreen  # noqa: E402
 from colormipsearch_torch.parallel.twophase_sweep import \
     TwoPhaseSweep  # noqa: E402
 from colormipsearch_torch.scripts import op_microbench as ob  # noqa: E402
 from colormipsearch_torch.utils import trace  # noqa: E402
+from test_torch_launch_table import build_table  # noqa: E402
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures" / "cdsearch"
 
@@ -66,8 +68,8 @@ def pack_frames(n, feed, h=23, w=41, seed=5):
     channel of a sub-threshold pixel is at most 20 (many exactly 20), and
     a selected pixel has a channel at 21 or above (many exactly 21), some
     grey (three equal channels). The selected pixels: "sparse" a tenth,
-    "dense" three fifths, "quarter" exactly (n*h*w)//4 (the host feed's
-    sparse side) and "quarter+1" one more (its dense side). h * w * 3 is
+    "dense" three fifths, "quarter" exactly (n*h*w)//4 (the occupancy
+    rule's sparse side) and "quarter+1" one more (its dense side). h * w * 3 is
     odd, so a slice from the second frame on is not 4-byte aligned."""
     rng = np.random.default_rng(seed)
     px = n * h * w
@@ -85,8 +87,8 @@ def pack_frames(n, feed, h=23, w=41, seed=5):
 
 
 def _host_words(frames):
-    """The host path's words (the native sparse pack, or the dense pack
-    above a quarter occupancy)."""
+    """The CPU's words: pack_raw_words on the CPU (the staged frames and
+    the plain pack)."""
     eng = ActiveTilePixelEngine(frames[0], 20, True, 20, 1.0, 2)
     return eng.pack_raw_words(frames, "cpu")
 
@@ -97,10 +99,10 @@ PACK_FEEDS = ["sparse", "dense", "quarter", "quarter+1"]
 @pytest.mark.cuda
 @pytest.mark.parametrize("feed", PACK_FEEDS)
 def test_pack_kernel_equals_plain(card, feed):
-    """The pack kernel's words equal its plain version's and the host
-    path's on both feeds and at the occupancy rule's edge, through the
-    aligned and the unaligned (byte-load) loops, and through the staged
-    path (more targets than a staging chunk)."""
+    """The pack kernel's words equal its plain version's and the CPU's on
+    both feeds and at the occupancy rule's edge, through the aligned and
+    the unaligned (byte-load) loops, and through the staged path (more
+    targets than a staging chunk)."""
     frames = pack_frames(pa.STAGE_TARGETS + 1, feed)
     t = torch.from_numpy(frames).to(card)
     host = _host_words(frames)
@@ -122,7 +124,7 @@ def test_pack_kernel_equals_plain(card, feed):
 def test_pack_kernel_fixture_frames(card):
     """The pack kernel on the LM fixtures at 566 x 1210 (all four frames:
     the sparse feed; one frame with its background lifted to 25: the
-    dense feed) equals the host path."""
+    dense feed) equals the CPU's pack."""
     from colormipsearch_torch.imageproc.io import load_image
     frames = np.stack([load_image(str(p)).pixels
                        for p in sorted((FIXTURES / "lms").glob("*.tif"))])
@@ -163,8 +165,8 @@ def test_kernel_equals_plain(card, xy_shift, mirror, flags_off):
     words = engines[0].pack_raw_words(targets, card)
     packed = engines[0].pad_ratio_planes(words)
     scorer = mm.MultiMaskScorer(engines)
-    tab = scorer.build_table(surv, mm.signal_ranges_from_words(words),
-                             mm.tile_live_from_words(words))
+    tab = scorer.table(surv, card, mm.signal_extents(words),
+                       mm.tile_live_dev(words))
     if flags_off:
         tab.surv[::3] = 0  # rows the kernel must report as 0
     args = scorer.kernel_args(packed, tab)
@@ -174,7 +176,7 @@ def test_kernel_equals_plain(card, xy_shift, mirror, flags_off):
     want = mm.multimask_counts_plain(*args, xy_shift, mirror)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert not got[torch.from_numpy(tab.surv).to(card) == 0].any()
+    assert not got[tab.surv == 0].any()
     cpu = mm.multimask_counts(*[a.cpu() for a in args], xy_shift, mirror)
     assert torch.equal(got.cpu(), cpu)
 
@@ -184,29 +186,31 @@ def test_kernel_equals_plain(card, xy_shift, mirror, flags_off):
                                              (0, True)])
 def test_launch_table_kernel_equals_build_table(card, xy_shift, mirror):
     """The card's launch table (`csrc/launch_table.cu`, from the signal
-    extents and live-tile bitmaps where they lie on the card) equals
-    build_table's from their host copies bit for bit, its room past
-    row_off[R] left 0; the kernel equals its plain version on the same
-    tensors with and without each input; K1's counts from both tables are
-    equal."""
+    extents and live-tile bitmaps where they lie on the card) equals the
+    NumPy oracle's (tests/test_torch_launch_table.py:build_table) and the
+    CPU's from their host copies bit for bit, its room past row_off[R]
+    left 0; the kernel equals its plain version on the same tensors with
+    and without each input; K1's counts from both tables are equal."""
     masks, targets, surv = _library()
     engines = [ActiveTilePixelEngine(q, 20, mirror, 20, 1.0, xy_shift)
                for q in masks]
     words = engines[0].pack_raw_words(targets, card)
     scorer = mm.MultiMaskScorer(engines)
     ext, live = mm.signal_extents(words), mm.tile_live_dev(words)
-    want = scorer.build_table(surv, mm.signal_ranges_from_words(words),
-                              mm.tile_live_from_words(words))
+    ext_cpu, live_cpu = ext.cpu(), tuple(t.cpu() for t in live)
+    want = build_table(scorer, surv, ext_cpu.numpy(),
+                       tuple(t.numpy() for t in live_cpu))
+    cpu = scorer.table(surv, "cpu", ext_cpu, live_cpu)
     before = mm.launch_table.launches
-    got = scorer.device_table(surv, card, ext, live)
+    got = scorer.table(surv, card, ext, live)
     assert mm.launch_table.launches == before + 1
     n = int(got.row_off[-1])
-    np.testing.assert_array_equal(got.row_off.cpu().numpy(), want.row_off)
-    np.testing.assert_array_equal(got.tile_list[:n].cpu().numpy(),
-                                  want.tile_list)
+    for name in ("row_off", "tile_list", "tgt", "surv", "eng"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(cpu, name))
+    assert torch.equal(got.tile_list[:n].cpu(), want.tile_list)
     assert not got.tile_list[n:].any()
-    np.testing.assert_array_equal(got.tgt.cpu().numpy(), want.tgt)
-    np.testing.assert_array_equal(got.surv.cpu().numpy(), want.surv)
+    for name in ("row_off", "tgt", "surv", "eng"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
     eng, dest = np.nonzero(surv)
     rows = torch.from_numpy(np.stack([eng, dest]).astype(np.int32)).to(card)
     common = (rows, *scorer._upload(scorer._l_dev, scorer._l_host, card),
@@ -218,6 +222,8 @@ def test_launch_table_kernel_equals_build_table(card, xy_shift, mirror):
         p = mm.launch_table_plain(*common, e, lv)
         assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     packed = engines[0].pad_ratio_planes(words)
+    want = mm.LaunchTable(*(t.to(card) for t in (
+        want.row_off, want.tile_list, want.tgt, want.surv)))
     counts = [scorer.counts(scorer.kernel_args(packed, t))
               for t in (got, want)]
     assert torch.equal(counts[0], counts[1])
@@ -226,7 +232,8 @@ def test_launch_table_kernel_equals_build_table(card, xy_shift, mirror):
 
 def _banded(targets):
     """A copy of the targets with a 10 x 24 band of each kept (the rest 0):
-    below a quarter occupancy, so the host path takes the sparse feed."""
+    below a quarter occupancy, so the pack takes the sparse side of its
+    occupancy rule."""
     h, w = targets.shape[1:3]
     banded = np.zeros_like(targets)
     for i in range(targets.shape[0]):
@@ -240,9 +247,9 @@ def _banded(targets):
 @pytest.mark.parametrize("feed", ["dense", "banded"])
 def test_sweep_on_card_equals_cpu(card, feed):
     """TwoPhaseSweep's scores and mirrored flags on the card equal the
-    CPU path's; each launched partition is packed by the card's kernel
-    (sweep.pack.device_blocks) and gets its launch table from the card's
-    (sweep.table.device_blocks), none from the host path."""
+    CPU's; each launched partition is packed by the card's kernel, gets
+    its launch table from the card's and is reduced by the card's (one
+    launch each of target_pack, launch_table and row_reduce)."""
     masks, targets, _ = _library()
     if feed == "banded":
         targets = _banded(targets)
@@ -253,7 +260,7 @@ def test_sweep_on_card_equals_cpu(card, feed):
                      0.5)
     cpu = TwoPhaseSweep(engines, ["cpu"], screen, u, thr).sweep(targets)
     sweep = TwoPhaseSweep(engines, [card], screen, u, thr)
-    before = trace.counts()
+    before = kernels.launch_counts()
     got = sweep.sweep(targets)
     for g, c in zip(got, cpu):
         np.testing.assert_array_equal(g, c)
@@ -261,18 +268,14 @@ def test_sweep_on_card_equals_cpu(card, feed):
     for key, s, m in sweep.sweep_parts(parts):
         np.testing.assert_array_equal(s, cpu[0][:, 10 * key:10 * key + 10])
         np.testing.assert_array_equal(m, cpu[1][:, 10 * key:10 * key + 10])
-    added = trace.counts(before)
-    assert added["sweep.pack.device_blocks"] == 4
-    assert added.get("sweep.pack.host_blocks", 0) == 0
-    assert added["sweep.table.device_blocks"] == 4
-    assert added.get("sweep.table.host_blocks", 0) == 0
-    assert added["sweep.collect.device_blocks"] == 4
-    assert added.get("sweep.collect.host_blocks", 0) == 0
+    after = kernels.launch_counts()
+    for name in ("target_pack", "launch_table", "row_reduce"):
+        assert after[name] - before[name] == 4, name
     # the one-mask route (no screen) launches the same kernel
-    one = drain_deferred([e.score_packed_deferred(
-        e.prepare_targets(targets, card)) for e in engines[:2]])
-    one_cpu = drain_deferred([e.score_packed_deferred(
-        e.prepare_targets(targets, "cpu")) for e in engines[:2]])
+    one = [e.score_packed(e.prepare_targets(targets, card))
+           for e in engines[:2]]
+    one_cpu = [e.score_packed(e.prepare_targets(targets, "cpu"))
+               for e in engines[:2]]
     for (gs, _, gm), (cs, _, cm) in zip(one, one_cpu):
         np.testing.assert_array_equal(gs, cs)
         np.testing.assert_array_equal(gm, cm)
@@ -296,7 +299,7 @@ def test_row_reduce_kernel_equals_plain(card, predicate):
     packed = pa.pad_for_predicate(words, predicate)
     scorer = mm.MultiMaskScorer(engines)
     ext, live = mm.signal_extents(words), mm.tile_live_dev(words)
-    tab = scorer.device_table(surv, card, ext, live)
+    tab = scorer.table(surv, card, ext, live)
     counts = scorer.counts(scorer.kernel_args(packed, tab))
     args = (counts, tab.eng, tab.tgt,
             *scorer._upload(scorer._f_dev, scorer._f_host, card))
@@ -344,8 +347,8 @@ def test_words_kernel_equals_plain(card, pcf, xy_shift, mirror, flags_off):
     words = engines[0].pack_raw_words(targets, card)
     packed = engines[0].pad_from_words(words)
     scorer = mm.MultiMaskScorer(engines)
-    tab = scorer.build_table(surv, mm.signal_ranges_from_words(words),
-                             mm.tile_live_from_words(words))
+    ext, live = mm.signal_extents(words), mm.tile_live_dev(words)
+    tab = scorer.table(surv, card, ext, live)
     if flags_off:
         tab.surv[::3] = 0  # rows the kernel must report as 0
     args = scorer.kernel_args(packed, tab)
@@ -360,9 +363,8 @@ def test_words_kernel_equals_plain(card, pcf, xy_shift, mirror, flags_off):
     # the ratio kernel gives the same counts (same rows; its tile lists
     # hold the tiles with a selected pixel under its own predicate)
     ratio = mm.MultiMaskScorer([e.with_predicate("ratio") for e in engines])
-    rtab = ratio.build_table(surv, mm.signal_ranges_from_words(words),
-                             mm.tile_live_from_words(words))
-    np.testing.assert_array_equal(rtab.tgt, tab.tgt)
+    rtab = ratio.table(surv, card, ext, live)
+    assert torch.equal(rtab.tgt, tab.tgt)
     rtab.surv = tab.surv
     rargs = ratio.kernel_args(engines[0].pad_ratio_planes(words), rtab)
     rgot = mm.multimask_counts(*rargs, xy_shift, mirror)

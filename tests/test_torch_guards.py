@@ -203,6 +203,6 @@ def test_scorer_rejects_frames_of_another_size():
     assert scorer.frame_shape == (64, 512)
     frames = torch.ones((2, 64, 384), dtype=torch.int32)
     with pytest.raises(ValueError, match="do not fit"):
-        scorer.launch_deferred((frames, frames), np.ones((1, 2), np.int32))
+        scorer.launch_block((frames, frames), np.ones((1, 2), np.int32))
     with pytest.raises(ValueError, match="different sizes"):
         mm.MultiMaskScorer([_empty_engine(48, 160), _empty_engine(56, 160)])

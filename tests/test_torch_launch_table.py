@@ -1,10 +1,10 @@
-"""The launch table built as the card builds it (multimask.launch_table:
+"""The launch table (MultiMaskScorer.table through multimask.launch_table:
 its plain PyTorch version on CPU tensors, which the card's kernel
-`csrc/launch_table.cu` is held to in tests/test_torch_cuda.py) equals the
-host's NumPy `MultiMaskScorer.build_table` array for array, on seeded
-random survivors, signal extents and live-tile bitmaps; its room past
-row_off[R] changes neither the kernels' window bins nor the exact
-counts."""
+`csrc/launch_table.cu` is held to in tests/test_torch_cuda.py) equals a
+NumPy build of the same rule (`build_table` below, the oracle) array for
+array, on seeded random survivors, signal extents and live-tile bitmaps;
+its room past row_off[R] changes neither the kernels' window bins nor the
+exact counts."""
 
 import numpy as np
 import pytest
@@ -37,6 +37,71 @@ def _frames(rng, n, keep):
     return f
 
 
+def _direction_codes(scorer, n_targets, signal_ranges, tile_live):
+    """uint8 [n_targets * gh * gw]: for each target and tile position
+    (ty * gw + tx) on the mask tile grid, the directions (bit 0 direct,
+    bit 1 mirrored) in which a tile there can score against that target."""
+    gh, gw = scorer._grid
+    s, sx = scorer._reach
+    live_d = np.ones((n_targets, gh, gw), bool)
+    # the launch's mirror setting, not the engine's
+    live_m = live_d if scorer.mirror else np.zeros_like(live_d)
+    if tile_live is not None:
+        live_d = live_d & tile_live[0]
+        live_m = live_m & tile_live[1]
+    if signal_ranges is not None:
+        # a tile's shifts sample raw rows [cy - s, cy + 8 + s) and cols
+        # [cx - sx, cx + 128 + sx); the mirror pass samples the x-flipped
+        # raw plane, whose signal cols are the reflection of the target's
+        # about (w - 1) / 2
+        rr = np.asarray(signal_ranges).astype(np.int64)
+        cy = np.arange(gh) * mm.TILE_H
+        rok = ((cy >= rr[:, :1] - mm.TILE_H - s + 1)
+               & (cy <= rr[:, 1:2] + s))[:, :, None]
+        live_d = live_d & rok
+        live_m = live_m & rok
+        if rr.shape[1] >= 4:
+            cx = np.arange(gw) * mm.TILE_W
+            c0, c1 = rr[:, 2:3], rr[:, 3:4]
+            w = scorer._width
+            live_d = live_d & ((cx >= c0 - mm.TILE_W - sx + 1)
+                               & (cx <= c1 + sx))[:, None, :]
+            live_m = live_m & ((cx >= w - 1 - c1 - mm.TILE_W - sx + 1)
+                               & (cx <= w - 1 - c0 + sx))[:, None, :]
+    return (live_d.view(np.uint8) | (live_m.view(np.uint8) << 1)).ravel()
+
+
+def build_table(scorer, survivors, signal_ranges=None, tile_live=None):
+    """The oracle: the launch table of `survivors` int [B, T] in NumPy,
+    as CPU tensors, its tile_list without room (exactly the kept tiles).
+
+    Rows in engine order, each engine's in target order; a row's tiles
+    are its engine's listed tiles in tile order, each with the directions
+    _direction_codes leaves it at the row's target, those with none left
+    out."""
+    survivors = np.asarray(survivors)
+    eng, dest = np.nonzero(survivors)
+    codes = _direction_codes(scorer, survivors.shape[1], signal_ranges,
+                             tile_live)
+    # the candidates: every row with every listed tile of its engine
+    cnt = np.diff(scorer._listed_off)[eng]
+    ends = np.cumsum(cnt)
+    starts = ends - cnt
+    n_cand = int(ends[-1]) if len(ends) else 0
+    idx = np.arange(n_cand) + np.repeat(scorer._listed_off[eng] - starts,
+                                        cnt)
+    gh, gw = scorer._grid
+    code = codes[np.repeat(dest * (gh * gw), cnt) + scorer._listed_pos[idx]]
+    keep = np.flatnonzero(code)
+    arrays = dict(
+        row_off=np.searchsorted(keep, np.append(starts, n_cand)),
+        tile_list=scorer._listed[idx[keep]]
+        | (code[keep].astype(np.int32) << mm.DIR_SHIFT),
+        tgt=dest, surv=np.ones(len(eng)), eng=eng)
+    return mm.LaunchTable(**{k: torch.from_numpy(v.astype(np.int32))
+                             for k, v in arrays.items()})
+
+
 def _inputs(case, seed=2020):
     mirror, n_ext, live, share, empty, n_t = CASES[case]
     rng = np.random.default_rng(seed)
@@ -63,16 +128,16 @@ def _inputs(case, seed=2020):
 @pytest.mark.parametrize("case", list(CASES))
 def test_plain_table_equals_build_table(case):
     scorer, surv, ext, bitmaps, targets = _inputs(case)
-    want = scorer.build_table(surv, ext, bitmaps)
-    got = scorer.device_table(
+    want = build_table(scorer, surv, ext, bitmaps)
+    got = scorer.table(
         surv, "cpu", None if ext is None else torch.from_numpy(ext),
         None if bitmaps is None else tuple(map(torch.from_numpy, bitmaps)))
     n = int(got.row_off[-1])
-    np.testing.assert_array_equal(got.row_off.numpy(), want.row_off)
-    np.testing.assert_array_equal(got.tile_list[:n].numpy(), want.tile_list)
-    np.testing.assert_array_equal(got.tgt.numpy(), want.tgt)
-    np.testing.assert_array_equal(got.surv.numpy(), want.surv)
-    np.testing.assert_array_equal(got.eng.numpy(), want.eng)
+    for name in ("row_off", "tgt", "surv", "eng"):
+        got_t, want_t = getattr(got, name), getattr(want, name)
+        assert got_t.dtype == torch.int32, name
+        assert torch.equal(got_t, want_t), name
+    assert torch.equal(got.tile_list[:n], want.tile_list)
     # room for every candidate: each row's listed tiles, the rest 0
     listed = np.diff(scorer._listed_off)
     eng = np.nonzero(surv)[0]

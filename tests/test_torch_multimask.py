@@ -16,8 +16,8 @@ from colormipsearch_tpu.imageproc.io import image_from_array  # noqa: E402
 
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
 from colormipsearch_torch.cds.pixel_active import (  # noqa: E402
-    ActiveTilePixelEngine, ActiveTiles, drain_deferred, pad_for_predicate,
-    ratio_prep)
+    ActiveTilePixelEngine, ActiveTiles, pad_for_predicate, ratio_prep)
+from torch_launch import engine_results  # noqa: E402
 
 N_T = 16  # targets: one 16-target block keeps the interpreted JAX runs short
 
@@ -112,19 +112,17 @@ def test_scorer_matches_reference(ref_run, dense, order):
         perm = perm[::-1]
     engines = [_carry(ref_run["engines"][i]) for i in perm]
     scorer = mm.MultiMaskScorer(engines)
-    got = drain_deferred(scorer.launch_deferred(ref_run["planes"],
-                                                surv[perm]))
+    got = engine_results(scorer, ref_run["planes"], surv[perm])
     _assert_same(got, [want_mm[i] for i in perm])
     _assert_same(got, [want_pm[i] for i in perm])
 
 
 def test_one_mask_launches_match_reference(ref_run):
-    """score_packed_deferred (the per-mask route, a one-mask launch)."""
+    """score_packed (the per-mask route, a one-mask launch)."""
     surv, _, want_pm = ref_run[False]
     engines = [_carry(e) for e in ref_run["engines"]]
-    got = drain_deferred([e.score_packed_deferred(ref_run["planes"],
-                                                  survivors=surv[i])
-                          for i, e in enumerate(engines)])
+    got = [e.score_packed(ref_run["planes"], survivors=surv[i])
+           for i, e in enumerate(engines)]
     _assert_same(got, want_pm)
     if ref_run["mirror"]:
         _, _, want_dense = ref_run[True]
@@ -141,8 +139,7 @@ def test_engines_built_from_images(library, ref_run):
                                      ref_run["mirror"], 20, 1.0, 2, None)
                for q in masks]
     packed = engines[0].prepare_targets(targets, torch.device("cpu"))
-    got = drain_deferred(mm.MultiMaskScorer(engines).launch_deferred(packed,
-                                                                     surv))
+    got = engine_results(mm.MultiMaskScorer(engines), packed, surv)
     _assert_same(got, want_mm)
 
 
@@ -158,9 +155,9 @@ def test_small_rows(library, ref_run):
         e.score_packed_deferred(packed_ref, survivors=surv[i])
         for i, e in enumerate(engines_ref)])
     scorer = mm.MultiMaskScorer([_carry(e) for e in engines_ref])
-    tab = scorer.build_table(surv)
-    np.testing.assert_array_equal(tab.tgt, [5, 0, N_T - 1])
-    got = drain_deferred(scorer.launch_deferred(ref_run["planes"], surv))
+    tab = scorer.table(surv, "cpu")
+    np.testing.assert_array_equal(tab.tgt.numpy(), [5, 0, N_T - 1])
+    got = engine_results(scorer, ref_run["planes"], surv)
     _assert_same(got, want)
 
 
@@ -183,8 +180,8 @@ def test_k768_bucket_state(ref_run):
     engines = [_carry(x) for x in ref_run["engines"]]
     engines[1] = _carry(e, padded)
     assert engines[1].tiles.q_cmp.shape[0] == t.n_active
-    got = drain_deferred(mm.MultiMaskScorer(engines).launch_deferred(
-        ref_run["planes"], surv))
+    got = engine_results(mm.MultiMaskScorer(engines), ref_run["planes"],
+                         surv)
     _assert_same(got, want_mm)
 
 
@@ -208,14 +205,14 @@ def test_live_tile_restriction_is_exact(library, ref_run):
     engines = [_carry(e) for e in engines_ref]
     words = engines[0].pack_raw_words(banded, torch.device("cpu"))
     packed = pad_for_predicate(words, "ratio")
-    ranges = mm.signal_ranges_from_words(words)
-    live = mm.tile_live_from_words(words)
+    ranges = mm.signal_extents(words)
+    live = mm.tile_live_dev(words)
     scorer = mm.MultiMaskScorer(engines)
-    full = scorer.build_table(surv)
-    cut = scorer.build_table(surv, ranges, live)
-    assert len(cut.tile_list) < len(full.tile_list)
-    got = drain_deferred(scorer.launch_deferred(
-        packed, surv, signal_ranges=ranges, tile_live=live))
+    full = scorer.table(surv, "cpu")
+    cut = scorer.table(surv, "cpu", ranges, live)
+    assert int(cut.row_off[-1]) < int(full.row_off[-1])
+    got = engine_results(scorer, packed, surv, signal_ranges=ranges,
+                         tile_live=live)
     _assert_same(got, want)
 
 
@@ -225,14 +222,14 @@ def test_survivor_flag_zero_rows(ref_run):
     surv, _, _ = ref_run[True]
     engines = [_carry(e) for e in ref_run["engines"]]
     scorer = mm.MultiMaskScorer(engines)
-    tab = scorer.build_table(surv)
+    tab = scorer.table(surv, "cpu")
     args = scorer.kernel_args(ref_run["planes"], tab)
     full = mm.multimask_counts(*args, 2, ref_run["mirror"])
-    off = tab.surv.copy()
+    off = tab.surv.clone()
     off[::3] = 0
-    args[-1] = torch.from_numpy(off)
+    args[-1] = off
     part = mm.multimask_counts(*args, 2, ref_run["mirror"])
-    keep = torch.from_numpy(off) != 0
+    keep = off != 0
     assert torch.equal(part[keep], full[keep])
     assert not part[~keep].any()
     assert full[~keep].any()

@@ -4,8 +4,8 @@ held to in tests/test_torch_cuda.py) and the sweep's collect built on it
 equal the NumPy reduction that the collect ran on the host before
 (`old_finalize` below: each mask's rows of the exact counts scattered
 into [T, 2S], zeroed outside the survivors, then the direct and mirrored
-maxima), scores and mirrored flags array for array, and the ratios of
-drain_deferred with them."""
+maxima), scores and mirrored flags array for array, and the one-mask
+route's (score_packed) scores, ratios and mirrored flags with them."""
 
 import numpy as np
 import pytest
@@ -15,7 +15,7 @@ torch.set_num_threads(2)
 
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
 from colormipsearch_torch.cds.pixel_active import (  # noqa: E402
-    ActiveTilePixelEngine, drain_deferred, pad_for_predicate)
+    ActiveTilePixelEngine, pad_for_predicate)
 from colormipsearch_torch.cds.prescreen import PairPrescreen  # noqa: E402
 from colormipsearch_torch.parallel.twophase_sweep import \
     TwoPhaseSweep  # noqa: E402
@@ -87,20 +87,20 @@ def _old_collect(sweep, targets, surv):
     """The sweep's (scores, mirrored, ratios) [B, T] by the host reduction
     of each group's counts."""
     words = sweep.engines[0].pack_raw_words(targets, "cpu")
-    ranges = mm.signal_ranges_from_words(words)
-    live = mm.tile_live_from_words(words)
+    ranges = mm.signal_extents(words)
+    live = mm.tile_live_dev(words)
     shape = (len(sweep.engines), targets.shape[0])
     scores, ratios = np.zeros(shape, np.int64), np.zeros(shape)
     mirrored = np.zeros(shape, bool)
     for idx, scorer in sweep.groups:
-        tab = scorer.build_table(surv[idx], ranges, live)
+        tab = scorer.table(surv[idx], "cpu", ranges, live)
         packed = pad_for_predicate(words, scorer.predicate)
         counts = scorer.counts(scorer.kernel_args(packed, tab)).numpy()
         for pos, i in enumerate(idx):
-            rows = np.flatnonzero(tab.eng == pos)
+            rows = np.flatnonzero(tab.eng.numpy() == pos)
             scores[i], ratios[i], mirrored[i] = old_finalize(
-                sweep.engines[i], shape[1], counts, rows, tab.tgt[rows],
-                surv[i])
+                sweep.engines[i], shape[1], counts, rows,
+                tab.tgt.numpy()[rows], surv[i])
     return scores, mirrored, ratios
 
 
@@ -123,34 +123,39 @@ def test_collect_equals_old_finalize(case):
     if case == "ties":  # ties of nonzero counts stay direct
         assert not want_m.any()
     # the plain reduction of each group's counts
-    ranges = mm.signal_ranges_from_words(words)
-    live = mm.tile_live_from_words(words)
+    ranges = mm.signal_extents(words)
+    live = mm.tile_live_dev(words)
     for idx, scorer in sweep.groups:
-        tab = scorer.build_table(surv[idx], ranges, live)
+        tab = scorer.table(surv[idx], "cpu", ranges, live)
         packed = pad_for_predicate(words, scorer.predicate)
         counts = scorer.counts(scorer.kernel_args(packed, tab))
-        block = mm.row_reduce(counts, torch.from_numpy(tab.eng),
-                              torch.from_numpy(tab.tgt),
+        block = mm.row_reduce(counts, tab.eng, tab.tgt,
                               *scorer._upload(scorer._f_dev, scorer._f_host,
                                               torch.device("cpu")),
                               targets.shape[0]).numpy()
         np.testing.assert_array_equal(block & 0x7FFFFFFF, want_s[idx])
         np.testing.assert_array_equal(block < 0, want_m[idx])
-        # the handles of one launch: drain_deferred's triples
-        got = drain_deferred(scorer.launch_deferred(packed, surv[idx],
-                                                    ranges, live))
-        for pos, i in enumerate(idx):
-            s, r, m = got[pos]
+        # the launch's block, read back once
+        s, m = scorer.launch_block(packed, surv[idx], ranges, live).result()
+        assert s.dtype == np.int64 and m.dtype == bool
+        np.testing.assert_array_equal(s, want_s[idx])
+        np.testing.assert_array_equal(m, want_m[idx])
+        # the one-mask route's triples
+        for i in idx:
+            s, r, m = sweep.engines[i].score_packed(packed, surv[i])
             assert s.dtype == np.int64 and m.dtype == bool
             np.testing.assert_array_equal(s, want_s[i])
             np.testing.assert_array_equal(r, want_r[i])
             np.testing.assert_array_equal(m, want_m[i])
-    # the sweep's collect, over two device blocks
-    before = trace.counts()
-    got_s, got_m = sweep.sweep(targets)
+    # the sweep's collect, over two device blocks: one launch table (and
+    # one reduction) per block and group
+    trace.enable()
+    try:
+        got_s, got_m = sweep.sweep(targets)
+        spans = trace.drain()["spans"]
+    finally:
+        trace.disable()
     np.testing.assert_array_equal(got_s, want_s)
     np.testing.assert_array_equal(got_m, want_m)
-    added = trace.counts(before)
     n_blocks = len(sweep.groups) * min(2, targets.shape[0])
-    assert added["sweep.collect.host_blocks"] == n_blocks
-    assert added.get("sweep.collect.device_blocks", 0) == 0
+    assert sum(s.name == "sweep.table" for s in spans) == n_blocks

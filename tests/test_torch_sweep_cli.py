@@ -345,11 +345,10 @@ def test_stage_totals_are_the_spans(library):
     assert parent_of["sweep.pack"] == {"sweep.part"}
     # two device blocks a partition: two of each stage span per part
     assert sum(s.name == "sweep.pack" for s in spans) == 6
-    assert got["counters"]["sweep.table.host_blocks"] == 6
-    assert "sweep.table.device_blocks" not in got["counters"]
-    # one block reduced by the plain version per device block and group
-    assert got["counters"]["sweep.collect.host_blocks"] == 6
-    assert "sweep.collect.device_blocks" not in got["counters"]
+    # one launch table per device block and group
+    assert sum(s.name == "sweep.table" for s in spans) == 6
+    # the sweep counts nothing of its own
+    assert not any(n.startswith("sweep.") for n in got["counters"])
 
 
 @pytest.mark.parametrize("prescreen", ["on", "off"])

@@ -19,6 +19,7 @@ from colormipsearch_tpu.cds import pixel_pallas as ref_pp  # noqa: E402
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
 from colormipsearch_torch.cds import pixel_active as pa  # noqa: E402
 from colormipsearch_torch.cmd.main import main  # noqa: E402
+from torch_launch import engine_results  # noqa: E402
 
 ZT9_MAX = 1_008_843_137  # the largest zt9 whose splits c9_split accepts
 
@@ -156,14 +157,14 @@ def test_words_equal_ratio(pcf, xy_shift, mirror):
     cpu = torch.device("cpu")
     w = ratio[0].pack_raw_words(targets, cpu)
     packed = {p: pa.pad_for_predicate(w, p) for p in ("ratio", "words")}
-    cut = (mm.signal_ranges_from_words(w), mm.tile_live_from_words(w))
+    cut = (mm.signal_extents(w), mm.tile_live_dev(w))
     for restrict in (None, cut):
         kw = {} if restrict is None else dict(signal_ranges=restrict[0],
                                               tile_live=restrict[1])
-        got = pa.drain_deferred(mm.MultiMaskScorer(words).launch_deferred(
-            packed["words"], surv, **kw))
-        want = pa.drain_deferred(mm.MultiMaskScorer(ratio).launch_deferred(
-            packed["ratio"], surv, **kw))
+        got = engine_results(mm.MultiMaskScorer(words), packed["words"],
+                             surv, **kw)
+        want = engine_results(mm.MultiMaskScorer(ratio), packed["ratio"],
+                              surv, **kw)
         for (gs, _, gm), (ws, _, wm) in zip(got, want):
             np.testing.assert_array_equal(gs, ws)
             np.testing.assert_array_equal(gm, wm)

@@ -1,6 +1,7 @@
 """The port's packed-word exact path (plain version on the CPU) against the
 JAX package's under CMS_RATIO_PRED=0: MultiMaskScorer (K3a,
-`_multimask_call`) and the per-mask score_packed_deferred (K3b,
+`_multimask_call`) and the per-mask route (the port's score_packed, the
+reference's score_packed_deferred: K3b,
 `_active_tile_call` and its compacted route `_compact_call`), both run
 with interpret=True. The reference engines are built while
 pixel_pallas._RATIO_PRED is False, so they carry the raw query tiles and
@@ -19,7 +20,8 @@ from colormipsearch_tpu.imageproc.io import image_from_array  # noqa: E402
 
 from colormipsearch_torch.cds import multimask as mm  # noqa: E402
 from colormipsearch_torch.cds.pixel_active import (  # noqa: E402
-    ActiveTilePixelEngine, ActiveTiles, drain_deferred)
+    ActiveTilePixelEngine, ActiveTiles)
+from torch_launch import engine_results  # noqa: E402
 
 N_T = 16  # targets: one 16-target block keeps the interpreted JAX runs short
 
@@ -117,7 +119,7 @@ def test_words_scorer_matches_reference(ref_run, dense):
     assert scorer.predicate == "words"
     # sel_off, sel_q (the selected pixels' words), coords
     assert len(scorer._q_for(torch.device("cpu"))) == 3
-    got = drain_deferred(scorer.launch_deferred(ref_run["packed"], surv))
+    got = engine_results(scorer, ref_run["packed"], surv)
     _assert_same(got, want)
 
 
@@ -127,13 +129,13 @@ def test_words_live_tile_restriction_is_exact(ref_run):
     engines = [_carry(e) for e in ref_run["engines"]]
     words = torch.from_numpy(np.array(
         ref_run["packed"][0][:, 8:-8, 128:128 + engines[0].tiles.width]))
-    ranges = mm.signal_ranges_from_words(words)
-    live = mm.tile_live_from_words(words)
+    ranges = mm.signal_extents(words)
+    live = mm.tile_live_dev(words)
     scorer = mm.MultiMaskScorer(engines)
-    assert len(scorer.build_table(surv, ranges, live).tile_list) <= \
-        len(scorer.build_table(surv).tile_list)
-    got = drain_deferred(scorer.launch_deferred(
-        ref_run["packed"], surv, signal_ranges=ranges, tile_live=live))
+    assert int(scorer.table(surv, "cpu", ranges, live).row_off[-1]) <= \
+        int(scorer.table(surv, "cpu").row_off[-1])
+    got = engine_results(scorer, ref_run["packed"], surv,
+                         signal_ranges=ranges, tile_live=live)
     _assert_same(got, want)
 
 
@@ -150,8 +152,7 @@ def test_words_engines_from_images(library, ref_run):
         np.testing.assert_array_equal(e.tiles.q_words,
                                       r.tiles.q_tiles[:r.tiles.n_active])
     packed = engines[0].prepare_targets(targets, torch.device("cpu"))
-    got = drain_deferred(mm.MultiMaskScorer(engines).launch_deferred(packed,
-                                                                     surv))
+    got = engine_results(mm.MultiMaskScorer(engines), packed, surv)
     _assert_same(got, want)
 
 
@@ -182,15 +183,14 @@ def per_mask_ref(library):
 
 
 def test_one_mask_launches_match_reference(per_mask_ref):
-    """K3b: score_packed_deferred (a one-mask launch of the word kernel)
+    """K3b: score_packed (a one-mask launch of the word kernel)
     equals the reference's per-mask route, compacted or not, and without
     survivors."""
     engines_ref, packed, surv, want, want_all = per_mask_ref
     assert all(1 <= surv[i].sum() <= 4 for i in (2, 3, 4))
     packed_t = tuple(torch.from_numpy(np.array(a)) for a in packed)
     engines = [_carry(e) for e in engines_ref]
-    got = drain_deferred([e.score_packed_deferred(packed_t,
-                                                  survivors=surv[i])
-                          for i, e in enumerate(engines)])
+    got = [e.score_packed(packed_t, survivors=surv[i])
+           for i, e in enumerate(engines)]
     _assert_same(got, want)
     _assert_same([e.score_packed(packed_t) for e in engines[:2]], want_all)
